@@ -1,0 +1,134 @@
+"""The port's Kneller/Calandrini assembly (transport_analysis_tpu_torch/ops/
+cuda_kneller.py, ops/einstein.py) against the JAX package.
+
+On the CPU the K6 wrappers run their plain PyTorch versions; the JAX side
+runs ``einstein._einstein_fft_impl`` and, where its shape gate allows
+(N % 512 == 0, N >= 1024), the Pallas kernels of ``pallas_kneller`` in
+interpret mode. The port takes any N >= 1: the odd sizes below are the
+ragged edges the TPU gate excluded. Bound: 1e-12 of the maximum, with
+lag 0 exactly 0.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from transport_analysis_tpu.ops import einstein as jein  # noqa: E402
+from transport_analysis_tpu.ops import pallas_kneller as jpk  # noqa: E402
+from transport_analysis_tpu_torch.ops import cuda_kneller, einstein  # noqa: E402
+
+TOL = 1e-12
+
+
+def rel(got, ref) -> float:
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _centered_inputs(n, p, d, seed=11):
+    """Centered operand a (N, P, d), its |a|² component sums and its raw
+    component-summed autocorrelation, from a numpy seed."""
+    a = np.random.RandomState(seed).normal(0, 1.5, (n, p, d))
+    a -= a.mean(axis=0, keepdims=True)
+    sq = np.sum(a * a, axis=-1)
+    f = np.fft.rfft(a.reshape(n, p * d), n=4 * n, axis=0)
+    corr = np.fft.irfft(f * np.conj(f), n=4 * n, axis=0)[:n]
+    return a, sq, corr.reshape(n, p, d).sum(axis=-1)
+
+
+SHAPES = [(1024, 37, 3), (1000, 5, 3), (7, 2, 1)]
+
+
+@pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
+@pytest.mark.parametrize("n,p,d", SHAPES)
+def test_assembly_vs_jax_xla(n, p, d, reduce_mode):
+    _, sq, corr = _centered_inputs(n, p, d)
+    got = cuda_kneller.einstein_assembly(
+        torch.from_numpy(sq), torch.from_numpy(corr), reduce_mode, d)
+    ref = np.asarray(jein._einstein_fft_impl(
+        jnp.asarray(sq), reduce_mode, d, jnp.asarray(corr)))
+    assert got.shape == (n, p)
+    assert rel(got, ref) <= TOL
+    assert torch.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
+def test_assembly_vs_jax_pallas_interpret(reduce_mode):
+    n, p, d = SHAPES[0]
+    assert jpk.supported(n)
+    _, sq, corr = _centered_inputs(n, p, d)
+    got = cuda_kneller.einstein_assembly(
+        torch.from_numpy(sq), torch.from_numpy(corr), reduce_mode, d)
+    ref = np.asarray(jpk.einstein_assembly(
+        jnp.asarray(sq), jnp.asarray(corr), reduce_mode, d))
+    assert rel(got, ref) <= TOL
+    assert torch.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("n,p", [(1, 1), (127, 3), (128, 2), (300, 129)])
+def test_totals_plain_vs_numpy(n, p):
+    """Block totals of sq and of sq in reverse frame order, with the
+    ragged last block."""
+    rows = cuda_kneller.KNELLER_ROWS
+    sq = np.random.RandomState(n).uniform(0, 2, (n, p))
+    got = cuda_kneller.kneller_totals(torch.from_numpy(sq)).numpy()
+    nb = -(-n // rows)
+    ref = np.zeros((2, nb, p))
+    for b in range(nb):
+        ref[0, b] = sq[b * rows:(b + 1) * rows].sum(0)
+        ref[1, b] = sq[::-1][b * rows:(b + 1) * rows].sum(0)
+    assert got.shape == (2, nb, p)
+    assert rel(got, ref) <= TOL
+
+
+def test_windows_deep_lags_without_cancellation():
+    """The window sums at the deepest lags come out at the grade of the
+    few squares they hold, not at eps·total: the plain version takes
+    total - css[lag-1] as a suffix sum, as the kernel does."""
+    n = 4096
+    sq = np.full((n, 1), 1.0)
+    sq[0] = sq[-1] = 1e-6
+    corr = np.zeros((n, 1))
+    out = cuda_kneller.kneller_windows(
+        torch.from_numpy(sq), torch.from_numpy(corr),
+        cuda_kneller.kneller_totals(torch.from_numpy(sq)), 1).numpy()
+    assert out[n - 1, 0] == pytest.approx(2e-6, rel=1e-12)
+
+
+def test_windows_rejects_mismatched_totals():
+    sq = torch.ones((10, 2), dtype=torch.float64)
+    tot = torch.ones((2, 2, 2), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        cuda_kneller.kneller_windows(sq, sq, tot, 1)
+    with pytest.raises(ValueError):
+        cuda_kneller.einstein_assembly(sq, sq, "median", 1)
+
+
+@pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
+@pytest.mark.parametrize("n,p,d", [(200, 6, 3), (65, 3, 2), (1, 2, 3)])
+def test_einstein_difference_fft_vs_jax(n, p, d, reduce_mode):
+    """The whole FFT path: per-series centering, the autocorrelation and
+    the assembly, on an operand with a large mean offset."""
+    a = np.random.RandomState(n + p).normal(50.0, 2.0, (n, p, d))
+    got = einstein.einstein_difference_fft(a, reduce_mode, device="cpu")
+    ref = np.asarray(jein.einstein_difference_fft(jnp.asarray(a),
+                                                  reduce_mode))
+    if n == 1:
+        assert np.array_equal(got.numpy(), ref)
+        return
+    assert rel(got, ref) <= TOL
+
+
+def test_einstein_difference_fft_corr_argument():
+    """``corr=`` supplies the raw autocorrelation of an already centered
+    operand; the result equals the one-call path."""
+    a, _, corr = _centered_inputs(96, 4, 3, seed=3)
+    full = einstein.einstein_difference_fft(a, "mean", device="cpu")
+    given = einstein.einstein_difference_fft(a, "mean", corr=corr,
+                                             device="cpu")
+    assert rel(given, full) <= TOL
+

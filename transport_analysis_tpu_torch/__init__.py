@@ -1,0 +1,45 @@
+"""
+transport_analysis_tpu_torch
+============================
+
+The PyTorch/CUDA port of ``transport_analysis_tpu``: the same analyses and
+public names, computed in float64 on one NVIDIA Hopper card (H100) through
+kernels written by hand in CUDA C++, or on the CPU through their plain
+PyTorch versions.
+
+* ``core``   — Universe / AtomGroup / Timestep data model + selection
+               language (numpy only, copied from the JAX package).
+* ``models`` — ``VelocityAutocorr`` and ``ViscosityHelfand`` with the
+               reference's API surface, plus ``device=``.
+* ``ops``    — the Wiener–Khinchin autocorrelation (four-step FFT
+               kernels, ``ops/cuda_fft.py``), the Kneller/Calandrini
+               Einstein assembly (``ops/cuda_kneller.py``), integration
+               and linear fits.
+* ``convert`` — builds a Universe from plain numpy arrays.
+* ``io``, ``data``, ``parallel`` — not ported yet: each name raises
+  ``NotImplementedError`` naming its ROADMAP.md item.
+
+The kernels (``csrc/*.cu``) are compiled by nvcc for sm_90a at first use
+(``_build.py``). A CUDA tensor always goes to its kernel, or raises; a CPU
+tensor runs the plain version. This package never imports jax.
+"""
+
+from ._device import resolve_device
+from .utils.errors import NoDataError
+from .core.universe import Universe
+from .core.groups import AtomGroup, UpdatingAtomGroup
+from .models.velocityautocorr import VelocityAutocorr
+from .models.viscosity import ViscosityHelfand
+from .models.msd import EinsteinMSD
+from . import convert, data, io, ops, parallel
+
+__all__ = [
+    "Universe",
+    "AtomGroup",
+    "UpdatingAtomGroup",
+    "NoDataError",
+    "VelocityAutocorr",
+    "ViscosityHelfand",
+    "EinsteinMSD",
+    "resolve_device",
+]

@@ -1,0 +1,155 @@
+"""Build and load the port's CUDA kernels.
+
+The sources ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, at first use, into
+``build/torch_kernels/`` of the repository checkout that holds the package
+(an installed copy builds under the user's cache directory instead, see
+:func:`build_dir`). The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt. It is loaded
+with ``ctypes``; every C entry returns ``cudaGetLastError()`` after its
+launch and :func:`check` raises on a non-zero code.
+
+Importing this module compiles and loads nothing, so it imports on a
+machine without ``nvcc`` or a card; only :func:`library` needs them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# C entry point -> argument types; each returns a cudaError_t as int
+SIGNATURES = {
+    # in, out, roots, A, n, C, n_out, sign, tw_cols, m, stream
+    "ta_fft_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, out, roots, m, n1, n2, w, P, d, ph, stream
+    "ta_unpack_power_inva": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # sq, tot, n, p, rows, stream
+    "ta_kneller_totals": [_P, _P, _I, _I, _I, _P],
+    # sq, corr, tot, out, n, p, rows, dfac, stream
+    "ta_kneller_windows": [_P, _P, _P, _P, _I, _I, _I, _D, _P],
+}
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels`` of the checkout when the package lies in one
+    (``pyproject.toml`` beside it), else a per-user cache directory
+    (``$XDG_CACHE_HOME``, default ``~/.cache``), so installed copies in a
+    shared environment do not build into ``site-packages``."""
+    root = PACKAGE_DIR.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "transport_analysis_tpu_torch" / "torch_kernels"
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return build_dir() / f"libta_kernels-{h.hexdigest()[:16]}.so"
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the port's CUDA kernels are built from "
+        "transport_analysis_tpu_torch/csrc at first use and need the CUDA "
+        "toolkit"
+    )
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    nvcc's report (``-Xptxas=-v``: registers, shared memory, spills) is
+    kept beside the library as ``.log``."""
+    path = library_path()
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    path.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
+            f"{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, path)  # atomic: a concurrent builder sees all or none
+    return path
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first use and loaded once."""
+    with _lock:
+        if "lib" not in _loaded:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ta_error_string.argtypes = [ctypes.c_int]
+            lib.ta_error_string.restype = ctypes.c_char_p
+            _loaded["lib"] = lib
+        return _loaded["lib"]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = library().ta_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# The launch contract every ctypes wrapper keeps.
+
+MAX_GRID_Y = 65535       # CUDA's grid y limit: fft_level's A, K6's blocks
+
+
+def kernel_operand(t, name: str) -> None:
+    """What the CUDA kernels take: a contiguous CUDA tensor."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"{name}: the kernel takes CUDA tensors, got device {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as the kernels take it."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,48 @@
+"""Device selection: one NVIDIA Hopper card, or the CPU.
+
+The kernels are built for ``sm_90a`` only, so a CUDA device must have
+compute capability (9, 0). On the CPU every kernel wrapper runs its plain
+PyTorch version; that choice follows the tensor's device and nothing else.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+HOPPER = (9, 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``. ``None`` means the first CUDA
+    card when one is present, else the CPU. A CUDA device must be a
+    Hopper card; anything else raises."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch.cuda.is_available() "
+                "is false"
+            )
+        cap = tuple(torch.cuda.get_device_capability(device))
+        if cap != HOPPER:
+            raise RuntimeError(
+                f"{torch.cuda.get_device_name(device)} has compute "
+                f"capability {cap}; the kernels are built for sm_90a "
+                f"(Hopper, {HOPPER})"
+            )
+    elif device.type != "cpu":
+        raise ValueError(
+            f"unsupported device {device}: use 'cuda' (Hopper) or 'cpu'"
+        )
+    return device
+
+
+def as_tensor(x, device=None) -> torch.Tensor:
+    """A tensor on ``device``: tensors keep their device when ``device``
+    is None; numpy arrays and sequences go to :func:`resolve_device`."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(resolve_device(device))
+    return torch.as_tensor(np.asarray(x), device=resolve_device(device))

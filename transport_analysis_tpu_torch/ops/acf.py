@@ -1,0 +1,110 @@
+"""Autocorrelation by the Wiener–Khinchin theorem, float64 on the device.
+
+Counterpart of ``transport_analysis_tpu/ops/acf.py``'s FFT path:
+
+    C(lag, p) = 1/(N-lag) · Σ_{i<N-lag} Σ_d x[i,p,d] · x[i+lag,p,d]
+
+zero-padded to M = 2·next_pow_2(N), with the component sum taken on the
+power spectra so the inverse transform carries one column per particle
+(the JAX CPU path's ``_raw_autocorr_native_sumlast``). The transform is
+the four-step composition of ``cuda_fft``: hand-written kernels on a CUDA
+tensor, their plain PyTorch versions on a CPU tensor. The windowed
+``acf_windowed`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import as_tensor
+from ..utils.errors import not_ported
+from . import cuda_fft
+
+
+def next_pow_2(n: int) -> int:
+    """Smallest power of two >= n."""
+    m = 1
+    while m < n:
+        m *= 2
+    return m
+
+
+def raw_autocorr_sumlast_flat(x: torch.Tensor, P: int, d: int
+                              ) -> torch.Tensor:
+    """Component-summed raw autocorrelation of a flat (N, P·d) operand
+    (float32 or float64; series of particle p in columns p·d … p·d+d-1)
+    → (N, P) float64, unnormalized."""
+    n = x.shape[0]
+    return cuda_fft.autocorr_power_sum(x, 2 * next_pow_2(n), P, d)
+
+
+def raw_autocorr_sumlast(x: torch.Tensor) -> torch.Tensor:
+    """(N, P, d) → (N, P): per-particle raw autocorrelation summed over
+    components."""
+    n, p, d = x.shape
+    return raw_autocorr_sumlast_flat(x.reshape(n, p * d), p, d)
+
+
+def _normalized(x: torch.Tensor) -> torch.Tensor:
+    if x.ndim == 2:
+        x = x[:, :, None]
+    n = x.shape[0]
+    raw = raw_autocorr_sumlast(x)
+    inv = 1.0 / (n - torch.arange(n, dtype=torch.float64, device=x.device))
+    return raw * inv[:, None]
+
+
+def acf_fft(x, device=None) -> torch.Tensor:
+    """Batched FFT autocorrelation.
+
+    Parameters
+    ----------
+    x : (N, P, d) or (N, P) float64 tensor or array — N frames, P
+        particles, d components. Arrays go to ``device`` (default: the
+        CUDA card when present).
+
+    Returns
+    -------
+    (N, P) float64 tensor on the operand's device.
+    """
+    x = as_tensor(x, device)
+    if x.dtype != torch.float64:
+        raise TypeError(f"acf_fft expects float64, got {x.dtype} (use "
+                        "acf_fft_from_f32 for float32 samples)")
+    return _normalized(x)
+
+
+def acf_fft_from_f32(x32, device=None) -> torch.Tensor:
+    """float64-grade batched FFT autocorrelation from float32 samples.
+
+    Trajectory formats store float32, which float64 holds exactly, so the
+    operand crosses to the device at 4 bytes a value and is upcast there,
+    while it is packed for the first transform level. Output as
+    :func:`acf_fft` of the upcast operand, (N, P) float64.
+    """
+    x32 = as_tensor(x32, device)
+    if x32.dtype != torch.float32:
+        raise TypeError(
+            f"acf_fft_from_f32 expects float32 samples, got {x32.dtype} "
+            "(use acf_fft for float64 operands)")
+    return _normalized(x32)
+
+
+def acf_windowed(x, max_lag=None):
+    """Exact per-lag windowed autocorrelation (not ported yet)."""
+    raise not_ported("acf_windowed (the fft=False path)", "windowed")
+
+
+def acf_fft_numpy(x: np.ndarray) -> np.ndarray:
+    """Host float64 Wiener–Khinchin autocorrelation (tidynamics.acf
+    parity, an independent oracle for tests and chip_smoke.py)."""
+    x = np.asarray(x, dtype=np.float64)
+    if x.ndim == 2:
+        x = x[:, :, None]
+    N = x.shape[0]
+    M = 2 * next_pow_2(N)
+    f = np.fft.rfft(x, n=M, axis=0)
+    raw = np.fft.irfft(f * np.conj(f), n=M, axis=0)[:N].real
+    raw = raw.sum(axis=-1)
+    return raw / (N - np.arange(N))[:, None]

@@ -1,0 +1,124 @@
+"""Kneller/Calandrini assembly of the Einstein lag differences.
+
+Counterpart of ``transport_analysis_tpu/ops/pallas_kneller.py``: from the
+per-frame squares ``sq`` (N, P) of the centered operand and its raw
+component-summed autocorrelation ``corr`` (N, P),
+
+    out[lag] = (css[N-1-lag] + total - css[lag-1] - 2·corr[lag]) / denom
+
+with css the inclusive prefix sum of sq over frames, denom =
+(N - lag)·(d if reduce_mode == "mean" else 1), and out[0] = 0.
+
+Two kernels (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1:
+K6a :func:`kneller_totals` sums each block of ``KNELLER_ROWS`` frames,
+forwards and in reverse frame order; K6b :func:`kneller_windows` turns
+those totals and in-block suffix sums into the window sums and applies
+the combine above (the TPU module's ``_finish``) in the same pass. On CPU
+tensors both run their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+KNELLER_ROWS = 128       # frames per block of both kernels
+
+
+def _check_operand(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.float64 or t.ndim != 2:
+        raise TypeError(f"{name} takes (N, P) float64, got {t.dtype} "
+                        f"of shape {tuple(t.shape)}")
+
+
+def kneller_totals_plain(sq: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`kneller_totals`."""
+    n, p = sq.shape
+    nb = -(-n // KNELLER_ROWS)
+    both = torch.stack([sq, sq.flip(0)])
+    pad = torch.zeros((2, nb * KNELLER_ROWS - n, p), dtype=sq.dtype,
+                      device=sq.device)
+    return torch.cat([both, pad], dim=1).reshape(
+        2, nb, KNELLER_ROWS, p).sum(2)
+
+
+def kneller_totals(sq: torch.Tensor) -> torch.Tensor:
+    """Block totals of ``sq`` (N, P) float64 → (2, nb, P): [0, b] sums
+    frames [b·R, (b+1)·R), [1, b] the same positions of the frames read
+    in reverse order (R = ``KNELLER_ROWS``, nb = ceil(N/R))."""
+    _check_operand(sq, "kneller_totals")
+    if sq.device.type == "cpu":
+        return kneller_totals_plain(sq)
+    _build.kernel_operand(sq, "kneller_totals")
+    n, p = sq.shape
+    nb = -(-n // KNELLER_ROWS)
+    if nb > _build.MAX_GRID_Y:
+        raise ValueError(f"kneller_totals: N = {n} exceeds "
+                         f"{_build.MAX_GRID_Y * KNELLER_ROWS} frames")
+    tot = torch.empty((2, nb, p), dtype=torch.float64, device=sq.device)
+    with torch.cuda.device(sq.device):
+        err = _build.library().ta_kneller_totals(
+            sq.data_ptr(), tot.data_ptr(), n, p, KNELLER_ROWS,
+            _build.stream(sq))
+    _build.check(err, "kneller_totals")
+    kneller_totals.launches += 1
+    return tot
+
+
+kneller_totals.launches = 0
+
+
+def kneller_windows_plain(sq: torch.Tensor, corr: torch.Tensor,
+                          dfac: float) -> torch.Tensor:
+    """Plain version of :func:`kneller_windows`; it needs no block
+    totals. Like the kernel it takes total - css[lag-1] as the suffix
+    sum Σ_{i >= lag} sq[i], not as a difference of prefixes, which at
+    the deepest lags would cancel down to eps·total."""
+    n = sq.shape[0]
+    css = torch.cumsum(sq, dim=0)
+    suffix = torch.cumsum(sq.flip(0), dim=0).flip(0)
+    w = css.flip(0) + suffix
+    denom = (n - torch.arange(n, dtype=torch.float64, device=sq.device))
+    out = (w - 2.0 * corr) / (denom * dfac)[:, None]
+    out[0] = 0.0
+    return out
+
+
+def kneller_windows(sq: torch.Tensor, corr: torch.Tensor, tot: torch.Tensor,
+                    dfac: float) -> torch.Tensor:
+    """K6b: the window sums from :func:`kneller_totals`' ``tot`` and
+    in-block suffix sums of ``sq``, combined with ``corr``:
+    out[lag] = (w[lag] - 2·corr[lag]) / ((N - lag)·dfac), out[0] = 0."""
+    _check_operand(sq, "kneller_windows")
+    _check_operand(corr, "kneller_windows")
+    n, p = sq.shape
+    if (corr.shape != sq.shape or tot.dtype != torch.float64
+            or tot.shape != (2, -(-n // KNELLER_ROWS), p)):
+        raise ValueError("kneller_windows: sq, corr and tot disagree")
+    if sq.device.type == "cpu":
+        return kneller_windows_plain(sq, corr, dfac)
+    for t, name in ((sq, "sq"), (corr, "corr"), (tot, "tot")):
+        _build.kernel_operand(t, f"kneller_windows {name}")
+    out = torch.empty((n, p), dtype=torch.float64, device=sq.device)
+    with torch.cuda.device(sq.device):
+        err = _build.library().ta_kneller_windows(
+            sq.data_ptr(), corr.data_ptr(), tot.data_ptr(), out.data_ptr(),
+            n, p, KNELLER_ROWS, float(dfac), _build.stream(sq))
+    _build.check(err, "kneller_windows")
+    kneller_windows.launches += 1
+    return out
+
+
+kneller_windows.launches = 0
+
+
+def einstein_assembly(sq: torch.Tensor, corr: torch.Tensor,
+                      reduce_mode: str, d: int) -> torch.Tensor:
+    """The Kneller/Calandrini assembly (module docstring): K6a then K6b,
+    each its plain version on CPU tensors."""
+    if reduce_mode not in ("mean", "sum"):
+        raise ValueError(f"reduce_mode must be 'mean' or 'sum', got "
+                         f"{reduce_mode!r}")
+    dfac = d if reduce_mode == "mean" else 1
+    return kneller_windows(sq, corr, kneller_totals(sq), dfac)

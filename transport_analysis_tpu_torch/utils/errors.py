@@ -1,0 +1,59 @@
+"""Exception types.
+
+Mirrors the error contract the reference consumes from MDAnalysis:
+``NoDataError`` raised when a trajectory lacks required per-frame data
+(reference velocityautocorr.py:186-189, viscosity.py:178-186).
+"""
+
+
+class TransportAnalysisError(Exception):
+    """Base class for all transport_analysis_tpu_torch errors."""
+
+
+class NoDataError(TransportAnalysisError, ValueError, AttributeError):
+    """Data required for the analysis is missing from the trajectory.
+
+    Subclasses ``ValueError`` and ``AttributeError`` like MDAnalysis's
+    ``NoDataError`` so existing except-clauses keep working.
+    """
+
+
+class SelectionError(TransportAnalysisError, ValueError):
+    """Raised for invalid atom-selection strings."""
+
+
+# ROADMAP.md queue 1 items the port has not reached yet; every entry
+# point of those parts raises ``not_ported`` naming its item.
+ROADMAP_ITEMS = {
+    "msd": "ROADMAP.md queue 1 item 1 (EinsteinMSD)",
+    "deep": "ROADMAP.md queue 1 item 2 (deep range: N > 32,768 frames, "
+            "M > 65,536)",
+    "windowed": "ROADMAP.md queue 1 item 3 (windowed fft=False path, K8)",
+    "io": "ROADMAP.md queue 1 item 4 (io/ and data/: trajectory and "
+          "topology files)",
+    "streaming": "ROADMAP.md queue 1 item 5 (streaming, out-of-core and "
+                 "prefetch: atom_chunk, checkpoint, frame_block)",
+    "multigpu": "ROADMAP.md queue 1 item 6 (multiple GPUs: parallel/)",
+}
+
+
+def not_ported_module(package: str, item: str):
+    """A module ``__getattr__`` for a package that is not ported yet:
+    every public name raises :func:`not_ported`; dunder lookups stay
+    ``AttributeError`` so ``hasattr`` and introspection keep working."""
+
+    def __getattr__(name: str):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise not_ported(f"{package}.{name}", item)
+
+    return __getattr__
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error a not-yet-ported feature raises: names the ROADMAP.md
+    item that will bring it."""
+    return NotImplementedError(
+        f"{what} is not ported to transport_analysis_tpu_torch yet; "
+        f"see {ROADMAP_ITEMS[item]}"
+    )

@@ -42,15 +42,22 @@ def test_forward_composition_vs_numpy(m, b):
 
 @pytest.mark.parametrize("m", [1, 2, 8, 256, 2 ** 16])
 def test_split_m(m):
-    n1, n2 = cuda_fft.split_m(m)
-    assert n1 * n2 == m
-    assert n1 in (n2, 2 * n2)
-    assert n1 <= cuda_fft.MAX_LEVEL
+    """The plan's split of M: at least two levels, as even as the bits
+    allow and longer first (M = 1 has no transform to split)."""
+    if m == 1:
+        with pytest.raises(ValueError):
+            cuda_fft.plan_levels(m)
+        return
+    plan = cuda_fft.plan_levels(m)
+    assert np.prod(plan) == m and len(plan) >= 2
+    assert all(a in (b, 2 * b) for a, b in zip(plan, plan[1:]))
+    assert plan[0] <= 2 * plan[-1]
+    assert max(plan) <= cuda_fft.PLAN_LEVEL <= cuda_fft.MAX_LEVEL
 
 
 def test_split_m_rejects_non_pow2():
     with pytest.raises(ValueError):
-        cuda_fft.split_m(24)
+        cuda_fft.plan_levels(24)
 
 
 @pytest.mark.parametrize("m", [2, 8, 64, 2 ** 16])
@@ -70,18 +77,18 @@ def test_unit_roots_octant_exact(m):
 @pytest.mark.parametrize("twiddle", [0, 3])
 def test_fft_level_plain_vs_direct_dft(sign, twiddle):
     """out[k, a, c] = tw(k, c) Σ_j x[a, j, c] exp(sign·2πi·jk/n)."""
-    a, n, c, m, n_out = 2, 8, 6, 64, 5
+    a, n, c, m = 2, 8, 6, 64
     x = crandn(np.random.RandomState(7), a, n, c)
-    got = cuda_fft.fft_level(torch.from_numpy(x), m, sign, n_out=n_out,
+    got = cuda_fft.fft_level(torch.from_numpy(x), m, sign,
                              twiddle_cols=twiddle)
     j = np.arange(n)
-    k = np.arange(n_out)
+    k = np.arange(n)
     dft = np.exp(sign * 2j * np.pi * np.outer(k, j) / n)
     ref = np.einsum("kj,ajc->kac", dft, x)
     if twiddle:
         f = np.arange(c) // twiddle
         ref = ref * np.exp(sign * 2j * np.pi * np.outer(k, f) / m)[:, None]
-    assert got.shape == (n_out, a, c)
+    assert got.shape == (n, a, c)
     assert rel(got, ref) <= TOL
 
 
@@ -90,7 +97,8 @@ def _unpack_oracle(z, P, d):
     spectra summed over components, particles (q, q+ph) packed as real
     and imaginary parts, then inverse level A in (dd, k1, q) order."""
     m, w = z.shape
-    n1, n2 = cuda_fft.split_m(m)
+    n2 = cuda_fft.plan_levels(m)[-1]  # K2's top level
+    n1 = m // n2
     ph = (P + 1) // 2
     zm = np.conj(z[(-np.arange(m)) % m])
     f1 = (z + zm) / 2
@@ -115,7 +123,7 @@ def test_unpack_power_inva_vs_numpy(support, m, P, d):
     """Spectra living only at k = 0, only at k = M/2, or only on the
     k1 = 0 column (k a multiple of n1) pin the mirror index there."""
     w = (P * d + 1) // 2
-    n1, _ = cuda_fft.split_m(m)
+    n1 = m // cuda_fft.plan_levels(m)[-1]
     z = crandn(np.random.RandomState(m + P), m, w)
     keep = {
         "full": np.ones(m, bool),
@@ -185,8 +193,6 @@ def test_fft_level_input_contracts():
     with pytest.raises(ValueError):
         cuda_fft.fft_level(torch.zeros((1, 6, 2), dtype=torch.complex128),
                            12)
-    with pytest.raises(ValueError):
-        cuda_fft.fft_level(x, 16, n_out=9)
     with pytest.raises(ValueError):
         cuda_fft.fft_level(x, 16, twiddle_cols=3)
 

@@ -40,24 +40,44 @@ def crandn(rng, device, *shape):
     return torch.from_numpy(z).to(device)
 
 
-@pytest.mark.parametrize("m,b", [(2, 3), (16, 5), (4096, 7), (2 ** 16, 3)])
+@pytest.mark.parametrize("m,b", [(2, 3), (16, 5), (4096, 7), (2 ** 16, 3),
+                                 (2 ** 17, 3), (2 ** 21, 2), (2 ** 24, 2)])
 def test_fft_kernels_vs_plain(cuda_device, m, b):
-    """K1 (forward L1/L2, inverse B) and K2 against their plain versions
-    over the M range the kernels take."""
-    rng = np.random.RandomState(m)
+    """K1 (every forward level of the plan, and the inverse levels), K2
+    and the K5 epilogue against their plain versions over the plan's M
+    range; at M = 2^24 the last levels have A > 65,535 rows and K2 more
+    than 65,535 k_low rows, so the grid fold runs."""
+    rng = np.random.RandomState(m % 1000)
     z = crandn(rng, cuda_device, m, b)
     got = cuda_fft.fft_forward(z)
     assert rel(got, torch.fft.fft(z, dim=0)) <= TOL
+    del z, got
+    plan = cuda_fft.plan_levels(m)
     P, d = b, 2
     w = (P * d + 1) // 2
+    ph = (P + 1) // 2
     spec = crandn(rng, cuda_device, m, w)
     got = cuda_fft.unpack_power_inva(spec, P, d)
     ref = cuda_fft.unpack_power_inva_plain(spec, P, d)
+    assert got.shape == (plan[-1], m // plan[-1], ph)
     assert rel(got, ref) <= TOL
-    n1, _ = cuda_fft.split_m(m)
-    rows = max(1, n1 // 2)
-    assert rel(cuda_fft.fft_level(got, m, +1, n_out=rows),
-               cuda_fft.fft_level_plain(ref, m, +1, n_out=rows)) <= TOL
+    del spec
+    *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+    for a, n, c, order, tw in levels:
+        got = cuda_fft.fft_level(got.reshape(a, n, c), order, +1,
+                                 twiddle_cols=tw)
+        ref = cuda_fft.fft_level_plain(ref.reshape(a, n, c), order, +1,
+                                       twiddle_cols=tw)
+        assert rel(got, ref) <= TOL
+    a, n, c, _, _ = last
+    n_rows = max(1, m // 2 - 3)
+    for normalize in (False, True):
+        out = cuda_fft.inverse_last_level(got.reshape(a, n, c), n_rows, P,
+                                          normalize)
+        want = cuda_fft.inverse_last_level_plain(ref.reshape(a, n, c),
+                                                 n_rows, P, normalize)
+        assert out.shape == (n_rows, P)
+        assert rel(out, want) <= TOL
 
 
 @pytest.mark.parametrize("n,P,d", [(1, 1, 1), (100, 3, 3), (4097, 5, 2)])
@@ -68,8 +88,21 @@ def test_autocorrelation_vs_host(cuda_device, n, P, d):
     assert rel(got, ref) <= TOL
 
 
+@pytest.mark.parametrize("n,P,d", [(40000, 3, 3), (2 ** 20, 2, 3),
+                                   (2 ** 23, 1, 3)])
+def test_deep_autocorrelation_vs_host(cuda_device, n, P, d):
+    """The deep range, M = 2^17, 2^21 and 2^24, on lags < N/2: past them
+    the division by N − lag → 1 lifts both sides' absolute error floor,
+    about eps·N of the maximum, into view."""
+    x = np.random.RandomState(n % 1000).normal(0.5, 2.0, (n, P, d))
+    got = acf.acf_fft(torch.from_numpy(x).to(cuda_device))
+    ref = torch.from_numpy(acf.acf_fft_numpy(x))
+    assert got.shape == (n, P)
+    assert rel(got[: n // 2], ref[: n // 2]) <= TOL
+
+
 @pytest.mark.parametrize("n,p,d", [(1024, 37, 3), (1000, 5, 3), (7, 2, 1),
-                                   (8192, 300, 3)])
+                                   (8192, 300, 3), (2 ** 23, 3, 3)])
 def test_kneller_kernels_vs_plain(cuda_device, n, p, d):
     rng = np.random.RandomState(n)
     sq = torch.from_numpy(rng.uniform(0, 2, (n, p))).to(cuda_device)
@@ -93,7 +126,10 @@ def test_model_on_card_vs_cpu(cuda_device):
     assert rel(ts_gpu, torch.from_numpy(cpu.results.timeseries)) <= TOL
 
 
-def test_deep_range_raises(cuda_device):
-    x = torch.zeros((40000, 2), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        acf.raw_autocorr_sumlast_flat(x, 2, 1)
+def test_past_the_plan_range_raises(cuda_device):
+    """M = 2^25 is past the plan's range: ValueError naming the limit,
+    before the transform allocates anything."""
+    x = torch.zeros((2 ** 23 + 1, 1), dtype=torch.float64,
+                    device=cuda_device)
+    with pytest.raises(ValueError, match=str(cuda_fft.MAX_M)):
+        acf.raw_autocorr_sumlast_flat(x, 1, 1)

@@ -30,17 +30,19 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_P, _L, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # C entry point -> argument types; each returns a cudaError_t as int
 SIGNATURES = {
-    # in, out, roots, A, n, C, n_out, sign, tw_cols, m, stream
-    "ta_fft_level": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # z, out, roots, m, n1, n2, w, P, d, ph, stream
-    "ta_unpack_power_inva": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # sq, tot, n, p, rows, stream
-    "ta_kneller_totals": [_P, _P, _I, _I, _I, _P],
-    # sq, corr, tot, out, n, p, rows, dfac, stream
-    "ta_kneller_windows": [_P, _P, _P, _P, _I, _I, _I, _D, _P],
+    # in, out, roots, A, n, C, sign, tw_cols, m, tc, grid x, y, stream
+    "ta_fft_level": [_P, _P, _P, *[_L] * 9, _P],
+    # z, out, roots, m, n_top, R, w, P, d, ph, tc, grid x, y, stream
+    "ta_unpack_power_inva": [_P, _P, _P, *[_L] * 10, _P],
+    # in, out, roots, A, n, ph, n_out, N, P, normalize, tc, grid x, y, stream
+    "ta_inverse_last_level": [_P, _P, _P, *[_L] * 10, _P],
+    # sq, tot, n, p, rows, nb, cols, grid x, y, stream
+    "ta_kneller_totals": [_P, _P, *[_L] * 7, _P],
+    # sq, corr, tot, out, n, p, rows, nb, dfac, cols, grid x, y, stream
+    "ta_kneller_windows": [_P, _P, _P, _P, *[_L] * 4, _D, *[_L] * 3, _P],
 }
 
 _lock = threading.Lock()
@@ -136,7 +138,18 @@ def check(err: int, what: str) -> None:
 
 # The launch contract every ctypes wrapper keeps.
 
-MAX_GRID_Y = 65535       # CUDA's grid y limit: fft_level's A, K6's blocks
+MAX_GRID_X = 2 ** 31 - 1  # CUDA's grid x limit
+MAX_GRID_Y = 65535       # CUDA's grid y limit
+
+
+def launch_grid(tiles: int, rows: int) -> tuple[int, int]:
+    """The (x, y) grid of a kernel whose blocks take ``tiles`` column
+    tiles along x and ``rows`` rows along y: past ``MAX_GRID_Y`` rows a
+    block strides over them by the grid's y size, so only x is bounded."""
+    if not 1 <= tiles <= MAX_GRID_X or rows < 1:
+        raise ValueError(f"no launch grid for {tiles} column tiles "
+                         f"x {rows} rows (x limit {MAX_GRID_X})")
+    return tiles, min(rows, MAX_GRID_Y)
 
 
 def kernel_operand(t, name: str) -> None:

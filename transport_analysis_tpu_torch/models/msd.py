@@ -1,4 +1,4 @@
-"""Einstein MSD: not ported yet (ROADMAP.md queue 1 item 1)."""
+"""Einstein MSD: not ported yet (ROADMAP.md queue 1 item 2)."""
 
 from ..utils.errors import not_ported
 

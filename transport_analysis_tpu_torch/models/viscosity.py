@@ -24,6 +24,7 @@ from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError, not_ported
 from ..utils.units import constants
 from .. import ops
+from ..ops.einstein import einstein_difference_fft_
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
 
@@ -157,21 +158,23 @@ class ViscosityHelfand(AnalysisBase):
         dev = self.device
 
         def on_device(arr):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                dev).double()
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
         # Helfand accumulator A = (m·v)·x in float64 on the device, the
-        # multiply order of the reference (viscosity.py:197)
+        # multiply order of the reference (viscosity.py:197). A float32
+        # feed is upcast inside the products (exactly), so the
+        # accumulator is the one full-size float64 tensor; it is handed
+        # to the Einstein path, which centers it in place.
         masses = on_device(self._masses).reshape(1, -1, 1)
-        accum = masses * on_device(self._velocities) * on_device(
-            self._positions)
+        accum = masses * on_device(self._velocities)
+        accum.mul_(on_device(self._positions))
         self.n_lags = (
             self.n_frames
             if self.max_lag is None
             else min(self.max_lag, self.n_frames)
         )
         denom = 2.0 * self.boltzmann * self._vol_avg * self.temp_avg
-        by_particle = ops.einstein_difference_fft(
+        by_particle = einstein_difference_fft_(
             accum, reduce_mode="mean")[: self.n_lags] / denom
         del accum
         self.results.visc_by_particle = by_particle.cpu().numpy()

@@ -7,9 +7,12 @@ Counterpart of ``transport_analysis_tpu/ops/acf.py``'s FFT path:
 zero-padded to M = 2·next_pow_2(N), with the component sum taken on the
 power spectra so the inverse transform carries one column per particle
 (the JAX CPU path's ``_raw_autocorr_native_sumlast``). The transform is
-the four-step composition of ``cuda_fft``: hand-written kernels on a CUDA
-tensor, their plain PyTorch versions on a CPU tensor. The windowed
-``acf_windowed`` is not ported yet.
+the multi-level four-step plan of ``cuda_fft``: hand-written kernels on a
+CUDA tensor, their plain PyTorch versions on a CPU tensor. One plan
+serves every M up to 2^24 (N ≤ 8,388,608 frames), so the JAX dispatch's
+two routes, the Pallas engine for M ≤ 65,536 (``acf.py:307-349``,
+``:533-577``) and the deep composition past it (``deep_acf.py``), are one
+route here. The windowed ``acf_windowed`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,12 +50,14 @@ def raw_autocorr_sumlast(x: torch.Tensor) -> torch.Tensor:
 
 
 def _normalized(x: torch.Tensor) -> torch.Tensor:
+    """The raw autocorrelation divided by N − lag in the transform's
+    epilogue."""
     if x.ndim == 2:
         x = x[:, :, None]
-    n = x.shape[0]
-    raw = raw_autocorr_sumlast(x)
-    inv = 1.0 / (n - torch.arange(n, dtype=torch.float64, device=x.device))
-    return raw * inv[:, None]
+    n, p, d = x.shape
+    return cuda_fft.autocorr_power_sum(x.reshape(n, p * d),
+                                       2 * next_pow_2(n), p, d,
+                                       normalize=True)
 
 
 def acf_fft(x, device=None) -> torch.Tensor:

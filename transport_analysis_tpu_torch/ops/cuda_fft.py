@@ -1,53 +1,98 @@
-"""Four-step complex128 FFT for the Wiener–Khinchin autocorrelation.
+"""Multi-level four-step complex128 FFT for the Wiener–Khinchin
+autocorrelation.
 
-Counterpart of ``transport_analysis_tpu/ops/pallas_fft.py``: the same
-function (the raw autocorrelation of S real series, zero-padded to
-M = 2·next_pow_2(N)), computed in native float64 on the card.
+Counterpart of ``transport_analysis_tpu/ops/pallas_fft.py`` (the engine,
+M ≤ 65,536) and ``ops/deep_acf.py`` (the deep composition, an outer level
+wrapped around the engine, M ≤ 2^24): the same function, the raw
+autocorrelation of S real series zero-padded to M = 2·next_pow_2(N),
+computed in native float64 on the card by one plan for every M.
 
-Decomposition. M = n1·n2 (n1, n2 powers of two, ≤ 512; n1 = n2 or 2·n2),
-input index j = j1·n2 + j2, frequency k = k2·n1 + k1, lag l = c·n2 + dd:
+Plan. :func:`plan_levels` factors M into levels n0·n1·…·n_{L-1}, powers
+of two of at most ``PLAN_LEVEL`` = 16 points (on the card short levels
+measured fastest at every M). A transform of length R = n·R' along an
+axis splits its index j = j0·R' + j' and its frequency k = k'·n + k0:
 
-* forward L1 (K1): Y[k1, j2] = W_M^(k1·j2) Σ_j1 x[j1·n2 + j2] W_n1^(j1·k1)
-* forward L2 (K1): X[k2·n1 + k1] = Σ_j2 Y[k1, j2] W_n2^(j2·k2)
-* K2: the Hermitian unpack of the two-for-one packing, the power spectra
-  summed over each particle's d components, and inverse level A,
-  T[dd, k1] = W_M^(-k1·dd) Σ_k2 P[k2·n1 + k1] W_n2^(-k2·dd)
-* inverse B (K1): r[c·n2 + dd] = Σ_k1 T[dd, k1] W_n1^(-k1·c), for the
-  lag rows c·n2 + dd < N only.
+    X[k'·n + k0] = Σ_j' W_R'^(j'·k') · [W_R^(j'·k0) · Σ_j0 x[j0·R' + j'] W_n^(j0·k0)]
 
-Every level reads (A, n, C) and writes (n_out, A, C), the layout the next
-level reads, so no permute sits between levels. Packing: series s < w of
-the flat (N, S) operand is the real part of complex column s and series
-w + s the imaginary part (w = ceil(S/2)). K2 then packs the component-
-summed spectra of particles q and q + ph (ph = ceil(P/2)) into column q,
-so the inverse levels carry ph columns instead of w, d times fewer.
+so a level (K1, :func:`fft_level`) is a batched DFT of its own length n
+times the twiddle of its own sub-order R, and the bracket's sub-transforms
+of length R' recurse over the rest of the plan (:func:`level_shapes`).
+Every level reads (A, n, C) and writes (n, A, C), the layout the next
+level reads, so no permute sits between levels, and the last level leaves
+the spectrum in natural frequency order.
 
-:func:`fft_level` and :func:`unpack_power_inva` launch their CUDA kernels
-(``csrc/fft.cu``) on CUDA tensors and run their plain PyTorch versions on
-CPU tensors; :func:`autocorr_power_sum` is the one orchestration both
-devices run, so the CPU tests exercise the same index maps as the card.
+Autocorrelation (:func:`autocorr_power_sum`): the forward transform of
+the two-for-one packed series (series s < w of the flat (N, S) operand is
+the real part of complex column s and series w + s the imaginary part,
+w = ceil(S/2)); K2 (:func:`unpack_power_inva`), the Hermitian unpack
+reading Z[k] and Z[(M − k) mod M], the power spectra summed over each
+particle's d components with particles q and q + ph (ph = ceil(P/2))
+packed into column q, and inverse level A over the top frequency digit
+(k = k_top·R + k_low, lag = c·n_top + dd),
+
+    T[dd, k_low] = W_M^(-k_low·dd) Σ_k_top P[k_top·R + k_low] W_n_top^(-k_top·dd);
+
+then the inverse of length R over k_low by the rest of the plan, whose
+last level is the epilogue K5 (:func:`inverse_last_level`) that writes the
+(N, P) float64 result for the lags < N only, times 1/(N − lag) on request.
+
+:func:`fft_level`, :func:`unpack_power_inva` and
+:func:`inverse_last_level` launch their CUDA kernels (``csrc/fft.cu``) on
+CUDA tensors and run their plain PyTorch versions on CPU tensors;
+:func:`autocorr_power_sum` is the one orchestration both devices run, so
+the CPU tests exercise the same plans and index maps as the card.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from .. import _build
-from ..utils.errors import not_ported
 
-MAX_LEVEL = 512          # largest DFT a level kernel takes
-MAX_M = 2 ** 16          # M range of the two-level kernels (N ≤ 32,768)
+# Largest DFT the level kernels take (their shared-memory slab): plans stay
+# at PLAN_LEVEL, and K2's explicit ``n_top`` and scripts/fft_plan_sweep.py
+# reach the rest.
+MAX_LEVEL = 512
+MAX_M = 2 ** 24          # the plan's range, as the JAX deep composition's
+PLAN_LEVEL = 16          # the longest level a plan takes (measured fastest)
 
 
-def split_m(m: int) -> tuple[int, int]:
-    """M → (n1, n2), n1·n2 = M, n1 = 2^ceil(log2(M)/2)."""
-    if m < 1 or m & (m - 1):
-        raise ValueError(f"M must be a power of two, got {m}")
-    n1 = 1 << (m.bit_length() // 2)
-    return n1, m // n1
+def plan_levels(m: int) -> tuple[int, ...]:
+    """The level lengths of the transform of length M, in forward order:
+    at least two powers of two, as even as the bits of M allow and longer
+    first, each ≤ ``PLAN_LEVEL``, whose product is M. A level costs n
+    complex multiply-adds per point and one pass over the tensor, and on
+    the card the pass dominates above n ≈ 16 (``scripts/fft_plan_sweep.py``).
+    M past ``MAX_M`` raises."""
+    if m < 2 or m & (m - 1):
+        raise ValueError(f"M must be a power of two >= 2, got {m}")
+    if m > MAX_M:
+        raise ValueError(f"M = {m} is past the FFT plan's range M <= {MAX_M} "
+                         f"(N <= {MAX_M // 2} frames)")
+    bits = m.bit_length() - 1
+    per = PLAN_LEVEL.bit_length() - 1
+    n_levels = max(2, -(-bits // per))
+    q, r = divmod(bits, n_levels)
+    return tuple(1 << (q + (i < r)) for i in range(n_levels))
+
+
+def level_shapes(plan, b: int, a0: int = 1) -> list[tuple[int, ...]]:
+    """The K1 launches of the recursive four-step transform of length
+    prod(plan) along the middle axis of an (a0, prod(plan), b) tensor:
+    for each level (A, n, C, order, twiddle_cols), its input read as
+    (A, n, C) and its twiddle of the sub-order ``order`` (none on the
+    last level)."""
+    shapes = []
+    a, rest = a0, math.prod(plan)
+    for n in plan:
+        order, rest = rest, rest // n
+        shapes.append((a, n, rest * b, order, b if rest > 1 else 0))
+        a *= n
+    return shapes
 
 
 def unit_roots(m: int) -> np.ndarray:
@@ -69,11 +114,19 @@ def unit_roots(m: int) -> np.ndarray:
     return (cos_full - 1j * sin_full)[:: mm // m]
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=16)
 def roots_tensor(m: int, device: torch.device) -> torch.Tensor:
-    """:func:`unit_roots` as a complex128 tensor, cached per (M, device)."""
+    """:func:`unit_roots` as a complex128 tensor, cached per (M, device).
+    The order-M table of M = 2^24 is 256 MiB; a plan's other levels use
+    the much smaller tables of their sub-orders."""
     return torch.as_tensor(unit_roots(m), dtype=torch.complex128,
                            device=device)
+
+
+def tile_cols(n: int) -> int:
+    """Columns per block of a level kernel: the n x tc slab of 16-byte
+    values stays at 64 KB or less."""
+    return min(64, max(8, 4096 // n))
 
 
 # ---------------------------------------------------------------------
@@ -81,64 +134,59 @@ def roots_tensor(m: int, device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------------------
 
 def fft_level_plain(x: torch.Tensor, m: int, sign: int = -1,
-                    n_out: int | None = None,
                     twiddle_cols: int = 0) -> torch.Tensor:
     """Plain version of :func:`fft_level`: ``torch.fft`` along axis 1,
     moved to the front, times the twiddle."""
     a, n, c = x.shape
-    n_out = n if n_out is None else n_out
     if sign < 0:
         y = torch.fft.fft(x, dim=1)
     else:
         y = torch.fft.ifft(x, dim=1, norm="forward")  # unscaled inverse
-    y = y[:, :n_out].transpose(0, 1)
+    y = y.transpose(0, 1)
     if twiddle_cols:
-        k = torch.arange(n_out, device=x.device)
+        k = torch.arange(n, device=x.device)
         j = torch.arange(c // twiddle_cols, device=x.device)
         tw = roots_tensor(m, x.device)[(k[:, None] * j[None, :]) % m]
         if sign > 0:
             tw = tw.conj()
-        y = (y.reshape(n_out, a, c // twiddle_cols, twiddle_cols)
-             * tw[:, None, :, None]).reshape(n_out, a, c)
+        y = (y.reshape(n, a, c // twiddle_cols, twiddle_cols)
+             * tw[:, None, :, None]).reshape(n, a, c)
     return y.contiguous()
 
 
 def fft_level(x: torch.Tensor, m: int, sign: int = -1,
-              n_out: int | None = None,
               twiddle_cols: int = 0) -> torch.Tensor:
     """One four-step level: a batched DFT of length n along axis 1 of a
-    complex128 (A, n, C) tensor, written as (n_out, A, C):
+    complex128 (A, n, C) tensor, written as (n, A, C):
 
         out[k, a, c] = tw(k, c) · Σ_j x[a, j, c] · exp(sign·2πi·j·k/n)
 
     with tw = exp(sign·2πi·k·(c // twiddle_cols)/m) when ``twiddle_cols``
-    is non-zero, else 1. Only the first ``n_out`` outputs are formed.
+    is non-zero, else 1; m is the order of the sub-transform the level
+    belongs to.
     """
     a, n, c = x.shape
-    n_out = n if n_out is None else n_out
     if x.dtype != torch.complex128:
         raise TypeError(f"fft_level takes complex128, got {x.dtype}")
-    if n < 1 or n & (n - 1) or m % n or not 1 <= n_out <= n:
-        raise ValueError(
-            f"fft_level: need n a power of two dividing m and "
-            f"1 <= n_out <= n (n={n}, m={m}, n_out={n_out})")
+    if n < 1 or n & (n - 1) or m % n:
+        raise ValueError(f"fft_level: need n a power of two dividing m "
+                         f"(n={n}, m={m})")
     if twiddle_cols and c % twiddle_cols:
         raise ValueError("fft_level: twiddle_cols must divide C")
     if x.device.type == "cpu":
-        return fft_level_plain(x, m, sign, n_out, twiddle_cols)
+        return fft_level_plain(x, m, sign, twiddle_cols)
     _build.kernel_operand(x, "fft_level")
-    if n > MAX_LEVEL or m > MAX_M:
-        raise not_ported(f"an FFT level of length {n} for M = {m}", "deep")
-    if a > _build.MAX_GRID_Y:
-        raise ValueError(f"fft_level: A = {a} exceeds the kernel's grid "
-                         f"limit of {_build.MAX_GRID_Y}")
-    out = torch.empty((n_out, a, c), dtype=torch.complex128,
-                      device=x.device)
+    if n > MAX_LEVEL:
+        raise ValueError(f"fft_level: the kernel takes levels of length "
+                         f"<= {MAX_LEVEL}, got {n}")
+    tc = tile_cols(n)
+    grid = _build.launch_grid(-(-c // tc), a)
+    out = torch.empty((n, a, c), dtype=torch.complex128, device=x.device)
     roots = roots_tensor(m, x.device)
     with torch.cuda.device(x.device):
         err = _build.library().ta_fft_level(
-            x.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, c, n_out,
-            sign, twiddle_cols, m, _build.stream(x))
+            x.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, c, sign,
+            twiddle_cols, m, tc, *grid, _build.stream(x))
     _build.check(err, "fft_level")
     fft_level.launches += 1
     return out
@@ -149,18 +197,23 @@ fft_level.launches = 0
 
 def fft_forward(z: torch.Tensor) -> torch.Tensor:
     """Forward DFT along axis 0 of a complex128 (M, B) tensor, natural
-    frequency order: levels L1 and L2 of the four-step composition."""
+    frequency order: the levels of :func:`plan_levels`. Each level's
+    input is dropped once the next exists, so a caller that hands over
+    a temporary holds at most two spectra at once."""
     m, b = z.shape
-    n1, n2 = split_m(m)
-    y = fft_level(z.reshape(1, n1, n2 * b), m, -1, twiddle_cols=b)
-    return fft_level(y.reshape(n1, n2, b), m, -1).reshape(m, b)
+    for a, n, c, order, tw in level_shapes(plan_levels(m), b):
+        z = fft_level(z.reshape(a, n, c), order, -1, twiddle_cols=tw)
+    return z.reshape(m, b)
 
 
 # ---------------------------------------------------------------------
 # K2: Hermitian unpack + component-summed power + inverse level A
 # ---------------------------------------------------------------------
 
-def _check_unpack_args(z: torch.Tensor, P: int, d: int) -> None:
+def _unpack_args(z: torch.Tensor, P: int, d: int,
+                 n_top: int | None) -> int:
+    """Check K2's operands; the top level's length, by default the
+    plan's last level."""
     m, w = z.shape
     if z.dtype != torch.complex128:
         raise TypeError(f"unpack_power_inva takes complex128, got {z.dtype}")
@@ -168,12 +221,18 @@ def _check_unpack_args(z: torch.Tensor, P: int, d: int) -> None:
         raise ValueError(
             f"unpack_power_inva: {w} packed columns do not hold P={P} "
             f"particles of d={d} components")
+    n_top = plan_levels(m)[-1] if n_top is None else n_top
+    if n_top < 1 or n_top & (n_top - 1) or m % n_top:
+        raise ValueError(f"unpack_power_inva: n_top = {n_top} must be a "
+                         f"power of two dividing M = {m}")
+    return n_top
 
 
-def unpack_power_inva_plain(z: torch.Tensor, P: int, d: int) -> torch.Tensor:
+def unpack_power_inva_plain(z: torch.Tensor, P: int, d: int,
+                            n_top: int | None = None) -> torch.Tensor:
     """Plain version of :func:`unpack_power_inva`."""
+    n_top = _unpack_args(z, P, d, n_top)
     m, w = z.shape
-    n1, n2 = split_m(m)
     ph = (P + 1) // 2
     zm = z[(-torch.arange(m, device=z.device)) % m].conj()  # conj Z[M-k]
     power = torch.cat([torch.view_as_real(z + zm).square().sum(-1),
@@ -183,12 +242,13 @@ def unpack_power_inva_plain(z: torch.Tensor, P: int, d: int) -> torch.Tensor:
     pr = torch.view_as_real(packed)
     pr[:, :, 0] = psum[:, :ph]
     pr[:, : P - ph, 1] = psum[:, ph:]
-    out = fft_level_plain(packed.reshape(1, n2, n1 * ph), m, +1,
+    out = fft_level_plain(packed.reshape(1, n_top, (m // n_top) * ph), m, +1,
                           twiddle_cols=ph)
-    return out.reshape(n2, n1, ph)
+    return out.reshape(n_top, m // n_top, ph)
 
 
-def unpack_power_inva(z: torch.Tensor, P: int, d: int) -> torch.Tensor:
+def unpack_power_inva(z: torch.Tensor, P: int, d: int,
+                      n_top: int | None = None) -> torch.Tensor:
     """From the forward spectrum ``z`` (M, w) of the two-for-one packed
     series (natural order), form for each particle pair (q, q + ph)
 
@@ -196,28 +256,97 @@ def unpack_power_inva(z: torch.Tensor, P: int, d: int) -> torch.Tensor:
 
     with F1 = (Z[k] + conj Z[M-k])/2 and F2 = (Z[k] - conj Z[M-k])/2i the
     spectra of a column's real and imaginary series, and run inverse
-    level A on it: out (n2, n1, ph) = (dd, k1, q)."""
-    _check_unpack_args(z, P, d)
-    m, w = z.shape
-    n1, n2 = split_m(m)
-    ph = (P + 1) // 2
+    level A over the top digit of k = k_top·R + k_low (length ``n_top``,
+    R = M/n_top): out (n_top, R, ph) = (dd, k_low, q)."""
+    n_top = _unpack_args(z, P, d, n_top)
     if z.device.type == "cpu":
-        return unpack_power_inva_plain(z, P, d)
+        return unpack_power_inva_plain(z, P, d, n_top)
     _build.kernel_operand(z, "unpack_power_inva")
-    if m > MAX_M:
-        raise not_ported(f"the spectrum unpack for M = {m}", "deep")
-    out = torch.empty((n2, n1, ph), dtype=torch.complex128, device=z.device)
+    m, w = z.shape
+    if n_top > MAX_LEVEL:
+        raise ValueError(f"unpack_power_inva: the kernel takes a top level "
+                         f"of length <= {MAX_LEVEL}, got {n_top}")
+    r = m // n_top
+    ph = (P + 1) // 2
+    tc = tile_cols(n_top)
+    grid = _build.launch_grid(-(-ph // tc), r)
+    out = torch.empty((n_top, r, ph), dtype=torch.complex128,
+                      device=z.device)
     roots = roots_tensor(m, z.device)
     with torch.cuda.device(z.device):
         err = _build.library().ta_unpack_power_inva(
-            z.data_ptr(), out.data_ptr(), roots.data_ptr(), m, n1, n2, w, P,
-            d, ph, _build.stream(z))
+            z.data_ptr(), out.data_ptr(), roots.data_ptr(), m, n_top, r, w, P,
+            d, ph, tc, *grid, _build.stream(z))
     _build.check(err, "unpack_power_inva")
     unpack_power_inva.launches += 1
     return out
 
 
 unpack_power_inva.launches = 0
+
+
+# ---------------------------------------------------------------------
+# K5: the last inverse level and the epilogue
+# ---------------------------------------------------------------------
+
+def _epilogue_args(t: torch.Tensor, n_rows: int, P: int) -> int:
+    """Check K5's operands; the outputs formed per column, n_out."""
+    a, n, ph = t.shape
+    if t.dtype != torch.complex128:
+        raise TypeError(f"inverse_last_level takes complex128, got {t.dtype}")
+    if P < 1 or ph != (P + 1) // 2:
+        raise ValueError(f"inverse_last_level: {ph} columns do not hold "
+                         f"P={P} particles in pairs")
+    if n < 1 or n & (n - 1) or not 1 <= n_rows <= a * n:
+        raise ValueError(f"inverse_last_level: need n a power of two and "
+                         f"1 <= N <= A·n (A={a}, n={n}, N={n_rows})")
+    return min(n, -(-n_rows // a))
+
+
+def inverse_last_level_plain(t: torch.Tensor, n_rows: int, P: int,
+                             normalize: bool = False) -> torch.Tensor:
+    """Plain version of :func:`inverse_last_level`: the level, then the
+    real and imaginary halves side by side, times 1/(N − lag)."""
+    n_out = _epilogue_args(t, n_rows, P)
+    a, n, ph = t.shape
+    r = fft_level_plain(t, n, +1)[:n_out].reshape(n_out * a, ph)
+    out = torch.cat([r[:n_rows].real, r[:n_rows].imag[:, : P - ph]], dim=1)
+    if normalize:
+        # the reciprocal first, then the product, as the kernel forms it
+        out = out * (1.0 / (n_rows - torch.arange(
+            n_rows, dtype=torch.float64, device=t.device)))[:, None]
+    return out
+
+
+def inverse_last_level(t: torch.Tensor, n_rows: int, P: int,
+                       normalize: bool = False) -> torch.Tensor:
+    """The last inverse level (an unscaled inverse DFT of length n along
+    axis 1 of ``t`` (A, n, ph), no twiddle) written as the (N, P) float64
+    result: row lag = k·A + a < N holds particle q's value in column q
+    (the real part) and particle ph + q's in column ph + q (the imaginary
+    part), times 1/(N − lag) when ``normalize``."""
+    n_out = _epilogue_args(t, n_rows, P)
+    if t.device.type == "cpu":
+        return inverse_last_level_plain(t, n_rows, P, normalize)
+    _build.kernel_operand(t, "inverse_last_level")
+    a, n, ph = t.shape
+    if n > MAX_LEVEL:
+        raise ValueError(f"inverse_last_level: the kernel takes levels of "
+                         f"length <= {MAX_LEVEL}, got {n}")
+    tc = tile_cols(n)
+    grid = _build.launch_grid(-(-ph // tc), a)
+    out = torch.empty((n_rows, P), dtype=torch.float64, device=t.device)
+    roots = roots_tensor(n, t.device)
+    with torch.cuda.device(t.device):
+        err = _build.library().ta_inverse_last_level(
+            t.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, ph, n_out,
+            n_rows, P, int(normalize), tc, *grid, _build.stream(t))
+    _build.check(err, "inverse_last_level")
+    inverse_last_level.launches += 1
+    return out
+
+
+inverse_last_level.launches = 0
 
 
 # ---------------------------------------------------------------------
@@ -237,24 +366,22 @@ def pack_pairs(x: torch.Tensor, m: int) -> torch.Tensor:
     return z
 
 
-def autocorr_power_sum(x: torch.Tensor, m: int, P: int,
-                       d: int) -> torch.Tensor:
+def autocorr_power_sum(x: torch.Tensor, m: int, P: int, d: int,
+                       normalize: bool = False) -> torch.Tensor:
     """Raw component-summed autocorrelation of the flat (N, P·d) operand
     zero-padded to M: out[lag, p] = Σ_c Σ_i x[i, p·d+c]·x[i+lag, p·d+c],
-    (N, P) float64, for lags < N."""
+    (N, P) float64, for lags < N; divided by N − lag when
+    ``normalize``."""
     n, s = x.shape
     if s != P * d:
         raise ValueError(f"operand has {s} columns, expected P·d = {P * d}")
     if m < 2 * n or m & (m - 1):
         raise ValueError(f"M = {m} must be a power of two >= 2N = {2 * n}")
-    if x.device.type == "cuda" and m > MAX_M:
-        raise not_ported(
-            f"the autocorrelation of {n} frames (M = {m})", "deep")
-    n1, n2 = split_m(m)
+    plan = plan_levels(m)
     ph = (P + 1) // 2
-    spec = fft_forward(pack_pairs(x, m))
-    t = unpack_power_inva(spec, P, d)
-    del spec
-    rows = -(-n // n2)
-    r = fft_level(t, m, +1, n_out=rows).reshape(rows * n2, ph)[:n]
-    return torch.cat([r.real, r.imag[:, : P - ph]], dim=1)
+    t = unpack_power_inva(fft_forward(pack_pairs(x, m)), P, d, plan[-1])
+    *levels, last = level_shapes(plan[:-1], ph, a0=plan[-1])
+    for a, n_level, c, order, tw in levels:
+        t = fft_level(t.reshape(a, n_level, c), order, +1, twiddle_cols=tw)
+    a, n_level, c, _, _ = last
+    return inverse_last_level(t.reshape(a, n_level, c), n, P, normalize)

@@ -9,7 +9,8 @@ component-summed autocorrelation ``corr`` (N, P),
 with css the inclusive prefix sum of sq over frames, denom =
 (N - lag)·(d if reduce_mode == "mean" else 1), and out[0] = 0.
 
-Two kernels (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1:
+Two kernels (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1
+(the row blocks fold over the grid, so N is not bounded by its y limit):
 K6a :func:`kneller_totals` sums each block of ``KNELLER_ROWS`` frames,
 forwards and in reverse frame order; K6b :func:`kneller_windows` turns
 those totals and in-block suffix sums into the window sums and applies
@@ -24,6 +25,14 @@ import torch
 from .. import _build
 
 KNELLER_ROWS = 128       # frames per block of both kernels
+KNELLER_COLS = 128       # threads per block, one column each
+
+
+def _grid(n: int, p: int) -> tuple[int, int]:
+    """Both kernels' grid: column tiles of ``KNELLER_COLS`` along x (the
+    block size the C entries launch with), the row blocks along y (strided
+    past CUDA's y limit, ``csrc/kneller.cu``)."""
+    return _build.launch_grid(-(-p // KNELLER_COLS), -(-n // KNELLER_ROWS))
 
 
 def _check_operand(t: torch.Tensor, name: str) -> None:
@@ -53,14 +62,11 @@ def kneller_totals(sq: torch.Tensor) -> torch.Tensor:
     _build.kernel_operand(sq, "kneller_totals")
     n, p = sq.shape
     nb = -(-n // KNELLER_ROWS)
-    if nb > _build.MAX_GRID_Y:
-        raise ValueError(f"kneller_totals: N = {n} exceeds "
-                         f"{_build.MAX_GRID_Y * KNELLER_ROWS} frames")
     tot = torch.empty((2, nb, p), dtype=torch.float64, device=sq.device)
     with torch.cuda.device(sq.device):
         err = _build.library().ta_kneller_totals(
-            sq.data_ptr(), tot.data_ptr(), n, p, KNELLER_ROWS,
-            _build.stream(sq))
+            sq.data_ptr(), tot.data_ptr(), n, p, KNELLER_ROWS, nb,
+            KNELLER_COLS, *_grid(n, p), _build.stream(sq))
     _build.check(err, "kneller_totals")
     kneller_totals.launches += 1
     return tot
@@ -104,7 +110,8 @@ def kneller_windows(sq: torch.Tensor, corr: torch.Tensor, tot: torch.Tensor,
     with torch.cuda.device(sq.device):
         err = _build.library().ta_kneller_windows(
             sq.data_ptr(), corr.data_ptr(), tot.data_ptr(), out.data_ptr(),
-            n, p, KNELLER_ROWS, float(dfac), _build.stream(sq))
+            n, p, KNELLER_ROWS, tot.shape[1], float(dfac), KNELLER_COLS,
+            *_grid(n, p), _build.stream(sq))
     _build.check(err, "kneller_windows")
     kneller_windows.launches += 1
     return out

@@ -12,7 +12,12 @@ MSD, ``'sum'``), by the Kneller/Calandrini decomposition
 
 with S prefix-sum windows of |A|² and C the raw autocorrelation. The
 operand is centered per series first: the identity then does not cancel
-a large mean offset at small lags. The windowed path is not ported yet.
+a large mean offset at small lags. :func:`einstein_difference_fft_`
+centers an operand its caller hands over in place, so a model's
+accumulator is the only full-size float64 copy (the role of the JAX
+package's ``einstein_difference_fft_from_f32``, ``einstein.py:439``, which
+keeps the deep path's operand in f32 pairs). The windowed path is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,17 +28,6 @@ from .._device import as_tensor
 from ..utils.errors import not_ported
 from .acf import raw_autocorr_sumlast_flat
 from .cuda_kneller import einstein_assembly
-
-
-def _center_and_sq_flat(a: torch.Tensor, d: int):
-    """Per-series centering of (N, P, d) float64 into the flat (N, P·d)
-    layout the autocorrelation takes, and the component-summed squares
-    (N, P) the assembly takes."""
-    n = a.shape[0]
-    flat = a.reshape(n, -1)
-    c = flat - flat.mean(dim=0, keepdim=True)
-    sq = (c * c).reshape(n, -1, d).sum(-1)
-    return c, sq
 
 
 def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
@@ -52,15 +46,30 @@ def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
                         f"{a.dtype}")
     if a.ndim == 2:
         a = a[:, :, None]
-    P, d = a.shape[1], a.shape[2]
     if corr is None:
-        flat, sq = _center_and_sq_flat(a, d)
-        del a
-        corr = raw_autocorr_sumlast_flat(flat, P, d)
-    else:
-        corr = as_tensor(corr, a.device)
-        sq = (a * a).sum(-1)
+        owned = a.clone(memory_format=torch.contiguous_format)
+        return einstein_difference_fft_(owned, reduce_mode)
+    corr = as_tensor(corr, a.device)
     # the K6 kernels on a CUDA tensor, their plain versions on a CPU one
+    return einstein_assembly((a * a).sum(-1), corr, reduce_mode, a.shape[2])
+
+
+def einstein_difference_fft_(a: torch.Tensor,
+                             reduce_mode: str = "mean") -> torch.Tensor:
+    """:func:`einstein_difference_fft` of a contiguous (N, P, d) float64
+    tensor that the caller hands over: ``a`` is centered in place (its
+    values are lost), and no other full-size copy of it is made."""
+    if a.dtype != torch.float64 or a.ndim != 3 or not a.is_contiguous():
+        raise TypeError(f"einstein_difference_fft_ takes a contiguous "
+                        f"(N, P, d) float64 tensor, got {a.dtype} of shape "
+                        f"{tuple(a.shape)}")
+    n, P, d = a.shape
+    # per-series centering in the flat (N, P·d) layout the
+    # autocorrelation takes, and the component-summed squares (N, P)
+    flat = a.view(n, P * d)
+    flat.sub_(flat.mean(dim=0, keepdim=True))
+    sq = (flat * flat).view(n, P, d).sum(-1)
+    corr = raw_autocorr_sumlast_flat(flat, P, d)
     return einstein_assembly(sq, corr, reduce_mode, d)
 
 

@@ -25,15 +25,13 @@ class SelectionError(TransportAnalysisError, ValueError):
 # ROADMAP.md queue 1 items the port has not reached yet; every entry
 # point of those parts raises ``not_ported`` naming its item.
 ROADMAP_ITEMS = {
-    "msd": "ROADMAP.md queue 1 item 1 (EinsteinMSD)",
-    "deep": "ROADMAP.md queue 1 item 2 (deep range: N > 32,768 frames, "
-            "M > 65,536)",
-    "windowed": "ROADMAP.md queue 1 item 3 (windowed fft=False path, K8)",
-    "io": "ROADMAP.md queue 1 item 4 (io/ and data/: trajectory and "
+    "msd": "ROADMAP.md queue 1 item 2 (EinsteinMSD)",
+    "windowed": "ROADMAP.md queue 1 item 1 (windowed fft=False path, K8)",
+    "io": "ROADMAP.md queue 1 item 3 (io/ and data/: trajectory and "
           "topology files)",
-    "streaming": "ROADMAP.md queue 1 item 5 (streaming, out-of-core and "
+    "streaming": "ROADMAP.md queue 1 item 4 (streaming, out-of-core and "
                  "prefetch: atom_chunk, checkpoint, frame_block)",
-    "multigpu": "ROADMAP.md queue 1 item 6 (multiple GPUs: parallel/)",
+    "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
 }
 
 

@@ -14,38 +14,58 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    on the card, at the shapes each model phase below gives it (every
    level of its FFT plan, K2, the K5 epilogue, and K6a/K6b at its
    (frames, atoms)): M = 2^14 and 2^17 over the EC width (5,520 packed
-   columns), M = 2^21 over 80 atoms (120 packed columns); and the same
-   kernels at the top of the plan's range, M = 2^24 over 8 series. Max
-   relative error <= 1e-12; kernel and plain milliseconds, warm, median
-   of 5.
+   columns), M = 2^21 over 80 atoms (120 packed columns); the same
+   kernels at the top of the plan's range, M = 2^24 over 8 series; and
+   K8 at each windowed run's shapes (the kernel over every atom, its
+   plain version over every 21st atom's series). Max relative error
+   <= 1e-12; kernel and library-call milliseconds, warm, median of 5,
+   plain milliseconds median of 2; the bound, the larger of the bytes
+   over 3.35 TB/s and the flop over the FP64 peak of their kind (H100
+   SXM): 67 TFLOP/s on the tensor cores for matrix products (the DFT
+   levels, K8's acf sums, a Gram product of frame tiles), 34 TFLOP/s
+   for the rest (K6's sums and scans, K8's einstein sums, whose
+   subtraction comes before the square). The library call for K8 is a
+   grouped ``F.conv1d`` of the float64 series, for its acf launches
+   only (no one call forms the einstein sums).
 4. model   — the ethylene-carbonate system (368 molecules, 3,680 atoms;
    the recipe of ``transport_analysis_tpu/data/generate.py`` re-done in
-   memory) at 8,192 frames (M = 2^14) through ``VelocityAutocorr(ag)
-   .run()``, ``self_diffusivity_gk()`` and ``ViscosityHelfand(...).run()``:
-   once warm, once timed with the kernels' launch counters reset just
-   before and read just after. Every kernel must have launched; the VACF
-   and the Helfand function per particle, and their particle means
-   (``results.timeseries``), must agree with host float64 oracles within
-   1e-11 of their maximum on lags < N/2. Then one run under
-   ``torch.profiler`` (device activity only): milliseconds and launches
-   per category, the device's busy time as the union of its intervals,
-   and its idle share of that run's wall time.
+   memory) at 8,192 frames (M = 2^14). Runs, each once warm, once timed
+   with the kernels' launch counters reset just before and read just
+   after, and once under ``torch.profiler`` (device activity only:
+   milliseconds and launches per category, the device's busy time as
+   the union of its intervals, its idle share of the wall):
+   ``fft`` — ``VelocityAutocorr(ag).run()``, ``self_diffusivity_gk()``
+   and ``ViscosityHelfand(...).run()``, which must launch K1, K2, K5,
+   K6a and K6b; ``windowed`` — the same with ``fft=False``, which must
+   launch K8; ``msd_fft`` and ``msd_windowed`` — ``EinsteinMSD(u,
+   select="resname ECA")`` with ``fft=True`` (the FFT kernels) and
+   ``fft=False`` (K8). The VACF, the Helfand function and the MSD per
+   particle, and their particle means (``results.timeseries``), must
+   agree with host float64 oracles within 1e-11 of their maximum on lags
+   < N/2; each windowed result is also held against the FFT result of
+   the card.
 5. deep    — the same at 65,536 frames (M = 2^17, the deep range; a
-   five-level plan), all 3,680 atoms, with the oracles on every 21st atom
-   (the results are per particle, so the check is exact for those; the
-   sampled series lie 63 apart, so they reach every 64-column tile of
-   the levels and both halves of the (q, q + ph) pairing), the reckoned
-   and the measured peak device memory, and its profile. A host oracle of
-   every atom would take about 20 GB, so here the particle means are a
-   self-consistency check: ``results.timeseries`` against the mean of
-   the program's own per-particle values.
-6. depth   — the same over 8 molecules (80 atoms) at 1,048,576 frames
+   five-level plan), all 3,680 atoms: ``fft``, and ``windowed`` with
+   ``max_lag=2048``. Oracles on every 21st atom (the results are per
+   particle, so the check is exact for those; the sampled series lie 63
+   apart, so they reach every 64-column tile of the levels and both
+   halves of the (q, q + ph) pairing), the windowed results against the
+   FFT ones over every atom, the reckoned and the measured peak device
+   memory. A host oracle of every atom would take about 20 GB, so here
+   the particle means are a self-consistency check:
+   ``results.timeseries`` against the mean of the program's own
+   per-particle values.
+6. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
 Then one JSON line of per-kernel results (launches from the deep phase's
-timed run; kernel and plain milliseconds at its shapes, M = 2^17 over the
-EC width) and, last, the device line ``{"ok": true, "device": {...}}``.
+timed runs, ``fft`` for K1–K6b and ``windowed`` for K8; kernel, plain,
+bound and library milliseconds at its shapes: M = 2^17 over the EC width,
+K8 over 65,536 frames and 2,048 lags, summed over the VACF and Helfand
+launches, with ``plain_atoms`` beside ``atoms`` and ``library_kernel_ms``,
+the kernel's time on the launches its library call covers) and, last,
+the device line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
 """
@@ -73,6 +93,16 @@ MODEL_PHASES = [
     ("deep", 65536, 368, 21),
     ("depth", 2 ** 20, 8, 8),
 ]
+# phases with a windowed (fft=False) run -> its max_lag (None: all lags)
+WINDOWED = {"model": None, "deep": 2048}
+MSD_PHASES = ("model",)  # phases that also run EinsteinMSD, both ways
+TOP_SHAPE = ("top", 2 ** 23, 4, 2)  # the plan's top: N, particles, d
+PLAIN_STRIDE = 21        # K8's plain version runs on every 21st atom
+PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
+# the card's peaks for the bounds (H100 SXM data sheet)
+PEAK_FP64 = 34e12        # flop/s, FP64 outside the tensor cores
+PEAK_FP64_MMA = 67e12    # flop/s, FP64 matrix products on the tensor cores
+PEAK_BYTES = 3.35e12     # bytes/s, HBM3
 
 # ethylene carbonate (transport_analysis_tpu/data/generate.py:21-38)
 EC_ATOMS = [
@@ -105,7 +135,13 @@ KERNELS = {  # wrapper name -> (source, TPU kernels it replaces)
                        f"{TPU}pallas_kneller.py:187 (K6a)"),
     "kneller_windows": (CSRC + "kneller.cu",
                         f"{TPU}pallas_kneller.py:200 (K6b)"),
+    "lag_sums": (CSRC + "lag.cu", f"{TPU}pallas_lag.py:111 (K8a), "
+                 f"{TPU}pallas_lag.py:290 (K8b)"),
 }
+# what each kind of run must launch
+FFT_KERNELS = ["fft_level", "unpack_power_inva", "inverse_last_level",
+               "kneller_totals", "kneller_windows"]
+WINDOWED_KERNELS = ["lag_sums"]
 
 
 def phase(name: str, msg: str) -> None:
@@ -162,6 +198,27 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def work(nbytes: float, flop: float, peak: float = PEAK_FP64):
+    """(seconds, seconds) the card needs at least to move ``nbytes``
+    (each input read once, each output written once) and to do ``flop``
+    float64 operations at ``peak``."""
+    return nbytes / PEAK_BYTES, flop / peak
+
+
+def bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
+    """The least milliseconds for work of those two times, and which of
+    the two bounds it."""
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def lag_pairs(n: int, n_lags: int, lag0: int = 0) -> int:
+    """Σ_{lag0 <= lag < n_lags} (N − lag): the frame-lag pairs of one
+    series in the windowed sums."""
+    count = n_lags - lag0
+    return count * n - (n_lags * (n_lags - 1) - lag0 * (lag0 - 1)) // 2
+
+
 def max_abs_diff(got, ref):
     """(max|got - ref|, max|ref|) over chunks of rows, so that no
     full-size difference of two 11.6 GB spectra is formed; their ratio
@@ -175,11 +232,12 @@ def max_abs_diff(got, ref):
     return diff, scale
 
 
-def kernels_phase(torch, cuda_fft, cuda_kneller):
+def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     """Each kernel against its plain version at every model phase's
     shapes and at the top of the plan's range. The JSON numbers are the
     deep model's: M = 2^17 over the EC width, the fft_level times summed
-    over the levels of one autocorrelation."""
+    over the levels of one autocorrelation, K8 summed over the windowed
+    run's VACF and Helfand launches (65,536 frames, 2,048 lags)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
@@ -188,30 +246,52 @@ def kernels_phase(torch, cuda_fft, cuda_kneller):
         return torch.randn(shape, dtype=torch.complex128, device=dev,
                            generator=g)
 
-    def compare(shape_key, key, kernel, plain, label):
+    def compare(shape_key, key, kernel, plain, label, times, library=None,
+                pick=None):
+        """``times`` = :func:`work` of the kernel's function; ``pick``
+        selects the kernel's outputs that the plain version forms."""
         got = kernel()
         ref = plain()
         torch.cuda.synchronize()
+        if pick is not None:
+            got = pick(got)
         abs_err, scale = max_abs_diff(got, ref)
         err = abs_err / scale
         del got, ref
         k_ms = time_ms(torch, kernel)
-        p_ms = time_ms(torch, plain)
+        p_ms = time_ms(torch, plain, PLAIN_REPS)
+        lib_ms = None if library is None else time_ms(torch, library)
+        b_ms, by = bound(*times)
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
         phase("kernels", f"{shape_key} {label}: max rel err {err:.3e} (abs "
-              f"{abs_err:.3e}), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+              f"{abs_err:.3e}), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({by}), library {lib}")
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{label}: kernel vs plain {err:.3e} > "
                                  f"{KERNEL_TOL}")
-        r = results.setdefault(shape_key, {}).setdefault(
-            key, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r = results.setdefault(shape_key, {}).setdefault(key, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0,
+            "t_ops": 0.0, "library_ms": None, "library_kernel_ms": None})
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["ms"] += k_ms
         r["plain_ms"] += p_ms
+        r["t_bytes"] += times[0]
+        r["t_ops"] += times[1]
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+            r["library_kernel_ms"] = (r["library_kernel_ms"] or 0.0) + k_ms
+
+    def level_work(a, nl, c, order, tw):
+        """One level: DFTs of order nl as a matrix product, the twiddle
+        elementwise."""
+        t_bytes, t_dft = work(32 * a * nl * c + 16 * order,
+                              8 * nl * a * nl * c, PEAK_FP64_MMA)
+        return t_bytes, t_dft + (6 * a * nl * c if tw else 0) / PEAK_FP64
 
     lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
     shapes = [(name, n, n_molecules * len(EC_ATOMS), 3)
               for name, n, n_molecules, _ in MODEL_PHASES]
-    for shape_key, n, p, d in shapes + [("top", 2 ** 23, 4, 2)]:
+    for shape_key, n, p, d in shapes + [TOP_SHAPE]:
         m = 2 * n
         plan = cuda_fft.plan_levels(m)
         w, ph = (p * d + 1) // 2, (p + 1) // 2
@@ -223,14 +303,19 @@ def kernels_phase(torch, cuda_fft, cuda_kneller):
             compare(shape_key, "fft_level",
                     lambda: lv(x, order, -1, twiddle_cols=tw),
                     lambda: lvp(x, order, -1, twiddle_cols=tw),
-                    f"K1 forward level {i} ({a}, {nl}, {c})")
+                    f"K1 forward level {i} ({a}, {nl}, {c})",
+                    level_work(a, nl, c, order, tw),
+                    library=lambda: torch.fft.fft(x, dim=1))
             del x
         z = crandn(m, w)
         compare(shape_key, "unpack_power_inva",
                 lambda: cuda_fft.unpack_power_inva(z, p, d),
                 lambda: cuda_fft.unpack_power_inva_plain(z, p, d),
                 f"K2 unpack_power_inva ({m}, {w}) -> ({plan[-1]}, "
-                f"{m // plan[-1]}, {ph})")
+                f"{m // plan[-1]}, {ph})",
+                (16 * m * (w + ph + 1) / PEAK_BYTES,
+                 (8 * m * w + 6 * m * ph) / PEAK_FP64
+                 + 8 * plan[-1] * m * ph / PEAK_FP64_MMA))
         del z
         *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
         for i, (a, nl, c, order, tw) in enumerate(levels):
@@ -238,39 +323,137 @@ def kernels_phase(torch, cuda_fft, cuda_kneller):
             compare(shape_key, "fft_level",
                     lambda: lv(x, order, +1, twiddle_cols=tw),
                     lambda: lvp(x, order, +1, twiddle_cols=tw),
-                    f"K1 inverse level {i} ({a}, {nl}, {c})")
+                    f"K1 inverse level {i} ({a}, {nl}, {c})",
+                    level_work(a, nl, c, order, tw),
+                    library=lambda: torch.fft.ifft(x, dim=1, norm="forward"))
             del x
         a, nl, c, _, _ = last
+        n_out = min(nl, -(-n // a))
         t = crandn(a, nl, c)
         compare(shape_key, "inverse_last_level",
                 lambda: cuda_fft.inverse_last_level(t, n, p, True),
                 lambda: cuda_fft.inverse_last_level_plain(t, n, p, True),
                 f"K5 inverse_last_level ({a}, {nl}, {c}) -> ({n}, {p}) "
-                "normalized")
+                "normalized",
+                ((16 * a * nl * c + 16 * nl + 8 * n * p) / PEAK_BYTES,
+                 8 * nl * a * n_out * c / PEAK_FP64_MMA + n * p / PEAK_FP64))
         del t
+        # the library's whole autocorrelation, beside K1 + K2 + K5's
+        x = torch.randn((n, p * d), dtype=torch.float64, device=dev,
+                        generator=g)
+
+        def library():
+            f = torch.fft.rfft(x, n=m, dim=0)
+            power = f.abs().square().reshape(m // 2 + 1, p, d).sum(-1)
+            return torch.fft.irfft(power, n=m, dim=0)[:n]
+
+        diff, scale = max_abs_diff(library(), cuda_fft.autocorr_power_sum(
+            x, m, p, d))
+        lib_ms = time_ms(torch, library)
+        kernels_ms = sum(results[shape_key][key]["ms"] for key in (
+            "fft_level", "unpack_power_inva", "inverse_last_level"))
+        phase("kernels", f"{shape_key} library autocorrelation (rfft, "
+              f"|.|^2, component sum, irfft) of ({n}, {p * d}): "
+              f"{lib_ms:.3f} ms against K1 + K2 + K5 "
+              f"{kernels_ms:.3f} ms; they agree to {diff / scale:.3e}")
+        del x
         v = torch.randn((n, p, d), dtype=torch.float64, device=dev,
                         generator=g)
         sq = (v * v).sum(-1)
         del v
         corr = torch.randn((n, p), dtype=torch.float64, device=dev,
                            generator=g)
+        rows = cuda_kneller.KNELLER_ROWS
+        nb = -(-n // rows)
         compare(shape_key, "kneller_totals",
                 lambda: cuda_kneller.kneller_totals(sq),
                 lambda: cuda_kneller.kneller_totals_plain(sq),
-                f"K6a kneller_totals ({n}, {p})")
+                f"K6a kneller_totals ({n}, {p})",
+                work(8 * n * p + 16 * nb * p, 2 * n * p),
+                library=(lambda: sq.view(nb, rows, p).sum(1))
+                if n % rows == 0 else None)
         tot = cuda_kneller.kneller_totals(sq)
         compare(shape_key, "kneller_windows",
                 lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
                 lambda: cuda_kneller.kneller_windows_plain(sq, corr, d),
-                f"K6b kneller_windows ({n}, {p}) mean d={d}")
+                f"K6b kneller_windows ({n}, {p}) mean d={d}",
+                work(8 * (3 * n * p + 2 * nb * p), 6 * n * p))
         del sq, corr, tot
+        torch.cuda.empty_cache()
+    for shape_key, n, p, d in shapes:
+        if shape_key not in WINDOWED:
+            continue
+        n_lags = n if WINDOWED[shape_key] is None else WINDOWED[shape_key]
+        runs = [(torch.float32, "acf", "sum", "VACF"),
+                (torch.float64, "einstein", "mean", "Helfand")]
+        if shape_key in MSD_PHASES:
+            runs.append((torch.float32, "einstein", "sum", "MSD"))
+        for dtype, mode, reduce_mode, what in runs:
+            x = torch.randn((n, p, d), dtype=dtype, device=dev, generator=g)
+            sub = x[:, ::PLAIN_STRIDE].contiguous()
+            pairs = p * d * lag_pairs(n, n_lags, 1 if mode == "einstein"
+                                      else 0)
+            # acf: one multiply-add a pair, a Gram product of frame tiles
+            # on the tensor cores; einstein: a subtract, then a
+            # multiply-add, outside them
+            times = (work(x.element_size() * n * p * d + 8 * n_lags * p,
+                          2 * pairs, PEAK_FP64_MMA) if mode == "acf" else
+                     work(x.element_size() * n * p * d + 8 * n_lags * p,
+                          3 * pairs))
+            library = None
+            if mode == "acf":
+                # the library's lag sums: a grouped convolution of each
+                # float64 series, zero-padded by n_lags - 1 frames, with
+                # itself; then the component sum and 1 / (N - lag)
+                series = x.reshape(n, p * d).T.to(
+                    torch.float64, memory_format=torch.contiguous_format)
+                padded = torch.nn.functional.pad(series, (0, n_lags - 1))[
+                    None]
+                weight = series[:, None]
+
+                def library():
+                    return torch.nn.functional.conv1d(padded, weight,
+                                                      groups=p * d)
+
+                lags = torch.arange(n_lags, device=dev, dtype=torch.float64)
+                diff, scale = max_abs_diff(
+                    library()[0].view(p, d, n_lags).sum(1).T / (n - lags)[
+                        :, None],
+                    cuda_lag.lag_sums(x, n_lags, mode, reduce_mode))
+                phase("kernels", f"{shape_key} library lag sums of {what} "
+                      f"(grouped conv1d of the float64 series) agree with "
+                      f"K8 to {diff / scale:.3e}")
+                del lags
+            compare(shape_key, "lag_sums",
+                    lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
+                    lambda: cuda_lag.lag_sums_plain(sub, n_lags, mode,
+                                                    reduce_mode),
+                    f"K8 lag_sums {what}: {str(dtype)[6:]} ({n}, {p}, {d}) "
+                    f"{mode}/{reduce_mode}, {n_lags} lags (plain on every "
+                    f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
+                    times, library=library,
+                    pick=lambda out: out[:, ::PLAIN_STRIDE])
+            r = results[shape_key]["lag_sums"]
+            r["atoms"], r["plain_atoms"] = p, sub.shape[1]
+            del x, sub, library
+            if mode == "acf":
+                del series, padded, weight
         torch.cuda.empty_cache()
     for shape_key, by_kernel in results.items():
         for key, r in by_kernel.items():
+            r["bound_ms"], r["bound_by"] = bound(r.pop("t_bytes"),
+                                                 r.pop("t_ops"))
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.3f} ms against the kernel's "
+                   f"{r['library_kernel_ms']:.3f} ms on the same launches")
             phase("kernels", f"{shape_key} total {key}: kernel "
-                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library {lib}")
     phase("kernels", "fft_level totals sum every forward and inverse "
-          "level of one autocorrelation")
+          "level of one autocorrelation; lag_sums totals sum the windowed "
+          "run's launches (VACF, Helfand and, in model, MSD), its plain "
+          f"version on every {PLAIN_STRIDE}st atom only, its library call "
+          "on the acf (VACF) launch only")
     return results["deep"]
 
 
@@ -321,12 +504,11 @@ def ec_system(n_frames: int, n_molecules: int):
     return pos, vel, attrs
 
 
-def helfand_oracle(masses, vel, pos, d: int) -> np.ndarray:
-    """Host float64 Kneller/Calandrini Helfand function per particle
-    (before the 2·k_B·V·T normalization): np.fft correlation of the
-    centered m·v·x plus cumsum window sums."""
-    a = masses[None, :, None] * vel.astype(np.float64) * pos.astype(
-        np.float64)
+def einstein_oracle(a, dfac: int) -> np.ndarray:
+    """Host float64 Kneller/Calandrini mean squared lag difference per
+    particle of an (N, P, d) float64 array, which it centers in place:
+    np.fft correlation plus cumsum window sums, / ((N − lag)·dfac), lag 0
+    = 0."""
     a -= a.mean(axis=0, keepdims=True)
     n = a.shape[0]
     m = 2 ** (int(n - 1).bit_length() + 1)  # 2·next_pow_2(N)
@@ -334,18 +516,25 @@ def helfand_oracle(masses, vel, pos, d: int) -> np.ndarray:
     corr = np.fft.irfft((f * np.conj(f)).real.sum(-1), n=m, axis=0)[:n]
     del f
     sq = (a * a).sum(-1)
-    del a
     css = np.cumsum(sq, axis=0)
     lags = np.arange(n)
     prev = np.concatenate([np.zeros((1, sq.shape[1])), css[:-1]])
     w = css[n - 1 - lags] + css[-1][None] - prev
-    out = (w - 2.0 * corr) / ((n - lags) * d)[:, None]
+    out = (w - 2.0 * corr) / ((n - lags) * dfac)[:, None]
     out[0] = 0.0
     return out
 
 
+def helfand_oracle(masses, vel, pos, d: int) -> np.ndarray:
+    """The Helfand function per particle before the 2·k_B·V·T
+    normalization: :func:`einstein_oracle` of m·v·x, components
+    averaged."""
+    return einstein_oracle(masses[None, :, None] * vel.astype(np.float64)
+                           * pos.astype(np.float64), d)
+
+
 def reckoned_peak(n: int, n_atoms: int) -> int:
-    """Device bytes the analyses hold at their peak, the first forward
+    """Device bytes the FFT analyses hold at their peak, the first forward
     level: VACF the float32 feed, Helfand its float64 accumulator and the
     (N, P) squares, each beside two packed complex128 spectra of M rows
     and the order-M roots table."""
@@ -353,6 +542,14 @@ def reckoned_peak(n: int, n_atoms: int) -> int:
     m = 2 ** (int(n - 1).bit_length() + 1)
     spectra = 2 * 16 * m * ((s + 1) // 2) + 16 * m
     return max(4 * n * s, 8 * n * s + 8 * n * n_atoms) + spectra
+
+
+def reckoned_windowed_peak(n: int, n_atoms: int, n_lags: int) -> int:
+    """Device bytes the windowed analyses hold at their peak: Helfand's
+    float64 accumulator beside one float32 feed while it is formed (the
+    VACF holds only its float32 feed), then the (n_lags, P) result."""
+    s = 3 * n_atoms
+    return 12 * n * s + 8 * n_lags * n_atoms
 
 
 PROFILE_CATEGORIES = [      # (substring of the device event name, label)
@@ -365,16 +562,24 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("inverse_last_level_kernel", "K5 inverse_last_level"),
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
+    ("lag_sums_kernel", "K8 lag_sums"),
 ]
 
 
-def profile_phase(torch, name, run, card) -> None:
-    """One run of ``run`` under torch.profiler; device time by category,
-    busy time as the union of the device intervals, idle share of wall."""
-    from torch.profiler import ProfilerActivity, profile
+def profile_phase(torch, name, label, run, card, launches) -> None:
+    """One run of ``run`` under torch.profiler, after one warm-up step
+    that it traces and drops (without it the profiler missed the first
+    launches of some runs); device time by category, busy time as the
+    union of the device intervals, idle share of wall, and how many of
+    the port's ``launches`` it saw."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()             # the traced step ends with the block
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -387,21 +592,25 @@ def profile_phase(torch, name, run, card) -> None:
         raise AssertionError("the profiler recorded no device activity")
     totals: dict = {}
     for ev, start, end in spans:
-        label = next((lab for key, lab in PROFILE_CATEGORIES if key in ev),
-                     "PyTorch kernels (elementwise, reductions)")
-        ms, count = totals.get(label, (0.0, 0))
-        totals[label] = (ms + (end - start) / 1e3, count + 1)
+        cat = next((lab for key, lab in PROFILE_CATEGORIES if key in ev),
+                   "PyTorch kernels (elementwise, reductions)")
+        ms, count = totals.get(cat, (0.0, 0))
+        totals[cat] = (ms + (end - start) / 1e3, count + 1)
     busy_us, reach = 0.0, float("-inf")
     for _, start, end in sorted(spans, key=lambda s: s[1]):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     wall_ms = wall * 1e3
-    for label, (ms, count) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
-        phase(name, f"profile: {label}: {count} launches, {ms:.3f} ms "
-              f"device, {100 * ms / wall_ms:.2f} % of wall")
-    phase(name, f"profile: wall {wall_ms:.3f} ms profiled, device busy "
-          f"{busy_us / 1e3:.3f} ms (union of device intervals), idle "
+    for cat, (ms, count) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
+        phase(name, f"{label} profile: {cat}: {count} launches, {ms:.3f} "
+              f"ms device, {100 * ms / wall_ms:.2f} % of wall")
+    phase(name, f"{label} profile: wall {wall_ms:.3f} ms profiled, device "
+          f"busy {busy_us / 1e3:.3f} ms (union of device intervals), idle "
           f"{100 * (1 - busy_us / 1e3 / wall_ms):.2f} %, on {card}")
+    seen = sum(count for cat, (_, count) in totals.items()
+               if cat.startswith("K"))
+    phase(name, f"{label} profile: saw {seen} of the run's "
+          f"{sum(launches.values())} launches of the port's kernels")
 
 
 def head_errors(got, ref, n: int):
@@ -411,12 +620,42 @@ def head_errors(got, ref, n: int):
             for s in (slice(0, n // 2), slice(None))]
 
 
+def drive(torch, counters, card, name, label, run, needed, lag_work):
+    """``run`` once warm, once timed with the launch counters reset just
+    before and read just after (the kernels ``needed`` must have
+    launched), once profiled. Returns the timed run's output and
+    launches."""
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: fn.launches for key, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    phase(name, f"{label}: launches in the timed run: {launches}")
+    missing = [key for key in needed if launches[key] < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched by the {name} {label} "
+                             f"run: {missing}")
+    phase(name, f"{label}: wall {wall:.4f} s timed (warm run {warm:.4f} "
+          f"s), {lag_work / wall:.4e} atom-frame-lags/s, peak device "
+          f"memory {peak / 2**30:.3f} GiB, on {card}")
+    profile_phase(torch, name, label, run, card, launches)
+    return out, launches
+
+
 def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
                 stride):
-    """VACF + Green–Kubo + Helfand over the EC system of ``n_molecules``
-    at ``n`` frames: warm run, timed run with the launch counters reset
-    just before and read just after; oracles on every ``stride``-th
-    atom. Returns the timed run's launches."""
+    """The EC system of ``n_molecules`` at ``n`` frames through the
+    phase's runs (module docstring); oracles on every ``stride``-th atom.
+    Returns each run's launches."""
     t_phase = time.perf_counter()
     pos, vel, attrs = ec_system(n, n_molecules)
     n_atoms = pos.shape[1]
@@ -437,89 +676,128 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
     phase(name, f"EC system: {n_atoms} atoms x {n} frames, box {BOX} Å, "
           f"f32 feed {pos.nbytes / 2**20:.0f} MiB x 2, M = {m}, plan "
           f"{plan_levels(m)}; generated in "
-          f"{time.perf_counter() - t_phase:.1f} s; reckoned peak device "
-          f"memory {reckoned_peak(n, n_atoms) / 2**30:.3f} GiB")
-
-    def run():
-        ag = u.select_atoms("resname ECA")
-        vacf = ta.VelocityAutocorr(ag).run()
-        d_gk = vacf.self_diffusivity_gk()
-        visc = ta.ViscosityHelfand(u.atoms, temp_avg=TEMP,
-                                   linear_fit_window=FIT_WINDOW).run()
-        return vacf, d_gk, visc
-
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    vacf, d_gk, visc = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {key: fn.launches for key, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
-    phase(name, f"launches in the timed run: {launches}")
-    missing = [key for key, count in launches.items() if count < 1]
-    if missing:
-        raise AssertionError(f"kernels not launched by the {name} path: "
-                             f"{missing}")
-
+          f"{time.perf_counter() - t_phase:.1f} s")
     atoms = slice(None, None, stride)
+    n_sampled = len(range(n_atoms)[atoms])
     head = slice(0, n // 2)
-
-    def mean_error(timeseries, by_particle, ref):
-        """The particle mean's error on lags < N/2: against the host
-        oracle's mean over every atom, or, when the oracle covers only
-        the sampled atoms, against the mean of the program's own
-        per-particle values (a self-consistency check)."""
-        target = (ref if stride == 1 else by_particle)[head].mean(axis=1)
-        return float(np.abs(timeseries[head] - target).max()
-                     / np.abs(target).max())
-
-    ref = acf_numpy(vel[:, atoms])
-    err_v = head_errors(vacf.results.vacf_by_particle[:, atoms], ref, n)
-    ts_v = mean_error(vacf.results.timeseries,
-                      vacf.results.vacf_by_particle, ref)
-    del ref
-    ref = helfand_oracle(attrs["masses"][atoms], vel[:, atoms],
-                         pos[:, atoms], 3) / (
-        2.0 * constants["Boltzmann_constant"] * BOX ** 3 * TEMP)
-    by_particle = visc.results.visc_by_particle
-    err_h = head_errors(by_particle[:, atoms], ref, n)
-    ts_h = mean_error(visc.results.timeseries, by_particle, ref)
-    del ref
     mean_of = ("host f64 over every atom" if stride == 1 else
                "the mean of its own per-particle values")
-    phase(name, f"VACF vs host f64 on {len(range(n_atoms)[atoms])} atoms: "
-          f"{err_v[0]:.3e} (lags < N/2), {err_v[1]:.3e} (all lags); "
-          f"Helfand vs host f64: {err_h[0]:.3e} (lags < N/2), "
-          f"{err_h[1]:.3e} (all lags); timeseries (lags < N/2) vs "
-          f"{mean_of}: VACF {ts_v:.3e}, Helfand {ts_h:.3e}")
-    finite = all(np.isfinite(v).all() for v in (
-        vacf.results.timeseries, visc.results.timeseries,
-        d_gk, visc.results.viscosity))
-    shapes_ok = (vacf.results.vacf_by_particle.shape == (n, n_atoms)
-                 and by_particle.shape == (n, n_atoms))
-    phase(name, f"D_gk = {d_gk:.6e} Å²/ps, viscosity slope = "
-          f"{visc.results.viscosity:.6e}, finite {finite}, shapes "
-          f"{shapes_ok}")
-    if not (finite and shapes_ok):
-        raise AssertionError("model outputs are not finite or have the "
-                             "wrong shape")
-    if not max(err_v[0], err_h[0], ts_v, ts_h) <= HEAD_TOL:
-        raise AssertionError(f"model outputs disagree with host f64 beyond "
-                             f"{HEAD_TOL} on lags < N/2")
-    lag_work = 2 * (n * (n + 1) // 2) * n_atoms
-    phase(name, f"wall {wall:.4f} s timed (warm run {warm:.4f} s), "
-          f"{lag_work / wall:.4e} atom-frame-lags/s, peak device memory "
-          f"{peak / 2**30:.3f} GiB (reckoned "
-          f"{reckoned_peak(n, n_atoms) / 2**30:.3f}), on {card}")
-    del vacf, visc, by_particle
-    profile_phase(torch, name, run, card)
+    pairs = n * (n + 1) // 2        # frame-lag pairs of one series
+
+    def check(label, what, by_particle, timeseries, ref, n_lags):
+        """Per-particle values, which must have the run's ``n_lags`` rows,
+        on the sampled atoms against the host oracle ``ref`` (its first
+        ``n_lags`` rows) on lags < N/2 and over all; the particle mean
+        against the oracle's mean over every atom, or, when the oracle
+        covers only the sampled atoms, against the mean of the program's
+        own per-particle values (a self-consistency check)."""
+        ref = ref[:n_lags]
+        if (by_particle.shape != (n_lags, n_atoms)
+                or timeseries.shape != (n_lags,)
+                or not np.isfinite(by_particle).all()
+                or not np.isfinite(timeseries).all()):
+            raise AssertionError(
+                f"{label} {what}: not finite, or shapes {by_particle.shape} "
+                f"and {timeseries.shape}, not ({n_lags}, {n_atoms}) and "
+                f"({n_lags},)")
+        err = head_errors(by_particle[:, atoms], ref, n)
+        target = (ref if stride == 1 else by_particle)[head].mean(axis=1)
+        ts = float(np.abs(timeseries[head] - target).max()
+                   / np.abs(target).max())
+        phase(name, f"{label}: {what} vs host f64 on {n_sampled} atoms: "
+              f"{err[0]:.3e} (lags < N/2), {err[1]:.3e} (all {n_lags} "
+              f"lags); timeseries (lags < N/2) vs {mean_of}: {ts:.3e}")
+        if not max(err[0], ts) <= HEAD_TOL:
+            raise AssertionError(f"{label} {what} disagrees with host f64 "
+                                 f"beyond {HEAD_TOL} on lags < N/2")
+
+    def cross(label, what, windowed, fft):
+        """The windowed result against the FFT result of the card, over
+        every atom, on lags < N/2."""
+        h = slice(0, min(windowed.shape[0], n // 2))
+        err = float(np.abs(windowed[h] - fft[h]).max()
+                    / np.abs(fft[h]).max())
+        phase(name, f"{label}: {what} windowed vs FFT on the card over "
+              f"{n_atoms} atoms: {err:.3e} (lags < N/2)")
+        if not err <= HEAD_TOL:
+            raise AssertionError(f"{label} {what}: windowed and FFT differ "
+                                 f"by {err:.3e} > {HEAD_TOL}")
+
+    def analyses(fft, max_lag=None):
+        def run():
+            ag = u.select_atoms("resname ECA")
+            vacf = ta.VelocityAutocorr(ag, fft=fft, max_lag=max_lag).run()
+            d_gk = vacf.self_diffusivity_gk()
+            visc = ta.ViscosityHelfand(
+                u.atoms, temp_avg=TEMP, linear_fit_window=FIT_WINDOW,
+                fft=fft, max_lag=max_lag).run()
+            return vacf, d_gk, visc
+        return run
+
+    def msd(fft):
+        return lambda: ta.EinsteinMSD(u, select="resname ECA", fft=fft).run()
+
+    def scalars(label, d_gk, visc):
+        finite = bool(np.isfinite([d_gk, visc.results.viscosity]).all())
+        phase(name, f"{label}: D_gk = {d_gk:.6e} Å²/ps, viscosity slope = "
+              f"{visc.results.viscosity:.6e}, finite {finite}")
+        if not finite:
+            raise AssertionError(f"{label}: D_gk or the viscosity slope is "
+                                 "not finite")
+
+    launches = {}
+    (vacf, d_gk, visc), launches["fft"] = drive(
+        torch, counters, card, name, "fft", analyses(True), FFT_KERNELS,
+        2 * pairs * n_atoms)
+    phase(name, f"fft: reckoned peak device memory "
+          f"{reckoned_peak(n, n_atoms) / 2**30:.3f} GiB")
+    ref_v = acf_numpy(vel[:, atoms])
+    check("fft", "VACF", vacf.results.vacf_by_particle,
+          vacf.results.timeseries, ref_v, n)
+    scale = 2.0 * constants["Boltzmann_constant"] * BOX ** 3 * TEMP
+    ref_h = helfand_oracle(attrs["masses"][atoms], vel[:, atoms],
+                           pos[:, atoms], 3) / scale
+    check("fft", "Helfand", visc.results.visc_by_particle,
+          visc.results.timeseries, ref_h, n)
+    scalars("fft", d_gk, visc)
+    if name in WINDOWED:
+        max_lag = WINDOWED[name]
+        n_lags = n if max_lag is None else max_lag
+        keep = slice(0, min(n_lags, n // 2))
+        fft_v = vacf.results.vacf_by_particle[keep]
+        fft_h = visc.results.visc_by_particle[keep]
+        del vacf, visc
+        (vacf, d_gk, visc), launches["windowed"] = drive(
+            torch, counters, card, name, "windowed",
+            analyses(False, max_lag), WINDOWED_KERNELS,
+            2 * lag_pairs(n, n_lags) * n_atoms)
+        phase(name, f"windowed: {n_lags} lags, reckoned peak device memory "
+              f"{reckoned_windowed_peak(n, n_atoms, n_lags) / 2**30:.3f} "
+              "GiB")
+        check("windowed", "VACF", vacf.results.vacf_by_particle,
+              vacf.results.timeseries, ref_v, n_lags)
+        check("windowed", "Helfand", visc.results.visc_by_particle,
+              visc.results.timeseries, ref_h, n_lags)
+        cross("windowed", "VACF", vacf.results.vacf_by_particle, fft_v)
+        cross("windowed", "Helfand", visc.results.visc_by_particle, fft_h)
+        scalars("windowed", d_gk, visc)
+        del fft_v, fft_h
+    del vacf, visc, ref_v, ref_h
+    if name in MSD_PHASES:
+        ref_m = einstein_oracle(pos[:, atoms].astype(np.float64), 1)
+        msd_fft, launches["msd_fft"] = drive(
+            torch, counters, card, name, "msd_fft", msd(True), FFT_KERNELS,
+            pairs * n_atoms)
+        check("msd_fft", "MSD", msd_fft.results.msds_by_particle,
+              msd_fft.results.timeseries, ref_m, n)
+        msd_win, launches["msd_windowed"] = drive(
+            torch, counters, card, name, "msd_windowed", msd(False),
+            WINDOWED_KERNELS, pairs * n_atoms)
+        check("msd_windowed", "MSD", msd_win.results.msds_by_particle,
+              msd_win.results.timeseries, ref_m, n)
+        cross("msd_windowed", "MSD", msd_win.results.msds_by_particle,
+              msd_fft.results.msds_by_particle)
+        del msd_fft, msd_win, ref_m
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -538,12 +816,13 @@ def main() -> int:
     t_start = time.perf_counter()
     card_name, smi = device_phase(torch)
     from transport_analysis_tpu_torch import _build
-    from transport_analysis_tpu_torch.ops import cuda_fft, cuda_kneller
+    from transport_analysis_tpu_torch.ops import (cuda_fft, cuda_kneller,
+                                                  cuda_lag)
     from transport_analysis_tpu_torch.ops.acf import acf_fft_numpy
 
     build_phase(_build)
     t0 = time.perf_counter()
-    kernel_results = kernels_phase(torch, cuda_fft, cuda_kneller)
+    kernel_results = kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag)
     phase("kernels", f"phase done in {time.perf_counter() - t0:.1f} s")
     counters = {
         "fft_level": cuda_fft.fft_level,
@@ -551,6 +830,7 @@ def main() -> int:
         "inverse_last_level": cuda_fft.inverse_last_level,
         "kneller_totals": cuda_kneller.kneller_totals,
         "kneller_windows": cuda_kneller.kneller_windows,
+        "lag_sums": cuda_lag.lag_sums,
     }
     launches = {}
     for name, n, n_molecules, stride in MODEL_PHASES:
@@ -561,9 +841,11 @@ def main() -> int:
         raise AssertionError("jax was imported")
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
+    deep = launches["deep"]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches["deep"][name], **kernel_results[name]}
+         "launches": deep["windowed" if name == "lag_sums" else "fft"][name],
+         **kernel_results[name]}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from transport_analysis_tpu_torch.models import VelocityAutocorr  # noqa: E402
-from transport_analysis_tpu_torch.ops import acf, cuda_fft, cuda_kneller  # noqa: E402
+from transport_analysis_tpu_torch.ops import (  # noqa: E402
+    acf, cuda_fft, cuda_kneller, cuda_lag)
 from transport_analysis_tpu_torch import convert  # noqa: E402
 
 TOL = 1e-12
@@ -112,6 +113,27 @@ def test_kneller_kernels_vs_plain(cuda_device, n, p, d):
     got = cuda_kneller.kneller_windows(sq, corr, tot, d)
     assert rel(got, cuda_kneller.kneller_windows_plain(sq, corr, d)) <= TOL
     assert torch.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("n,p,d", [(1, 1, 1), (37, 5, 3), (1000, 130, 1),
+                                   (2053, 257, 3), (300, 129, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lag_kernel_vs_plain(cuda_device, n, p, d, dtype):
+    """K8 at ragged shapes (N not a multiple of the lag block, P not of
+    the 128-thread tile), n_lags of 1, 17 and N, both modes."""
+    rng = np.random.RandomState(n + p)
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
+        cuda_device, dtype)
+    for n_lags in sorted({1, min(17, n), n}):
+        for mode, reduce_mode in (("acf", "sum"), ("einstein", "mean"),
+                                  ("einstein", "sum")):
+            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode)
+            assert got.shape == (n_lags, p) and got.dtype == torch.float64
+            if mode == "einstein":
+                assert torch.all(got[0] == 0.0)
+            if n_lags > 1 or mode == "acf":
+                assert rel(got, ref) <= TOL, (n_lags, mode, reduce_mode)
 
 
 def test_model_on_card_vs_cpu(cuda_device):

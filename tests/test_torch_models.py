@@ -205,16 +205,11 @@ def test_use_before_run(pu, fn):
 
 
 @pytest.mark.parametrize("call", [
-    lambda ag: ta.VelocityAutocorr(ag, fft=False),
-    lambda ag: ta.ViscosityHelfand(ag, fft=False),
     lambda ag: ta.VelocityAutocorr(ag, atom_chunk=2),
     lambda ag: ta.ViscosityHelfand(ag, checkpoint="ck.npz"),
     lambda ag: ta.VelocityAutocorr(ag, frame_block=4),
-    lambda ag: ta.EinsteinMSD(ag.universe),
     lambda ag: ta.Universe("topology.pdb", "trajectory.trr"),
     lambda ag: ag.universe.load_new("trajectory.trr"),
-    lambda ag: ta.ops.acf_windowed(np.zeros((4, 1, 3))),
-    lambda ag: ta.ops.einstein_difference_windowed(np.zeros((4, 1, 3))),
     lambda ag: ta.io.open_trajectory("trajectory.trr"),
     lambda ag: ta.data.files,
     lambda ag: ta.parallel.use_mesh(),

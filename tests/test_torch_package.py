@@ -19,7 +19,8 @@ torch.set_num_threads(1)
 
 import transport_analysis_tpu_torch as ta  # noqa: E402
 from transport_analysis_tpu_torch import _build, _device  # noqa: E402
-from transport_analysis_tpu_torch.ops import cuda_fft, cuda_kneller  # noqa: E402
+from transport_analysis_tpu_torch.ops import (  # noqa: E402
+    cuda_fft, cuda_kneller, cuda_lag)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -33,11 +34,14 @@ def test_import_pulls_in_no_jax():
     res = _python(
         "import sys, transport_analysis_tpu_torch as ta\n"
         "import transport_analysis_tpu_torch.convert\n"
+        "import transport_analysis_tpu_torch.velocityautocorr\n"
+        "import transport_analysis_tpu_torch.viscosity\n"
+        "import transport_analysis_tpu_torch.ops.cuda_lag\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'transport_analysis_tpu'"
         " or m.startswith('transport_analysis_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert ta.ops.acf_fft and ta.VelocityAutocorr\n"
+        "assert ta.ops.acf_fft and ta.VelocityAutocorr and ta.EinsteinMSD\n"
         "print('clean')")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
@@ -45,7 +49,7 @@ def test_import_pulls_in_no_jax():
 
 def test_exports():
     for name in ("Universe", "AtomGroup", "UpdatingAtomGroup", "NoDataError",
-                 "VelocityAutocorr", "ViscosityHelfand"):
+                 "VelocityAutocorr", "ViscosityHelfand", "EinsteinMSD"):
         assert name in ta.__all__
         assert getattr(ta, name) is not None
 
@@ -72,7 +76,8 @@ def test_library_path_follows_sources(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     before = _build.library_path()
-    assert [s.name for s in _build.sources()] == ["fft.cu", "kneller.cu"]
+    assert [s.name for s in _build.sources()] == ["fft.cu", "kneller.cu",
+                                                  "lag.cu"]
     (csrc / "kneller.cu").write_text(
         (csrc / "kneller.cu").read_text() + "\n// edited\n")
     assert _build.library_path() != before
@@ -133,20 +138,24 @@ def test_default_device_is_cpu_without_card(monkeypatch):
     lambda t: cuda_fft.fft_level(t.reshape(1, 4, 2), 8),
     lambda t: cuda_fft.unpack_power_inva(t.reshape(8, 1), 1, 1),
     lambda t: cuda_kneller.kneller_totals(t.real.reshape(4, 2)),
+    lambda t: cuda_lag.lag_sums(t.real.reshape(4, 2, 1), 2),
 ])
 def test_kernel_wrappers_never_fall_back(call):
     """A tensor that is not on the CPU goes to the kernel path, which
     takes CUDA tensors only: anything else raises there instead of
     running the plain version."""
     t = torch.zeros(8, dtype=torch.complex128, device="meta")
-    launches = (cuda_fft.fft_level.launches,
+
+    def launches():
+        return (cuda_fft.fft_level.launches,
                 cuda_fft.unpack_power_inva.launches,
-                cuda_kneller.kneller_totals.launches)
+                cuda_kneller.kneller_totals.launches,
+                cuda_lag.lag_sums.launches)
+
+    before = launches()
     with pytest.raises(ValueError, match="CUDA"):
         call(t)
-    assert launches == (cuda_fft.fft_level.launches,
-                        cuda_fft.unpack_power_inva.launches,
-                        cuda_kneller.kneller_totals.launches)
+    assert launches() == before
 
 
 def test_plain_versions_count_no_launches():

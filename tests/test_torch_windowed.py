@@ -1,0 +1,388 @@
+"""The port's windowed (fft=False) path and EinsteinMSD against the JAX
+package's, on the same inputs.
+
+* ``cuda_lag.windowed_lag`` / ``lag_sums_plain`` (K8's plain version)
+  against the TPU kernels themselves, ``windowed_lag_pallas`` in
+  interpret mode (lag block 8, as ``tests/test_pallas_lag.py`` runs it):
+  the float64 pair kernel (K8b) within 1e-12 of the maximum (it is
+  ~2^-45 of row scale), the float32 kernel (K8a) within 1e-5 (its f32
+  arithmetic; the port upcasts f32 samples exactly, so it also meets the
+  JAX float64 windowed op on the upcast within 1e-12).
+* ``acf_windowed`` / ``einstein_difference_windowed`` against the JAX
+  XLA windowed kernels, within 1e-12 of the maximum.
+* The models with ``fft=False`` against JAX ``fft=False`` on the systems
+  of tests/test_torch_models.py (timeseries and per-particle values
+  within 1e-12 of the maximum, Green–Kubo and fitted slopes within 1e-10
+  relative), and the step trajectory's closed-form VACF oracle.
+* ``EinsteinMSD`` with both algorithms against JAX ``EinsteinMSD`` and
+  tests/test_msd.py's brute-force random-walk oracle.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import transport_analysis_tpu as jta  # noqa: E402
+from transport_analysis_tpu import ops as jops  # noqa: E402
+from transport_analysis_tpu.ops.pallas_lag import windowed_lag_pallas  # noqa: E402
+import transport_analysis_tpu_torch as ta  # noqa: E402
+from transport_analysis_tpu_torch.models.base import NO_F32_SOURCE_ENV  # noqa: E402
+from transport_analysis_tpu_torch.ops import cuda_lag  # noqa: E402
+from transport_analysis_tpu_torch.utils.errors import NoDataError  # noqa: E402
+
+from test_msd import brute_force_msd  # noqa: E402
+from test_torch_models import port_universe, rel  # noqa: E402
+from test_velocityautocorr import ALL_DIMS, characteristic_poly  # noqa: E402
+
+TOL = 1e-12
+F32_TOL = 1e-5
+SCALAR_TOL = 1e-10
+
+
+def port(x, max_lag, mode, reduce_mode):
+    return cuda_lag.windowed_lag(torch.from_numpy(x), max_lag, mode,
+                                 reduce_mode).numpy()
+
+
+# --- K8 against the TPU kernels (interpret mode) ---------------------------
+
+LAG_CASES = [  # (shape, max_lag, mode, reduce_mode)
+    ((40, 3, 3), None, "acf", "sum"),
+    ((40, 3, 3), 10, "acf", "sum"),
+    ((40, 3, 3), 1, "acf", "sum"),
+    ((40, 3, 3), None, "einstein", "mean"),
+    ((40, 3, 3), 17, "einstein", "sum"),
+    ((33, 5), None, "acf", "sum"),
+    ((33, 5), 9, "einstein", "mean"),
+    ((64, 8, 2), 64, "einstein", "sum"),
+    ((50, 4, 3), 20, "acf", "mean"),
+]
+
+
+@pytest.mark.parametrize("shape,max_lag,mode,reduce_mode", LAG_CASES)
+def test_windowed_lag_vs_pair_kernel(shape, max_lag, mode, reduce_mode):
+    """float64 operand: K8b's function within 1e-12 of the maximum."""
+    x = np.random.RandomState(sum(shape)).normal(0.3, 1.5, shape)
+    ref = np.asarray(windowed_lag_pallas(x, max_lag=max_lag, mode=mode,
+                                         reduce_mode=reduce_mode))
+    got = port(x, max_lag, mode, reduce_mode)
+    assert got.shape == ref.shape
+    assert rel(got, ref) <= TOL
+    if mode == "einstein":
+        assert np.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("shape,max_lag,mode,reduce_mode", [
+    LAG_CASES[0], LAG_CASES[4], LAG_CASES[5], LAG_CASES[7]])
+def test_windowed_lag_vs_f32_kernel(shape, max_lag, mode, reduce_mode):
+    """float32 operand: K8a's function within its f32 grade, and the JAX
+    float64 windowed op on the exact upcast within 1e-12."""
+    x32 = np.random.RandomState(7 + sum(shape)).normal(
+        0.3, 1.5, shape).astype(np.float32)
+    got = port(x32, max_lag, mode, reduce_mode)
+    assert got.dtype == np.float64
+    ref32 = np.asarray(windowed_lag_pallas(x32, max_lag=max_lag, mode=mode,
+                                           reduce_mode=reduce_mode))
+    assert ref32.dtype == np.float32
+    assert rel(got, ref32) <= F32_TOL
+    x64 = x32.astype(np.float64)
+    if mode == "acf":
+        ref = jops.acf_windowed(x64, max_lag=max_lag)
+    else:
+        ref = jops.einstein_difference_windowed(x64, reduce_mode, max_lag)
+    assert rel(got, np.asarray(ref)) <= TOL
+
+
+@pytest.mark.parametrize("n,p,d,n_lags", [(1, 1, 1, 1), (17, 2, 3, 17),
+                                          (100, 3, 2, 37)])
+def test_lag_sums_plain_blocks_agree(monkeypatch, n, p, d, n_lags):
+    """The plain version's lag blocks change nothing but the grouping:
+    one lag at a time gives the same sums within 1e-12."""
+    x = torch.from_numpy(np.random.RandomState(n).normal(size=(n, p, d)))
+    for mode in ("acf", "einstein"):
+        whole = cuda_lag.lag_sums_plain(x, n_lags, mode, "mean")
+        monkeypatch.setattr(cuda_lag, "PLAIN_BLOCK_VALUES", 1)
+        single = cuda_lag.lag_sums_plain(x, n_lags, mode, "mean")
+        monkeypatch.undo()
+        assert torch.allclose(whole, single, rtol=0,
+                              atol=TOL * float(single.abs().max() + 1e-300))
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1), dtype=torch.int64),
+                               2), TypeError),
+    (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 5), ValueError),
+    (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 0), ValueError),
+    (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 2, "msd"), ValueError),
+    (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 2, "acf", "max"),
+     ValueError),
+    (lambda: ta.ops.acf_windowed(np.zeros((4, 2), np.int32)), TypeError),
+    (lambda: ta.ops.einstein_difference_windowed(
+        np.zeros((4, 2), np.complex128)), TypeError),
+])
+def test_lag_sums_rejects_bad_operands(call, err):
+    with pytest.raises(err):
+        call()
+
+
+def test_lag_kernel_takes_cuda_tensors_only():
+    """A tensor off the CPU goes to the kernel path, which raises for
+    anything but a CUDA tensor and counts no launch."""
+    before = cuda_lag.lag_sums.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_lag.lag_sums(torch.zeros((8, 2, 3), device="meta"), 4)
+    cuda_lag.lag_sums(torch.zeros((8, 2, 3)), 4)      # the plain version
+    assert cuda_lag.lag_sums.launches == before
+
+
+# --- the ops against the JAX XLA windowed kernels --------------------------
+
+
+@pytest.mark.parametrize("shape,max_lag", [((200, 7, 3), None),
+                                           ((200, 7, 3), 31),
+                                           ((97, 4), None),
+                                           ((150, 5, 2), 150)])
+def test_acf_windowed_vs_jax(shape, max_lag):
+    x = np.random.RandomState(len(shape) + shape[0]).normal(0.0, 3.0, shape)
+    ref = np.asarray(jops.acf_windowed(x, max_lag=max_lag))
+    got = ta.ops.acf_windowed(x, max_lag=max_lag, device="cpu")
+    assert got.dtype == torch.float64 and got.device.type == "cpu"
+    assert got.shape == ref.shape
+    assert rel(got.numpy(), ref) <= TOL
+
+
+@pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
+@pytest.mark.parametrize("shape,max_lag", [((200, 7, 3), None),
+                                           ((200, 7, 3), 31),
+                                           ((97, 4), None)])
+def test_einstein_windowed_vs_jax(shape, max_lag, reduce_mode):
+    """A large offset on every series: the windowed path differences the
+    raw series, with no centering, as the reference does."""
+    rng = np.random.RandomState(shape[0])
+    a = rng.normal(size=shape).cumsum(0) + 1e3
+    ref = np.asarray(jops.einstein_difference_windowed(a, reduce_mode,
+                                                       max_lag))
+    got = ta.ops.einstein_difference_windowed(a, reduce_mode, max_lag,
+                                              device="cpu")
+    assert got.shape == ref.shape
+    assert rel(got.numpy(), ref) <= TOL
+    assert np.all(got.numpy()[0] == 0.0)
+
+
+def test_msd_fft_and_from_f32_vs_jax():
+    r = np.random.RandomState(3).normal(size=(120, 6, 3)).cumsum(0)
+    ref = np.asarray(jops.msd_fft(r))
+    assert rel(ta.ops.msd_fft(r, device="cpu").numpy(), ref) <= TOL
+    r32 = r.astype(np.float32)
+    ref = np.asarray(jops.einstein_difference_fft_from_f32(r32, "sum"))
+    got = ta.ops.einstein_difference_fft_from_f32(r32, "sum", device="cpu")
+    assert got.dtype == torch.float64
+    assert rel(got.numpy(), ref) <= TOL
+    with pytest.raises(TypeError):
+        ta.ops.einstein_difference_fft_from_f32(r, device="cpu")
+
+
+# --- the models with fft=False against JAX fft=False ------------------------
+
+
+@pytest.fixture(scope="module")
+def systems(u_random, step_vtraj, step_vtraj_full):
+    """name -> (JAX universe, port universe)."""
+    return {name: (u, port_universe(u)) for name, u in
+            (("random", u_random), ("step", step_vtraj),
+             ("step_full", step_vtraj_full))}
+
+
+def assert_vacf_matches(got, ref):
+    assert got.results.vacf_by_particle.shape == \
+        ref.results.vacf_by_particle.shape
+    assert rel(got.results.timeseries, ref.results.timeseries) <= TOL
+    assert rel(got.results.vacf_by_particle,
+               ref.results.vacf_by_particle) <= TOL
+    for fn in ("self_diffusivity_gk", "self_diffusivity_gk_odd"):
+        assert getattr(got, fn)() == pytest.approx(getattr(ref, fn)(),
+                                                   rel=SCALAR_TOL)
+
+
+@pytest.mark.parametrize("engine", [None, "frame"])
+@pytest.mark.parametrize("dim_type", [dim for dim, _ in ALL_DIMS])
+def test_vacf_windowed_vs_jax(systems, dim_type, engine):
+    ju, pu = systems["random"]
+    ref = jta.VelocityAutocorr(ju.atoms, dim_type=dim_type, fft=False,
+                               max_lag=8).run()
+    got = ta.VelocityAutocorr(pu.atoms, dim_type=dim_type, fft=False,
+                              max_lag=8, engine=engine, device="cpu").run()
+    assert got.results.timeseries.shape == (8,)
+    assert_vacf_matches(got, ref)
+
+
+@pytest.mark.parametrize("dim_type,max_lag", [("xyz", None), ("yz", 1000)])
+def test_vacf_windowed_step_vs_jax(systems, dim_type, max_lag):
+    ju, pu = systems["step"]
+    ref = jta.VelocityAutocorr(ju.atoms, dim_type=dim_type, fft=False,
+                               max_lag=max_lag).run()
+    got = ta.VelocityAutocorr(pu.atoms, dim_type=dim_type, fft=False,
+                              max_lag=max_lag, device="cpu").run()
+    assert_vacf_matches(got, ref)
+
+
+@pytest.mark.parametrize("system,dim_type,window,max_lag", [
+    ("random", "xyz", (2, 9), None), ("random", "xz", (2, 9), None),
+    ("random", "x", (1, 6), 7), ("step_full", "xyz", (10, 100), None),
+    ("step_full", "xy", (10, 100), 400),
+])
+def test_viscosity_windowed_vs_jax(systems, system, dim_type, window,
+                                   max_lag):
+    ju, pu = systems[system]
+    ref = jta.ViscosityHelfand(ju.atoms, dim_type=dim_type, fft=False,
+                               linear_fit_window=window,
+                               max_lag=max_lag).run()
+    got = ta.ViscosityHelfand(pu.atoms, dim_type=dim_type, fft=False,
+                              linear_fit_window=window, max_lag=max_lag,
+                              device="cpu").run()
+    assert got.results.visc_by_particle.shape == \
+        ref.results.visc_by_particle.shape
+    assert rel(got.results.timeseries, ref.results.timeseries) <= TOL
+    assert rel(got.results.visc_by_particle,
+               ref.results.visc_by_particle) <= TOL
+    assert got.results.timeseries[0] == 0.0
+    assert got.results.viscosity == pytest.approx(ref.results.viscosity,
+                                                  rel=SCALAR_TOL)
+
+
+def test_windowed_engines_and_algorithms_agree(systems):
+    """fft=False against fft=True in the port (the reference's decimal=4
+    cross-check, here far tighter), and the frame engine against the
+    batch engine."""
+    _, pu = systems["random"]
+    for model in (ta.VelocityAutocorr, ta.ViscosityHelfand):
+        win = model(pu.atoms, fft=False, device="cpu").run()
+        fft = model(pu.atoms, device="cpu").run()
+        frame = model(pu.atoms, fft=False, engine="frame",
+                      device="cpu").run()
+        assert rel(win.results.timeseries, fft.results.timeseries) <= 1e-11
+        assert rel(frame.results.timeseries, win.results.timeseries) <= TOL
+
+
+@pytest.mark.parametrize("tdim,tdim_factor", ALL_DIMS)
+def test_windowed_step_oracle(systems, NSTEP, tdim, tdim_factor):
+    """The closed-form VACF of the unit-step trajectory
+    (tests/test_velocityautocorr.py TestAllDims with fft=False), over the
+    whole run and a start/stop/step selection."""
+    _, pu = systems["step"]
+    v = ta.VelocityAutocorr(pu.atoms, dim_type=tdim, fft=False,
+                            device="cpu").run()
+    poly = characteristic_poly(NSTEP, tdim_factor)
+    assert rel(v.results.timeseries, poly) <= TOL
+    v = ta.VelocityAutocorr(pu.atoms, dim_type=tdim, fft=False,
+                            device="cpu").run(start=10, stop=1000, step=10)
+    poly = characteristic_poly(1000, tdim_factor, first=10, step=10)
+    assert rel(v.results.timeseries, poly) <= TOL
+
+
+# --- EinsteinMSD ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def walk():
+    """tests/test_msd.py's random walk: (JAX universe, port universe)."""
+    rng = np.random.RandomState(11)
+    pos = np.cumsum(rng.normal(size=(64, 5, 3)), axis=0)
+    ju = jta.Universe.empty(5)
+    ju.load_new(pos.astype(np.float32))
+    pu = ta.Universe.empty(5)
+    pu.load_new(pos.astype(np.float32))
+    return ju, pu
+
+
+@pytest.mark.parametrize("fft", [True, False])
+@pytest.mark.parametrize("msd_type,dims", [
+    ("xyz", [0, 1, 2]), ("xy", [0, 1]), ("xz", [0, 2]), ("yz", [1, 2]),
+    ("x", [0]), ("y", [1]), ("z", [2])])
+def test_msd_vs_jax_and_brute_force(walk, msd_type, dims, fft):
+    ju, pu = walk
+    ref = jta.EinsteinMSD(ju.atoms, msd_type=msd_type, fft=fft).run()
+    got = ta.EinsteinMSD(pu.atoms, msd_type=msd_type, fft=fft,
+                         device="cpu").run()
+    assert got.results.msds_by_particle.shape == (64, 5)
+    assert rel(got.results.msds_by_particle,
+               ref.results.msds_by_particle) <= TOL
+    assert rel(got.results.timeseries, ref.results.timeseries) <= TOL
+    brute = brute_force_msd(pu.trajectory.get_array("positions"), dims)
+    assert rel(got.results.msds_by_particle, brute) <= TOL
+
+
+@pytest.mark.parametrize("engine,max_lag", [(None, 20), ("frame", None)])
+def test_msd_select_and_engines_vs_jax(systems, engine, max_lag):
+    """``select=`` on a Universe and on an AtomGroup, ``max_lag``, both
+    engines and both algorithms."""
+    ju, pu = systems["random"]
+    for fft in (True, False):
+        ref = jta.EinsteinMSD(ju, select="resid 1-5", fft=fft,
+                              max_lag=max_lag).run()
+        got = ta.EinsteinMSD(pu, select="resid 1-5", fft=fft,
+                             max_lag=max_lag, engine=engine,
+                             device="cpu").run()
+        assert got.n_particles == 5
+        assert rel(got.results.msds_by_particle,
+                   ref.results.msds_by_particle) <= TOL
+        sub = ta.EinsteinMSD(pu.atoms, select="resid 1-5", fft=fft,
+                             max_lag=max_lag, device="cpu").run()
+        assert rel(sub.results.timeseries, got.results.timeseries) <= TOL
+        whole = ta.EinsteinMSD(pu.select_atoms("resid 1-5"), fft=fft,
+                               max_lag=max_lag, device="cpu").run()
+        assert rel(whole.results.timeseries, got.results.timeseries) <= TOL
+
+
+@pytest.mark.parametrize("engine", [None, "frame"])
+@pytest.mark.parametrize("f32_feed", [True, False])
+def test_msd_fft_leaves_its_feed_alone(monkeypatch, engine, f32_feed):
+    """The FFT path centers its operand in place; on the CPU the model
+    hands it a float64 copy, never its feed (float32 samples as read, or
+    float64 when the float32 feed is switched off)."""
+    if not f32_feed:
+        monkeypatch.setenv(NO_F32_SOURCE_ENV, "1")
+    u = ta.Universe.empty(4)
+    u.load_new(np.cumsum(np.random.RandomState(5).normal(size=(40, 4, 3)),
+                         axis=0).astype(np.float32))
+    pos = u.trajectory.get_array("positions").copy()
+    first = ta.EinsteinMSD(u, engine=engine, device="cpu").run()
+    np.testing.assert_array_equal(u.trajectory.get_array("positions"), pos)
+    if engine is None:
+        assert (first._positions.dtype == np.float32) == f32_feed
+        np.testing.assert_array_equal(first._positions, pos)
+    again = ta.EinsteinMSD(u, engine=engine, device="cpu").run()
+    np.testing.assert_array_equal(again.results.msds_by_particle,
+                                  first.results.msds_by_particle)
+    brute = brute_force_msd(pos.astype(np.float64), [0, 1, 2])
+    assert rel(first.results.msds_by_particle, brute) <= TOL
+
+
+@pytest.mark.parametrize("engine", [None, "frame"])
+def test_msd_requires_positions(engine):
+    u = ta.Universe.empty(3, n_frames=4, velocities=True)
+    u.trajectory._pos = None
+    u.trajectory.ts._positions = None
+    with pytest.raises(NoDataError, match="requires positions"):
+        ta.EinsteinMSD(u.atoms, engine=engine, device="cpu").run()
+
+
+def test_msd_not_ported_options(systems):
+    _, pu = systems["random"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        ta.EinsteinMSD(pu, atom_chunk=3)
+    with pytest.raises(ValueError, match="float64"):
+        ta.EinsteinMSD(pu, dtype=np.float32)
+    with pytest.raises(ValueError, match="invalid dim_type"):
+        ta.EinsteinMSD(pu, msd_type="xyzt")
+
+
+def test_reference_import_paths():
+    from transport_analysis_tpu_torch.velocityautocorr import (
+        VelocityAutocorr)
+    from transport_analysis_tpu_torch.viscosity import ViscosityHelfand
+
+    assert VelocityAutocorr is ta.VelocityAutocorr
+    assert ViscosityHelfand is ta.ViscosityHelfand

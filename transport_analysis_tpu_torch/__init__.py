@@ -9,12 +9,16 @@ PyTorch versions.
 
 * ``core``   — Universe / AtomGroup / Timestep data model + selection
                language (numpy only, copied from the JAX package).
-* ``models`` — ``VelocityAutocorr`` and ``ViscosityHelfand`` with the
-               reference's API surface, plus ``device=``.
+* ``models`` — ``VelocityAutocorr``, ``ViscosityHelfand`` and
+               ``EinsteinMSD`` with the reference's API surface, plus
+               ``device=``; ``fft=True`` (default) or the exact windowed
+               ``fft=False`` with ``max_lag``.
 * ``ops``    — the Wiener–Khinchin autocorrelation (four-step FFT
                kernels, ``ops/cuda_fft.py``), the Kneller/Calandrini
-               Einstein assembly (``ops/cuda_kneller.py``), integration
-               and linear fits.
+               Einstein assembly (``ops/cuda_kneller.py``), the windowed
+               lag sums (``ops/cuda_lag.py``), integration and linear
+               fits.
+* ``velocityautocorr``, ``viscosity`` — the reference's import paths.
 * ``convert`` — builds a Universe from plain numpy arrays.
 * ``io``, ``data``, ``parallel`` — not ported yet: each name raises
   ``NotImplementedError`` naming its ROADMAP.md item.

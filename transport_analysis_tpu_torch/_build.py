@@ -43,6 +43,9 @@ SIGNATURES = {
     "ta_kneller_totals": [_P, _P, *[_L] * 7, _P],
     # sq, corr, tot, out, n, p, rows, nb, dfac, cols, grid x, y, stream
     "ta_kneller_windows": [_P, _P, _P, _P, *[_L] * 4, _D, *[_L] * 3, _P],
+    # x, out, n, p, d, n_lags, f64, einstein, dfac, lag_block, cols,
+    # grid x, y, stream
+    "ta_lag_sums": [_P, _P, *[_L] * 6, _D, *[_L] * 4, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
 """The ethylene-carbonate sample files and their generator: not ported
-yet, they come with the file formats (ROADMAP.md queue 1 item 3). Every
+yet, they come with the file formats (ROADMAP.md queue 1 item 1). Every
 name of ``transport_analysis_tpu.data`` raises ``NotImplementedError``
 here."""
 

@@ -1,5 +1,5 @@
 """Trajectory and topology files: not ported yet (ROADMAP.md queue 1
-item 3). Every name of ``transport_analysis_tpu.io`` raises
+item 1). Every name of ``transport_analysis_tpu.io`` raises
 ``NotImplementedError`` here; build a Universe from arrays
 (``convert.universe_from_arrays``) or a ``MemoryReader`` instead."""
 

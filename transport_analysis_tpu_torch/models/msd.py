@@ -1,11 +1,121 @@
-"""Einstein MSD: not ported yet (ROADMAP.md queue 1 item 2)."""
+"""Einstein mean-squared-displacement (MSD) analysis.
 
-from ..utils.errors import not_ported
+Counterpart of ``transport_analysis_tpu/models/msd.py`` and of
+``MDAnalysis.analysis.msd.EinsteinMSD``, which the reference consumes as
+the independent Einstein-relation cross-check on Green–Kubo diffusivity
+(reference test_velocityautocorr.py:15,589-597). Computes
+
+    MSD(j Δt) = ⟨ |r(iΔt + jΔt) − r(iΔt)|² ⟩_{i, particles}
+
+with the components summed, either by the Kneller/Calandrini FFT
+algorithm (``fft=True``: K1, K2, K5, K6a, K6b on the card) or by the
+exact windowed sums (``fft=False``: K8), batched over every particle in
+one device call. Float32 positions cross to the device at 4 bytes a
+value and are upcast there, exactly. Not ported yet: ``atom_chunk``,
+``checkpoint`` and the float32 work mode.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.groups import AtomGroup
+from ..utils.errors import NoDataError, check_work_dtype, not_ported
+from .. import ops
+from ..ops.einstein import einstein_difference_fft_
+from .base import AnalysisBase, select_series, source_cast
+from ._dims import parse_dim_type
 
 
-class EinsteinMSD:
-    """Placeholder for ``transport_analysis_tpu.EinsteinMSD``: raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it."""
+class EinsteinMSD(AnalysisBase):
+    """MSD via the Einstein relation.
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("EinsteinMSD", "msd")
+    Parameters
+    ----------
+    u : Universe or AtomGroup
+        Universe (with ``select`` applied) or an AtomGroup directly.
+    select : str
+        Selection string applied to ``u`` (to an AtomGroup only when it
+        is not "all"). Default "all".
+    msd_type : {'xyz', 'xy', 'yz', 'xz', 'x', 'y', 'z'}
+        Components included (summed, MSD convention).
+    fft : bool
+        FFT algorithm (default) or exact windowed summation, O(N·L) for
+        L lags; give ``max_lag`` to bound L on long trajectories.
+    max_lag : int, optional
+        Lags [0, max_lag) only (default: all frames).
+    device : torch device, optional
+        Where the analysis computes; default the CUDA card when present.
+    """
+
+    def __init__(self, u, select: str = "all", msd_type: str = "xyz",
+                 fft: bool = True, max_lag=None, atom_chunk=None,
+                 checkpoint=None, dtype=np.float64, **kwargs):
+        if isinstance(u, AtomGroup):
+            ag = u if select in ("all", None) else u.select_atoms(select)
+        else:
+            ag = u.select_atoms(select)
+        super().__init__(ag.universe.trajectory, **kwargs)
+        if atom_chunk is not None or checkpoint is not None:
+            raise not_ported("atom_chunk / checkpoint", "streaming")
+        check_work_dtype(dtype)
+        self.ag = ag
+        self.atomgroup = ag
+        self.msd_type = msd_type.lower()
+        self._dim, self.dim_fac = parse_dim_type(self.msd_type)
+        self.fft = fft
+        self.max_lag = max_lag
+        self._work_dtype = np.dtype(np.float64)
+        self.n_particles = len(ag)
+
+    _NO_DATA_MSG = "MSD computation requires positions"
+
+    def _prepare(self):
+        super()._prepare()
+        self.results.msds_by_particle = np.zeros(
+            (self.n_frames, self.n_particles)
+        )
+        self._positions = np.zeros(
+            (self.n_frames, self.n_particles, self.dim_fac),
+            dtype=self._work_dtype,
+        )
+
+    def _validate_trajectory(self):
+        if not self._trajectory.has_positions:
+            raise NoDataError(self._NO_DATA_MSG)
+
+    def _process_batch(self, batch):
+        if "positions" not in batch:
+            raise NoDataError(self._NO_DATA_MSG)
+        # float32 samples stay float32 (half the transfer); the device
+        # upcasts them exactly
+        self._positions = source_cast(
+            select_series(batch["positions"], self.ag.indices, self._dim),
+            self._work_dtype, self._keep_f32)
+
+    def _single_frame(self):
+        if not self._ts.has_positions:
+            raise NoDataError(self._NO_DATA_MSG)
+        self._positions[self._frame_index] = self.ag.positions[:, self._dim]
+
+    def _conclude(self):
+        self.n_lags = (
+            self.n_frames
+            if self.max_lag is None
+            else min(self.max_lag, self.n_frames)
+        )
+        feed = torch.from_numpy(np.ascontiguousarray(self._positions))
+        r = feed.to(self.device)
+        if self.fft:
+            # the FFT path centers its float64 operand in place: hand it
+            # one of its own, a copy only where ``r`` is still the feed
+            owned = r.to(torch.float64,
+                         copy=r.data_ptr() == feed.data_ptr())
+            by_particle = einstein_difference_fft_(owned, "sum")[
+                : self.n_lags]
+        else:
+            by_particle = ops.einstein_difference_windowed(
+                r, "sum", max_lag=self.n_lags)
+        self.results.msds_by_particle = by_particle.cpu().numpy()
+        self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()

@@ -11,8 +11,9 @@ averaged over all atoms in the group. Same public surface — ctor
 ``self_diffusivity_gk`` / ``_gk_odd``, ``plot_vacf`` /
 ``plot_running_integral`` — plus ``device=``. The frame selection crosses
 to the device in one transfer and the FFT path runs batched over every
-particle at once. Not ported yet: ``fft=False``, ``atom_chunk`` and
-``checkpoint``.
+particle at once; ``fft=False`` runs the exact windowed sums (K8) on
+the same feed, O(N·n_lags) per atom. Not ported yet: ``atom_chunk``,
+``checkpoint`` and the float32 work mode.
 
 Results are in MDAnalysis standard units: (Å/ps)² against ps.
 """
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, not_ported
+from ..utils.errors import NoDataError, check_work_dtype, not_ported
 from .. import ops
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -41,8 +42,10 @@ class VelocityAutocorr(AnalysisBase):
         Components included in the VACF. Defaults to 'xyz'.
     fft : bool
         ``True`` (default): Wiener–Khinchin FFT algorithm, batched over
-        particles. ``False`` (exact windowed summation) is not ported
-        yet and raises ``NotImplementedError``.
+        particles. ``False``: exact windowed per-lag summation, O(N·L)
+        for L lags; give ``max_lag`` to bound L on long trajectories.
+    max_lag : int, optional
+        Lags [0, max_lag) only (default: all frames).
     device : torch device, optional
         Where the analysis computes; default the CUDA card when present.
     """
@@ -57,13 +60,9 @@ class VelocityAutocorr(AnalysisBase):
             )
         self.dim_type = dim_type.lower()
         self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        if not fft:
-            raise not_ported("VelocityAutocorr(fft=False)", "windowed")
         if atom_chunk is not None or checkpoint is not None:
             raise not_ported("atom_chunk / checkpoint", "streaming")
-        if np.dtype(dtype) != np.float64:
-            raise ValueError("transport_analysis_tpu_torch computes in "
-                             "float64 only")
+        check_work_dtype(dtype)
         self.fft = fft
         self.max_lag = max_lag
         self._work_dtype = np.dtype(np.float64)
@@ -116,11 +115,13 @@ class VelocityAutocorr(AnalysisBase):
         )
         v = torch.from_numpy(np.ascontiguousarray(self._velocities)).to(
             self.device)
-        if v.dtype == torch.float32:
-            acf = ops.acf_fft_from_f32(v)
+        if not self.fft:
+            # float32 samples are upcast inside the kernel, exactly
+            by_particle = ops.acf_windowed(v, max_lag=self.n_lags)
+        elif v.dtype == torch.float32:
+            by_particle = ops.acf_fft_from_f32(v)[: self.n_lags]
         else:
-            acf = ops.acf_fft(v)
-        by_particle = acf[: self.n_lags]
+            by_particle = ops.acf_fft(v)[: self.n_lags]
         self.results.vacf_by_particle = by_particle.cpu().numpy()
         self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
         self._run_called = True

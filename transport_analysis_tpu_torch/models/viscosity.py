@@ -9,10 +9,10 @@ the mass-weighted position·velocity accumulator m·v·x, divided by
 as ``results.viscosity``.
 
 The Einstein differences run through the Kneller/Calandrini FFT path
-(ops/einstein.py) on the device; the accumulator m·v·x is formed there in
-float64 from the float32 feed. Not ported yet: ``fft=False`` (the
-reference's windowed summation order), ``atom_chunk`` and
-``checkpoint``.
+(ops/einstein.py) on the device, or with ``fft=False`` through the exact
+windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
+formed there in float64 from the float32 feed. Not ported yet:
+``atom_chunk``, ``checkpoint`` and the float32 work mode.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, not_ported
+from ..utils.errors import NoDataError, check_work_dtype, not_ported
 from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
@@ -46,8 +46,10 @@ class ViscosityHelfand(AnalysisBase):
         ``results.viscosity`` holds the fitted slope.
     fft : bool
         ``True`` (default): O(N log N) FFT evaluation of the Einstein
-        differences. ``False`` is not ported yet and raises
-        ``NotImplementedError``.
+        differences. ``False``: exact windowed per-lag summation, O(N·L)
+        for L lags; give ``max_lag`` to bound L on long trajectories.
+    max_lag : int, optional
+        Lags [0, max_lag) only (default: all frames).
     device : torch device, optional
         Where the analysis computes; default the CUDA card when present.
     """
@@ -74,13 +76,9 @@ class ViscosityHelfand(AnalysisBase):
         self.dim_type = dim_type.lower()
         self.linear_fit_window = linear_fit_window
         self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        if not fft:
-            raise not_ported("ViscosityHelfand(fft=False)", "windowed")
         if atom_chunk is not None or checkpoint is not None:
             raise not_ported("atom_chunk / checkpoint", "streaming")
-        if np.dtype(dtype) != np.float64:
-            raise ValueError("transport_analysis_tpu_torch computes in "
-                             "float64 only")
+        check_work_dtype(dtype)
         self.fft = fft
         self.max_lag = max_lag
         self._work_dtype = np.dtype(np.float64)
@@ -164,7 +162,8 @@ class ViscosityHelfand(AnalysisBase):
         # multiply order of the reference (viscosity.py:197). A float32
         # feed is upcast inside the products (exactly), so the
         # accumulator is the one full-size float64 tensor; it is handed
-        # to the Einstein path, which centers it in place.
+        # to the FFT path, which centers it in place (the windowed path
+        # differences it as it is).
         masses = on_device(self._masses).reshape(1, -1, 1)
         accum = masses * on_device(self._velocities)
         accum.mul_(on_device(self._positions))
@@ -174,9 +173,14 @@ class ViscosityHelfand(AnalysisBase):
             else min(self.max_lag, self.n_frames)
         )
         denom = 2.0 * self.boltzmann * self._vol_avg * self.temp_avg
-        by_particle = einstein_difference_fft_(
-            accum, reduce_mode="mean")[: self.n_lags] / denom
+        if self.fft:
+            by_particle = einstein_difference_fft_(accum, "mean")[
+                : self.n_lags]
+        else:
+            by_particle = ops.einstein_difference_windowed(
+                accum, "mean", max_lag=self.n_lags)
         del accum
+        by_particle /= denom
         self.results.visc_by_particle = by_particle.cpu().numpy()
         self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
 

@@ -12,7 +12,8 @@ CUDA tensor, their plain PyTorch versions on a CPU tensor. One plan
 serves every M up to 2^24 (N ≤ 8,388,608 frames), so the JAX dispatch's
 two routes, the Pallas engine for M ≤ 65,536 (``acf.py:307-349``,
 ``:533-577``) and the deep composition past it (``deep_acf.py``), are one
-route here. The windowed ``acf_windowed`` is not ported yet.
+route here. The exact windowed :func:`acf_windowed` (``fft=False``) runs
+the lag-sum kernel of ``cuda_lag``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
-from ..utils.errors import not_ported
 from . import cuda_fft
+from .cuda_lag import windowed_lag
 
 
 def next_pow_2(n: int) -> int:
@@ -96,9 +97,28 @@ def acf_fft_from_f32(x32, device=None) -> torch.Tensor:
     return _normalized(x32)
 
 
-def acf_windowed(x, max_lag=None):
-    """Exact per-lag windowed autocorrelation (not ported yet)."""
-    raise not_ported("acf_windowed (the fft=False path)", "windowed")
+def acf_windowed(x, max_lag=None, device=None) -> torch.Tensor:
+    """Exact per-lag windowed autocorrelation, the reference's direct
+    per-lag sums (``transport_analysis_tpu/ops/acf.py:474``), O(N·n_lags):
+
+        C(lag, p) = 1/(N-lag) · Σ_{i<N-lag} Σ_d x[i,p,d] · x[i+lag,p,d]
+
+    Parameters
+    ----------
+    x : (N, P, d) or (N, P) float64, or float32 samples, tensor or array.
+        Arrays go to ``device`` (default: the CUDA card when present).
+        float32 samples are read at 4 bytes and upcast exactly inside the
+        kernel, so the result is that of the float64 values (the JAX op
+        returns float32 for them; here the float32 work mode is not
+        ported, see ``ROADMAP.md``).
+    max_lag : lags [0, max_lag) only (default all N).
+
+    Returns
+    -------
+    (n_lags, P) float64 tensor on the operand's device.
+    """
+    return windowed_lag(as_tensor(x, device), max_lag, mode="acf",
+                        reduce_mode="sum")
 
 
 def acf_fft_numpy(x: np.ndarray) -> np.ndarray:

@@ -1,0 +1,133 @@
+"""Windowed lag sums: the exact (``fft=False``) path's kernel.
+
+Counterpart of ``transport_analysis_tpu/ops/pallas_lag.py``. For the
+series of an (N, P, d) operand and each lag < n_lags,
+
+    acf:      out[lag, p] = Σ_{i<N-lag} Σ_c x[i,p,c]·x[i+lag,p,c] / ((N-lag)·dfac)
+    einstein: out[lag, p] = Σ_{i<N-lag} Σ_c (x[i,p,c] − x[i+lag,p,c])²
+                            / ((N-lag)·dfac),   out[0, p] = 0
+
+with dfac = d for ``reduce_mode='mean'`` and 1 for ``'sum'``: the
+reference's windowed summation (``_acf_windowed_impl``,
+``_einstein_windowed_impl``), O(N·n_lags) per series. One CUDA kernel
+(K8, ``csrc/lag.cu``) serves both modes and both operand types: a
+float32 operand is read at 4 bytes and upcast exactly, a float64 one is
+read as it is, and the sums are float64 either way. It takes the place of
+the TPU's float32 kernel (K8a) and of its double-float pair kernel (K8b),
+whose N ≤ 2^17 cap does not apply here. The TPU routing switches
+(``TRANSPORT_ANALYSIS_TPU_NO_PALLAS_LAG``, ``..._PALLAS_LAG_F64``, the
+cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
+kernel, a CPU tensor its plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+LAG_BLOCK = 16           # lags per thread, csrc/lag.cu's kLagBlock
+LAG_COLS = 128           # threads per block, one particle each
+MAX_D = 3                # components the kernel takes
+# lags the plain version takes at once: at most this many frame-lag-series
+# values per block, so CPU tests and the card's checks stay small
+PLAIN_BLOCK_VALUES = 1 << 22
+
+
+def _check(x: torch.Tensor, n_lags: int, mode: str,
+           reduce_mode: str) -> None:
+    if x.dtype not in (torch.float32, torch.float64) or x.ndim != 3:
+        raise TypeError(f"lag_sums takes an (N, P, d) float32 or float64 "
+                        f"tensor, got {x.dtype} of shape {tuple(x.shape)}")
+    n, p, d = x.shape
+    if n < 1 or p < 1 or d < 1:
+        raise ValueError(f"lag_sums: empty operand {tuple(x.shape)}")
+    if not 1 <= n_lags <= n:
+        raise ValueError(f"lag_sums: n_lags = {n_lags} must lie in "
+                         f"[1, N = {n}]")
+    if mode not in ("acf", "einstein"):
+        raise ValueError(f"mode must be 'acf' or 'einstein', got {mode!r}")
+    if reduce_mode not in ("mean", "sum"):
+        raise ValueError(f"reduce_mode must be 'mean' or 'sum', got "
+                         f"{reduce_mode!r}")
+
+
+def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
+                   reduce_mode: str = "sum") -> torch.Tensor:
+    """Plain version of :func:`lag_sums`: for each block of lags, the
+    products x[i]·x[i+lag] or squared differences (x[i] − x[i+lag])² of
+    the float64 values, reduced over the components and then summed over
+    the frames i < N − lag, as the JAX package's windowed kernels do."""
+    _check(x, n_lags, mode, reduce_mode)
+    n, p, d = x.shape
+    s = p * d
+    xf = x.to(torch.float64).reshape(n, s)
+    dfac = d if reduce_mode == "mean" else 1
+    out = torch.zeros((n_lags, p), dtype=torch.float64, device=x.device)
+    block = max(1, min(n_lags, PLAIN_BLOCK_VALUES // (n * s)))
+    xp = torch.cat([xf, xf.new_zeros((block, s))])
+    lag0 = 1 if mode == "einstein" else 0   # lag 0 of einstein stays 0
+    for l0 in range(lag0, n_lags, block):
+        l1 = min(l0 + block, n_lags)
+        lags = torch.arange(l0, l1, device=x.device)
+        m = n - l0                      # frames the block's first lag uses
+        # partner windows x[i + lag] for i < m, zero past N: (B, m, S)
+        win = xp.unfold(0, m, 1)[l0:l1].transpose(1, 2)
+        base = xf[:m]
+        if mode == "acf":
+            terms = base * win          # zero partners add nothing
+        else:
+            terms = (base - win).square()
+        terms = terms.reshape(l1 - l0, m, p, d).sum(-1)
+        frames = torch.arange(m, device=x.device)
+        valid = frames[None, :] < (n - lags)[:, None]
+        sums = torch.where(valid[:, :, None], terms, 0.0).sum(1)
+        out[l0:l1] = sums / ((n - lags).to(torch.float64) * dfac)[:, None]
+    return out
+
+
+def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
+             reduce_mode: str = "sum") -> torch.Tensor:
+    """K8: the windowed lag sums of the module docstring for lags
+    < ``n_lags`` of an (N, P, d) float32 or float64 tensor (d ≤ 3 on the
+    card) → (n_lags, P) float64 on its device. A CUDA tensor launches the
+    kernel or raises; a CPU tensor runs :func:`lag_sums_plain`."""
+    _check(x, n_lags, mode, reduce_mode)
+    if x.device.type == "cpu":
+        return lag_sums_plain(x, n_lags, mode, reduce_mode)
+    _build.kernel_operand(x, "lag_sums")
+    n, p, d = x.shape
+    if d > MAX_D:
+        raise ValueError(f"lag_sums: the kernel takes d <= {MAX_D} "
+                         f"components, got {d}")
+    grid = _build.launch_grid(-(-p // LAG_COLS), -(-n_lags // LAG_BLOCK))
+    out = torch.empty((n_lags, p), dtype=torch.float64, device=x.device)
+    dfac = d if reduce_mode == "mean" else 1
+    with torch.cuda.device(x.device):
+        err = _build.library().ta_lag_sums(
+            x.data_ptr(), out.data_ptr(), n, p, d, n_lags,
+            int(x.dtype == torch.float64), int(mode == "einstein"),
+            float(dfac), LAG_BLOCK, LAG_COLS, *grid, _build.stream(x))
+    _build.check(err, "lag_sums")
+    lag_sums.launches += 1
+    return out
+
+
+lag_sums.launches = 0
+
+
+def windowed_lag(x, max_lag=None, mode: str = "acf",
+                 reduce_mode: str = "sum") -> torch.Tensor:
+    """Windowed lag correlation, the counterpart of the JAX package's
+    ``windowed_lag_pallas`` (``pallas_lag.py:317``) under a name that
+    does not say TPU: ``x`` (N, P, d) or (N, P) float32 or float64
+    tensor, lags [0, max_lag) (default all N) → (n_lags, P) float64 per-
+    lag means, sums / (N − lag) (and / d for ``reduce_mode='mean'``),
+    row 0 = 0 in ``'einstein'`` mode. The JAX function returns float32
+    for a float32 operand; here a float32 operand gives the float64 sums
+    of its exact upcast."""
+    if x.ndim == 2:
+        x = x[:, :, None]
+    n = x.shape[0]
+    n_lags = n if max_lag is None else min(int(max_lag), n)
+    return lag_sums(x.contiguous(), n_lags, mode, reduce_mode)

@@ -1,12 +1,13 @@
-"""Einstein lag differences: the Helfand viscosity accumulator's kernel.
+"""Einstein lag differences: the Helfand viscosity and MSD kernels.
 
-Counterpart of ``transport_analysis_tpu/ops/einstein.py``'s FFT path. The
-mean squared lag difference of a per-particle series A(t),
+Counterpart of ``transport_analysis_tpu/ops/einstein.py``. The mean
+squared lag difference of a per-particle series A(t),
 
     E(lag, p) = 1/(N-lag) · Σ_{i<N-lag} Σ_d (A[i,p,d] - A[i+lag,p,d])²
 
 (components averaged for Helfand, ``reduce_mode='mean'``; summed for the
-MSD, ``'sum'``), by the Kneller/Calandrini decomposition
+MSD, ``'sum'``). The FFT path computes it by the Kneller/Calandrini
+decomposition
 
     Σ_i (A_i − A_{i+lag})² = S(0, N-lag-1) + S(lag, N-1) − 2·C(lag)
 
@@ -15,9 +16,9 @@ operand is centered per series first: the identity then does not cancel
 a large mean offset at small lags. :func:`einstein_difference_fft_`
 centers an operand its caller hands over in place, so a model's
 accumulator is the only full-size float64 copy (the role of the JAX
-package's ``einstein_difference_fft_from_f32``, ``einstein.py:439``, which
-keeps the deep path's operand in f32 pairs). The windowed path is not
-ported yet.
+package's f32-pair deep path). :func:`einstein_difference_windowed` sums
+the squared differences directly, lag by lag (the reference's ``fft=False``
+path), through the lag-sum kernel of ``cuda_lag``.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from __future__ import annotations
 import torch
 
 from .._device import as_tensor
-from ..utils.errors import not_ported
 from .acf import raw_autocorr_sumlast_flat
 from .cuda_kneller import einstein_assembly
+from .cuda_lag import windowed_lag
 
 
 def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
@@ -73,8 +74,39 @@ def einstein_difference_fft_(a: torch.Tensor,
     return einstein_assembly(sq, corr, reduce_mode, d)
 
 
+def einstein_difference_fft_from_f32(a32, reduce_mode: str = "mean",
+                                     device=None) -> torch.Tensor:
+    """:func:`einstein_difference_fft` of float32 samples (JAX
+    ``einstein.py:439``): the operand crosses to the device at 4 bytes a
+    value and is upcast there, exactly, into the one float64 copy that
+    :func:`einstein_difference_fft_` centers in place."""
+    a32 = as_tensor(a32, device)
+    if a32.dtype != torch.float32:
+        raise TypeError(f"einstein_difference_fft_from_f32 expects float32 "
+                        f"samples, got {a32.dtype}")
+    if a32.ndim == 2:
+        a32 = a32[:, :, None]
+    owned = a32.to(torch.float64, memory_format=torch.contiguous_format)
+    return einstein_difference_fft_(owned, reduce_mode)
+
+
+def msd_fft(r, device=None) -> torch.Tensor:
+    """Mean squared displacement per particle, (N, P, d) float64 →
+    (N, P) float64 (JAX ``einstein.py:483``): the Einstein difference with
+    the components summed, ``tidynamics.msd`` / MDAnalysis
+    ``EinsteinMSD`` semantics."""
+    return einstein_difference_fft(r, reduce_mode="sum", device=device)
+
+
 def einstein_difference_windowed(a, reduce_mode: str = "mean",
-                                 max_lag=None):
-    """Exact windowed mean-squared lag difference (not ported yet)."""
-    raise not_ported(
-        "einstein_difference_windowed (the fft=False path)", "windowed")
+                                 max_lag=None, device=None) -> torch.Tensor:
+    """Exact windowed mean-squared lag difference (JAX ``einstein.py:36``),
+    (N, P, d) or (N, P) float64, or float32 samples → (n_lags, P) float64
+    on the operand's device, lags [0, max_lag) (default all N), row 0 = 0.
+
+    ``reduce_mode='mean'`` averages over the components (Helfand),
+    ``'sum'`` sums them (MSD). The raw series is differenced as it is,
+    with no centering, as the reference does; float32 samples are read at
+    4 bytes and upcast exactly inside the kernel."""
+    return windowed_lag(as_tensor(a, device), max_lag, mode="einstein",
+                        reduce_mode=reduce_mode)

@@ -5,6 +5,8 @@ Mirrors the error contract the reference consumes from MDAnalysis:
 (reference velocityautocorr.py:186-189, viscosity.py:178-186).
 """
 
+import numpy as np
+
 
 class TransportAnalysisError(Exception):
     """Base class for all transport_analysis_tpu_torch errors."""
@@ -23,15 +25,16 @@ class SelectionError(TransportAnalysisError, ValueError):
 
 
 # ROADMAP.md queue 1 items the port has not reached yet; every entry
-# point of those parts raises ``not_ported`` naming its item.
+# point of those parts raises ``not_ported`` naming its item (the float32
+# work mode: ``check_work_dtype``'s ValueError).
 ROADMAP_ITEMS = {
-    "msd": "ROADMAP.md queue 1 item 2 (EinsteinMSD)",
-    "windowed": "ROADMAP.md queue 1 item 1 (windowed fft=False path, K8)",
-    "io": "ROADMAP.md queue 1 item 3 (io/ and data/: trajectory and "
+    "io": "ROADMAP.md queue 1 item 1 (io/ and data/: trajectory and "
           "topology files)",
-    "streaming": "ROADMAP.md queue 1 item 4 (streaming, out-of-core and "
+    "float32": "ROADMAP.md queue 1 item 2 (the float32 work mode, "
+               "dtype=np.float32)",
+    "streaming": "ROADMAP.md queue 1 item 3 (streaming, out-of-core and "
                  "prefetch: atom_chunk, checkpoint, frame_block)",
-    "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
+    "multigpu": "ROADMAP.md queue 1 item 4 (multiple GPUs: parallel/)",
 }
 
 
@@ -46,6 +49,15 @@ def not_ported_module(package: str, item: str):
         raise not_ported(f"{package}.{name}", item)
 
     return __getattr__
+
+
+def check_work_dtype(dtype) -> None:
+    """The port computes in float64; the JAX package's float32 work mode
+    raises ``ValueError`` naming the ROADMAP.md item that will bring it."""
+    if np.dtype(dtype) != np.float64:
+        raise ValueError(
+            f"transport_analysis_tpu_torch computes in float64 only, got "
+            f"dtype={np.dtype(dtype)}; see {ROADMAP_ITEMS['float32']}")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

@@ -18,15 +18,20 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    kernels at the top of the plan's range, M = 2^24 over 8 series; and
    K8 at each windowed run's shapes (the kernel over every atom, its
    plain version over every 21st atom's series). Max relative error
-   <= 1e-12; kernel and library-call milliseconds, warm, median of 5,
-   plain milliseconds median of 2; the bound, the larger of the bytes
+   <= 1e-12; kernel and library-call milliseconds, warm, median of 5
+   timings of back-to-back calls (at least about 5 ms each, so a short
+   kernel is timed on the card, not the host's launch), plain
+   milliseconds median of 2; the bound, the larger of the bytes
    over 3.35 TB/s and the flop over the FP64 peak of their kind (H100
    SXM): 67 TFLOP/s on the tensor cores for matrix products (the DFT
    levels, K8's acf sums, a Gram product of frame tiles), 34 TFLOP/s
    for the rest (K6's sums and scans, K8's einstein sums, whose
-   subtraction comes before the square). The library call for K8 is a
-   grouped ``F.conv1d`` of the float64 series, for its acf launches
-   only (no one call forms the einstein sums).
+   subtraction comes before the square; beside that bound, the FP64
+   pipe's issue-slot ceiling, two instructions a pair-component at
+   17e12/s). The library call for K6a, the reshape-sum, forms only the
+   forward leg of its totals (the kernel forms both from one read of
+   sq); for K8 it is a grouped ``F.conv1d`` of the float64 series, for
+   its acf launches only (no one call forms the einstein sums).
 4. model   — the ethylene-carbonate system (368 molecules, 3,680 atoms;
    the recipe of ``transport_analysis_tpu/data/generate.py`` re-done in
    memory) at 8,192 frames (M = 2^14). Runs, each once warm, once timed
@@ -103,6 +108,7 @@ PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
 PEAK_FP64 = 34e12        # flop/s, FP64 outside the tensor cores
 PEAK_FP64_MMA = 67e12    # flop/s, FP64 matrix products on the tensor cores
 PEAK_BYTES = 3.35e12     # bytes/s, HBM3
+ISSUE_FP64 = 17e12       # FP64 instructions/s outside the tensor cores
 
 # ethylene carbonate (transport_analysis_tpu/data/generate.py:21-38)
 EC_ATOMS = [
@@ -184,17 +190,25 @@ def build_phase(build):
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` on the card, after one warm call."""
+    """Median milliseconds of one ``fn`` on the card over ``reps``
+    timings, after one warm call; each timing runs ``fn`` back to back
+    for at least about 5 ms, so that a short kernel is timed on the card
+    and not the host's time to launch it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(200, int(5.0 / max(start.elapsed_time(end), 1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -368,7 +382,9 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         compare(shape_key, "kneller_totals",
                 lambda: cuda_kneller.kneller_totals(sq),
                 lambda: cuda_kneller.kneller_totals_plain(sq),
-                f"K6a kneller_totals ({n}, {p})",
+                f"K6a kneller_totals ({n}, {p}), both legs from one read "
+                "of sq; its library call, the reshape-sum, forms only the "
+                "forward leg",
                 work(8 * n * p + 16 * nb * p, 2 * n * p),
                 library=(lambda: sq.view(nb, rows, p).sum(1))
                 if n % rows == 0 else None)
@@ -433,6 +449,11 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                     f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
                     times, library=library,
                     pick=lambda out: out[:, ::PLAIN_STRIDE])
+            if mode == "einstein":
+                phase("kernels", f"{shape_key} K8 lag_sums {what}: FP64 "
+                      f"issue-slot ceiling {1e3 * 2 * pairs / ISSUE_FP64:.3f}"
+                      f" ms (2 instructions a pair-component at 17e12/s) "
+                      f"beside the flop bound {1e3 * times[1]:.3f} ms")
             r = results[shape_key]["lag_sums"]
             r["atoms"], r["plain_atoms"] = p, sub.shape[1]
             del x, sub, library
@@ -562,7 +583,8 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("inverse_last_level_kernel", "K5 inverse_last_level"),
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
-    ("lag_sums_kernel", "K8 lag_sums"),
+    ("einstein_tile_kernel", "K8 lag_sums einstein"),
+    ("lag_sums_kernel", "K8 lag_sums acf"),
 ]
 
 

@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time K6a (kneller_totals) and K8 (lag_sums) at the EC shapes on one
+CUDA Hopper card, each against its plain version on a slice and beside
+its bound; a quick loop for tuning these kernels without the whole of
+chip_smoke.py.
+
+    python3 scripts/kernel_times.py [--only k6a|k8] [--reps 5]
+                                    [--package DIR]
+
+``--package DIR`` times the package in the checkout DIR instead (for
+example an earlier commit unpacked with ``git archive``), so that two
+versions are compared in one call on one card: parent, change, change,
+parent.
+
+Prints one line per case: kernel ms (CUDA events, warm, median), the
+bound (bytes over 3.35 TB/s, flop over the FP64 peak of their kind), the
+FP64 issue-slot ceiling of the einstein sums (two instructions a pair-
+component at 17e12/s), the library call where there is one, and the
+kernel's max relative error against its plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PEAK_FP64 = 34e12        # flop/s outside the tensor cores (H100 SXM)
+PEAK_FP64_MMA = 67e12    # flop/s on the tensor cores
+ISSUE_FP64 = 17e12       # FP64 instructions/s, DADD and DFMA alike
+PEAK_BYTES = 3.35e12     # bytes/s, HBM3
+EC_ATOMS = 3680
+
+
+def time_ms(fn, reps):
+    """Median milliseconds of one ``fn`` over ``reps`` timings. Each timing
+    runs ``fn`` back to back for at least about 5 ms, so that a short
+    kernel is timed on the card and not the host's time to launch it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    inner = max(1, min(200, int(5.0 / max(start.elapsed_time(end), 1e-3))))
+    times = []
+    for _ in range(reps):
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def k6a(cuda_kneller, g, reps):
+    """K6a at the model and deep shapes."""
+    for n in (8192, 65536):
+        p = EC_ATOMS
+        sq = torch.rand((n, p), dtype=torch.float64, device="cuda",
+                        generator=g)
+        rows = cuda_kneller.KNELLER_ROWS
+        nb = n // rows
+        lib = time_ms(lambda: sq.view(nb, rows, p).sum(1), reps)
+        bound = 1e3 * (8 * n * p + 16 * nb * p) / PEAK_BYTES
+        err = rel(cuda_kneller.kneller_totals(sq),
+                  cuda_kneller.kneller_totals_plain(sq))
+        k = time_ms(lambda: cuda_kneller.kneller_totals(sq), reps)
+        print(f"K6a ({n}, {p}): kernel {k:.3f} ms, bound {bound:.3f} ms "
+              f"(bytes), library (forward leg only) {lib:.3f} ms, err "
+              f"{err:.2e}", flush=True)
+        del sq
+
+
+def k8(cuda_lag, g, reps):
+    cases = [  # (label, N, n_lags, dtype, mode, reduce)
+        ("model MSD", 8192, 8192, torch.float32, "einstein", "sum"),
+        ("model Helfand", 8192, 8192, torch.float64, "einstein", "mean"),
+        ("deep Helfand", 65536, 2048, torch.float64, "einstein", "mean"),
+        ("deep VACF", 65536, 2048, torch.float32, "acf", "sum"),
+    ]
+    for label, n, n_lags, dtype, mode, reduce_mode in cases:
+        p, d = EC_ATOMS, 3
+        x = torch.randn((n, p, d), dtype=dtype, device="cuda", generator=g)
+        sub = x[:, ::21].contiguous()
+        got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)[:, ::21]
+        err = rel(got, cuda_lag.lag_sums_plain(sub, n_lags, mode,
+                                               reduce_mode))
+        k = time_ms(lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
+                    reps)
+        for _ in range(3):
+            cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+        busy = smi("clocks.sm,power.draw")  # read while the card works
+        torch.cuda.synchronize()
+        lag0 = 1 if mode == "einstein" else 0
+        count = n_lags - lag0
+        pairs = p * d * (count * n - (n_lags * (n_lags - 1)
+                                      - lag0 * (lag0 - 1)) // 2)
+        nbytes = x.element_size() * n * p * d + 8 * n_lags * p
+        if mode == "einstein":
+            bound = 1e3 * max(nbytes / PEAK_BYTES, 3 * pairs / PEAK_FP64)
+            ceiling = f", issue ceiling {1e3 * 2 * pairs / ISSUE_FP64:.3f} ms"
+        else:
+            bound = 1e3 * max(nbytes / PEAK_BYTES,
+                              2 * pairs / PEAK_FP64_MMA)
+            ceiling = ""
+        print(f"K8 {label} {str(dtype)[6:]} ({n}, {p}, {d}) {mode}, "
+              f"{n_lags} lags: kernel {k:.3f} ms, bound {bound:.3f} ms"
+              f"{ceiling}, {100 * bound / k:.1f} % of bound, err {err:.2e}; "
+              f"SM clock, power under load: {busy}", flush=True)
+        del x, sub, got
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["k6a", "k8"])
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--package", default=ROOT,
+                    help="checkout whose transport_analysis_tpu_torch to "
+                    "time (default: this one)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: torch.cuda.is_available() is false")
+    sys.path.insert(0, os.path.abspath(args.package))
+    from transport_analysis_tpu_torch.ops import cuda_kneller, cuda_lag
+    print(f"{smi('name,power.limit')}; package {cuda_lag.__file__}",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    if args.only in (None, "k6a"):
+        k6a(cuda_kneller, g, args.reps)
+    if args.only in (None, "k8"):
+        k8(cuda_lag, g, args.reps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

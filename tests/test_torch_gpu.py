@@ -115,6 +115,41 @@ def test_kneller_kernels_vs_plain(cuda_device, n, p, d):
     assert torch.all(got[0] == 0.0)
 
 
+@pytest.mark.parametrize("n,p", [
+    *[(n, p) for n in (1, 127, 128, 129, 1000, 8192) for p in (1, 37, 300)],
+    (2 ** 23, 1), (2 ** 23, 37)])
+def test_kneller_totals_one_read_vs_plain(cuda_device, n, p):
+    """K6a's lo/hi split at r = 0, 1, R − 1 and N < R, and past grid y's
+    limit in runs (2^23 frames; at 300 columns the plain version would
+    need about 60 GB)."""
+    sq = torch.rand((n, p), dtype=torch.float64, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n + p))
+    tot = cuda_kneller.kneller_totals(sq)
+    assert rel(tot, cuda_kneller.kneller_totals_plain(sq)) <= TOL
+
+
+@pytest.mark.parametrize("n,p", [(1000, 45), (300, 32), (9, 33), (16, 3),
+                                 (143, 64)])
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lag_einstein_tiles_vs_plain(cuda_device, n, p, d, dtype):
+    """K8's einstein mode around its CTA's lag span (span − 1, span,
+    span + 1), at 1 and N lags, with N below one frame tile and P not a
+    multiple of the particle tile."""
+    rng = np.random.RandomState(n * d + p)
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
+        cuda_device, dtype)
+    span = cuda_lag.SPAN
+    for n_lags in sorted({1, span - 1, span, span + 1, n} & set(
+            range(1, n + 1))):
+        for reduce_mode in ("mean", "sum"):
+            got = cuda_lag.lag_sums(x, n_lags, "einstein", reduce_mode)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, "einstein", reduce_mode)
+            assert got.shape == (n_lags, p) and torch.all(got[0] == 0.0)
+            if n_lags > 1:
+                assert rel(got, ref) <= TOL, (n_lags, reduce_mode)
+
+
 @pytest.mark.parametrize("n,p,d", [(1, 1, 1), (37, 5, 3), (1000, 130, 1),
                                    (2053, 257, 3), (300, 129, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

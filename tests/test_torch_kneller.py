@@ -85,6 +85,65 @@ def test_totals_plain_vs_numpy(n, p):
     assert rel(got, ref) <= TOL
 
 
+def emulate_totals(sq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """K6a as ``csrc/kneller.cu`` runs it, in numpy, from its work split
+    (``totals_split``, ``totals_run``): the totals and how often each row
+    of ``sq`` was read."""
+    n, p = sq.shape
+    rows = cuda_kneller.KNELLER_ROWS
+    nb = -(-n // rows)
+    run, runs, r = cuda_kneller.totals_split(n)
+    tot = np.full((2, nb, p), np.nan)
+    reads = np.zeros(n, dtype=np.int64)
+    for j in range(runs):
+        halo, blocks = cuda_kneller.totals_run(n, j, run)
+        carry = np.zeros(p)
+        if halo is not None:
+            reads[halo.start:halo.stop] += 1
+            carry = sq[halo.start:halo.stop].sum(0)
+        for k, lo, hi, rev in blocks:
+            reads[lo.start:hi.stop] += 1
+            lo_sum = sq[lo.start:lo.stop].sum(0)
+            hi_sum = sq[hi.start:hi.stop].sum(0)
+            assert np.isnan(tot[0, k]).all() and np.isnan(tot[1, rev]).all()
+            tot[0, k] = lo_sum + hi_sum
+            if r == 0:
+                tot[1, rev] = hi_sum
+            else:
+                tot[1, rev] = carry + lo_sum
+                carry = hi_sum
+    return tot, reads
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 128, 129, 255, 256, 1000, 1151,
+                               8192, 8193, 16383])
+@pytest.mark.parametrize("p", [1, 3])
+def test_totals_lo_hi_recombination(n, p):
+    """K6a's lo/hi split, recombined in numpy run by run, reproduces
+    kneller_totals_plain for every r = N mod R (0, 1, R − 1 and between),
+    with one run or many; every total is written once, every row of sq
+    read once but for the halos, which stay within 1/8 of sq."""
+    sq = np.random.RandomState(n + p).uniform(0, 2, (n, p))
+    tot, reads = emulate_totals(sq)
+    ref = cuda_kneller.kneller_totals_plain(torch.from_numpy(sq)).numpy()
+    assert not np.isnan(tot).any()
+    assert rel(tot, ref) <= TOL
+    assert reads.min() == 1
+    assert reads.sum() - n <= n / 8
+    if n % cuda_kneller.KNELLER_ROWS == 0:
+        assert reads.max() == 1
+
+
+@pytest.mark.parametrize("n", [1, 128, 1000, 65536, 65536 + 1, 2 ** 23])
+def test_totals_split_runs(n):
+    """One row block a run where r = 0, TOTALS_MIN_RUN where r > 0 (or
+    all nb blocks if fewer); the runs cover the nb blocks."""
+    run, runs, r = cuda_kneller.totals_split(n)
+    nb = -(-n // cuda_kneller.KNELLER_ROWS)
+    assert (runs - 1) * run < nb <= runs * run
+    assert run == (min(cuda_kneller.TOTALS_MIN_RUN, nb) if r else 1)
+
+
 def test_windows_deep_lags_without_cancellation():
     """The window sums at the deepest lags come out at the grade of the
     few squares they hold, not at eps·total: the plain version takes

@@ -127,11 +127,41 @@ def test_non_hopper_card_rejected(monkeypatch):
         _device.resolve_device("cuda")
 
 
-def test_default_device_is_cpu_without_card(monkeypatch):
+def test_default_device_raises_without_card(monkeypatch):
+    """The default is the card: with none it raises as "cuda" does, and
+    a device the port does not take is still a ValueError."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert _device.resolve_device(None) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        _device.resolve_device(None)
     with pytest.raises(ValueError):
         _device.resolve_device("mps")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: _device.resolve_device(),
+    lambda: ta.ops.acf_fft(np.zeros((8, 2, 3))),
+    lambda: ta.VelocityAutocorr(
+        ta.Universe.empty(1, n_frames=2, velocities=True).atoms),
+    lambda: ta.EinsteinMSD(ta.Universe.empty(1, n_frames=2)),
+])
+def test_default_without_card_raises(call, monkeypatch):
+    """With no device= and no card, a numpy-input op and an analysis
+    raise; nothing moves to the CPU in the card's place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: ta.ops.acf_fft(x),
+    lambda x: ta.ops.acf_windowed(x, max_lag=3),
+    lambda x: ta.ops.einstein_difference_fft(x),
+])
+def test_cpu_tensor_runs_on_cpu_without_device(call, monkeypatch):
+    """A CPU tensor keeps its device when no device= is given."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.from_numpy(np.random.RandomState(1).normal(size=(8, 2, 3)))
+    assert call(x).device.type == "cpu"
 
 
 @pytest.mark.parametrize("call", [

@@ -118,9 +118,10 @@ def test_lag_sums_plain_blocks_agree(monkeypatch, n, p, d, n_lags):
     (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 2, "msd"), ValueError),
     (lambda: cuda_lag.lag_sums(torch.zeros((4, 1, 1)), 2, "acf", "max"),
      ValueError),
-    (lambda: ta.ops.acf_windowed(np.zeros((4, 2), np.int32)), TypeError),
+    (lambda: ta.ops.acf_windowed(np.zeros((4, 2), np.int32), device="cpu"),
+     TypeError),
     (lambda: ta.ops.einstein_difference_windowed(
-        np.zeros((4, 2), np.complex128)), TypeError),
+        np.zeros((4, 2), np.complex128), device="cpu"), TypeError),
 ])
 def test_lag_sums_rejects_bad_operands(call, err):
     with pytest.raises(err):
@@ -135,6 +136,75 @@ def test_lag_kernel_takes_cuda_tensors_only():
         cuda_lag.lag_sums(torch.zeros((8, 2, 3), device="meta"), 4)
     cuda_lag.lag_sums(torch.zeros((8, 2, 3)), 4)      # the plain version
     assert cuda_lag.lag_sums.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,n_lags", [(1, 1), (15, 15), (16, 16), (143, 1),
+                                      (159, 159), (160, 160), (191, 40),
+                                      (200, 127), (200, 128), (200, 129),
+                                      (300, 300), (1000, 257)])
+def test_einstein_tiles_cover_each_pair_once(n, n_lags, dtype):
+    """K8's einstein work split as csrc/lag.cu runs it, for each operand
+    type's tile: the shared-memory tiles and the masked tails cover every
+    (frame i, lag) with i + lag < N exactly once; every partner row a
+    warp reads from the ring is there (copied by an earlier group, not
+    overwritten by the group in flight) and lies inside the operand."""
+    tile_f = cuda_lag.tile_frames(dtype)
+    block = cuda_lag.LAG_BLOCK
+    count = np.zeros((n_lags, n), dtype=np.int64)
+    for l0 in range(0, n_lags, cuda_lag.SPAN):
+        n_tiles = cuda_lag.einstein_tiles(n, l0, tile_f)
+        held = {}
+        for r in (cuda_lag.ring_loads(0, tile_f) if n_tiles else ()):
+            held[cuda_lag.ring_slot(r, tile_f)] = r
+        for t in range(n_tiles):
+            nxt = (cuda_lag.ring_loads(t + 1, tile_f) if t + 1 < n_tiles
+                   else range(0))
+            in_flight = {cuda_lag.ring_slot(r, tile_f) for r in nxt}
+            assert (t + 1) * tile_f <= n
+            for warp in range(cuda_lag.TILE_WARPS):
+                lw = l0 + warp * block
+                if lw >= n_lags:
+                    continue
+                prime, new = cuda_lag.window_rows(t, warp, tile_f)
+                for r in [*prime, *new]:
+                    assert l0 + r < n
+                    slot = cuda_lag.ring_slot(r, tile_f)
+                    assert slot not in in_flight and held[slot] == r
+                for k in range(0, tile_f, block):
+                    chunk = new[k:k + block]
+                    assert (cuda_lag.ring_slot(chunk[-1], tile_f)
+                            - cuda_lag.ring_slot(chunk[0], tile_f)
+                            == block - 1)
+                frames = slice(t * tile_f, (t + 1) * tile_f)
+                lags = slice(lw, min(lw + block, n_lags))
+                assert frames.stop - 1 + lags.stop - 1 < n
+                count[lags, frames] += 1
+            for r in nxt:
+                assert l0 + r < n
+                held[cuda_lag.ring_slot(r, tile_f)] = r
+        for warp in range(cuda_lag.TILE_WARPS):
+            lw = l0 + warp * block
+            for i in cuda_lag.tail_frames(n, l0, warp, tile_f):
+                for lag in range(lw, min(lw + block, n_lags)):
+                    if i + lag < n:
+                        count[lag, i] += 1
+    lag, i = np.indices((n_lags, n))
+    np.testing.assert_array_equal(count, (i + lag < n).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_einstein_ring_holds_a_tile_and_the_next(dtype):
+    """The ring's size: the rows one tile reads, those the next tile adds
+    while it is summed, and the rows the warps prime with; the shared
+    memory of a CTA at d = 3 within Hopper's 227 KB."""
+    tile_f = cuda_lag.tile_frames(dtype)
+    ring = cuda_lag.ring_rows(tile_f)
+    assert ring % cuda_lag.LAG_BLOCK == 0 and tile_f % cuda_lag.LAG_BLOCK == 0
+    assert cuda_lag.SPAN == cuda_lag.TILE_WARPS * cuda_lag.LAG_BLOCK
+    assert len(cuda_lag.ring_loads(0, tile_f)) <= ring
+    row = cuda_lag.TILE_P * 3 * torch.tensor([], dtype=dtype).element_size()
+    assert (ring + 2 * tile_f) * row <= 232_448
 
 
 # --- the ops against the JAX XLA windowed kernels --------------------------

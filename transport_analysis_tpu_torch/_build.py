@@ -39,8 +39,8 @@ SIGNATURES = {
     "ta_unpack_power_inva": [_P, _P, _P, *[_L] * 10, _P],
     # in, out, roots, A, n, ph, n_out, N, P, normalize, tc, grid x, y, stream
     "ta_inverse_last_level": [_P, _P, _P, *[_L] * 10, _P],
-    # sq, tot, n, p, rows, nb, cols, grid x, y, stream
-    "ta_kneller_totals": [_P, _P, *[_L] * 7, _P],
+    # sq, tot, n, p, rows, nb, run, runs, grid x, y, stream
+    "ta_kneller_totals": [_P, _P, *[_L] * 8, _P],
     # sq, corr, tot, out, n, p, rows, nb, dfac, cols, grid x, y, stream
     "ta_kneller_windows": [_P, _P, _P, _P, *[_L] * 4, _D, *[_L] * 3, _P],
     # x, out, n, p, d, n_lags, f64, einstein, dfac, lag_block, cols,

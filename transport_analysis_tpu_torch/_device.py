@@ -1,8 +1,11 @@
-"""Device selection: one NVIDIA Hopper card, or the CPU.
+"""Device selection: one NVIDIA Hopper card, or the CPU when asked.
 
-The kernels are built for ``sm_90a`` only, so a CUDA device must have
-compute capability (9, 0). On the CPU every kernel wrapper runs its plain
-PyTorch version; that choice follows the tensor's device and nothing else.
+The port runs on the card unless the caller passes ``device="cpu"`` or
+hands in a CPU tensor; with no card the default raises, it never moves to
+the CPU. The kernels are built for ``sm_90a`` only, so a CUDA device must
+have compute capability (9, 0). On the CPU every kernel wrapper runs its
+plain PyTorch version; that choice follows the tensor's device and
+nothing else.
 """
 
 from __future__ import annotations
@@ -14,12 +17,10 @@ HOPPER = (9, 0)
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``. ``None`` means the first CUDA
-    card when one is present, else the CPU. A CUDA device must be a
-    Hopper card; anything else raises."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """``device`` as a ``torch.device``. ``None`` means the CUDA card, and
+    raises as ``"cuda"`` does where there is none. A CUDA device must be a
+    Hopper card; anything but it and ``"cpu"`` raises."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

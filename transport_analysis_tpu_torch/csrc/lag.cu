@@ -23,25 +23,49 @@
 // Gram product of frame tiles, could run on the tensor cores' 67 TFLOP/s
 // FP64 peak (H100 SXM data sheet) in 11.1 ms; the einstein sums subtract
 // before they square, which is no matrix product, so the 34 TFLOP/s FP64
-// peak outside the tensor cores allows 32.7 ms. The operand, 362 MB in
-// float32 or 723 MB in float64, takes at most 0.22 ms to read once. This
-// kernel runs both modes on the FP64 units, outside the tensor cores.
-// What the design does about
-// it: one thread per particle keeps kLagBlock float64 sums and a register
-// window of kLagBlock future frames of each component; per frame it loads
-// one new value per component and does kLagBlock * d multiply-adds, all on
-// registers, so an operand value is read from memory once per lag block
-// rather than once per lag. The frame loop is unrolled by kLagBlock, so the
-// window is a ring whose slots are compile-time indices: no register moves.
-// The mask i < N - lag is needed only on the last frames of a lag block,
-// which a separate masked loop takes. A warp's threads are neighbouring
-// particles, so each load of a frame row is coalesced. Not yet done: sharing
-// a frame tile between lag blocks through shared memory, which would cut the
-// re-reads the L2 cache serves today.
+// peak outside the tensor cores allows 32.7 ms (and the FP64 pipe's issue
+// rate, two instructions a pair-component, 43.7 ms). The operand, 362 MB
+// in float32 or 723 MB in float64, takes at most 0.22 ms to read once.
+// Both modes run on the FP64 units, outside the tensor cores.
 //
-// Launch geometry: grid x walks tiles of `cols` particles, grid y the lag
-// blocks, strided by gridDim.y past CUDA's y limit of 65,535. Any N >= 1,
-// n_lags in [1, N] and P >= 1; sizes and offsets are 64-bit.
+// The acf mode (lag_sums_kernel): one thread per particle keeps kLagBlock
+// float64 sums and a register window of kLagBlock future frames of each
+// component; per frame it loads one new value per component and does
+// kLagBlock * d multiply-adds, all on registers, so an operand value is
+// read from memory once per lag block rather than once per lag. The frame
+// loop is unrolled by kLagBlock, so the window is a ring whose slots are
+// compile-time indices: no register moves. The mask i < N - lag is needed
+// only on the last frames of a lag block, which a separate masked loop
+// takes. A warp's threads are neighbouring particles, so each load of a
+// frame row is coalesced. Each lag block still streams the whole operand,
+// through the L2 cache.
+//
+// The einstein mode (einstein_tile_kernel): that re-read held it to 30-33
+// % of its bound with a double operand, about 0.5 byte of L2 traffic per
+// FP64 instruction, more than L2 delivers to 132 SMs. So a CTA takes a
+// tile of kTileP = 32 particles (a lane each) x a span of kSpan = 128 lags
+// (a warp each kLagBlock of them, the register ring as above), and the
+// frames stream through shared memory, component-major ([c][frame]
+// [particle], so a warp's 32 reads of a component are 32 consecutive
+// values): a double-buffered tile of base frames x[i] (32 frames for a
+// double operand, 64 for a float one: what 227 KB hold at d = 3), and a
+// ring of partner rows x[i + lag] that every warp of the CTA reads its new
+// window value from. Copies go by cp.async (one 4- or 8-byte copy a value,
+// the transposition for free, zero-filled past P) one tile ahead of the
+// sums, with one barrier a tile. Each operand value now crosses L2 about twice per 128 lags, not
+// twice per 16. Each lag sums a tile of kTileF frames into a partial that
+// it adds to its running sum (a two-level sum), so the error grows with
+// N / kTileF terms, not N. The sums are the reference's (a - b)^2, never
+// the cancelling a^2 + b^2 - 2ab. Past the last whole tile at which every
+// lag of the span has its partner, the register ring goes on from global
+// memory, each lag masked by i + lag < N. cuda_lag.py lists this work
+// split (einstein_tiles, ring_slot, ...) and the CPU tests check it.
+//
+// Launch geometry: grid x walks tiles of particles (`cols` threads of one
+// particle each in the acf mode, kTileP particles in the einstein mode),
+// grid y the lag blocks or spans, strided by gridDim.y past CUDA's y limit
+// of 65,535. Any N >= 1, n_lags in [1, N] and P >= 1; sizes and offsets
+// are 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,18 +74,9 @@ namespace {
 
 constexpr int kLagBlock = 16;
 
-template <bool kEinstein>
-__device__ __forceinline__ double accumulate(double acc, double a, double b) {
-  if (kEinstein) {
-    const double diff = a - b;
-    return fma(diff, diff, acc);
-  }
-  return fma(a, b, acc);
-}
-
-// block (x: particle tile, y: lag blocks b, strided): lags
+// The acf mode. block (x: particle tile, y: lag blocks b, strided): lags
 // [b kLagBlock, (b + 1) kLagBlock) of particle q, one thread each.
-template <typename T, int D, bool kEinstein>
+template <typename T, int D>
 __global__ void lag_sums_kernel(const T* __restrict__ x,
                                 double* __restrict__ out, int64_t n,
                                 int64_t p, int64_t n_lags, int64_t nlb,
@@ -106,8 +121,7 @@ __global__ void lag_sums_kernel(const T* __restrict__ x,
           for (int l = 0; l < kLagBlock; ++l) {
 #pragma unroll
             for (int c = 0; c < D; ++c)
-              acc[l] = accumulate<kEinstein>(acc[l], xi[c],
-                                             w[c][(k + l) % kLagBlock]);
+              acc[l] = fma(xi[c], w[c][(k + l) % kLagBlock], acc[l]);
           }
         }
       }
@@ -123,8 +137,7 @@ __global__ void lag_sums_kernel(const T* __restrict__ x,
         if (j < n) {
 #pragma unroll
           for (int c = 0; c < D; ++c)
-            acc[l] = accumulate<kEinstein>(acc[l], xi[c],
-                                           (double)col[j * s + c]);
+            acc[l] = fma(xi[c], (double)col[j * s + c], acc[l]);
         }
       }
     }
@@ -132,35 +145,269 @@ __global__ void lag_sums_kernel(const T* __restrict__ x,
     for (int l = 0; l < kLagBlock; ++l) {
       const int64_t lag = l0 + l;
       if (lag < n_lags) {
-        out[lag * p + q] = kEinstein && lag == 0
-                               ? 0.0
-                               : acc[l] / ((double)(n - lag) * dfac);
+        out[lag * p + q] = acc[l] / ((double)(n - lag) * dfac);
+      }
+    }
+  }
+}
+
+// The einstein mode's CTA: kTileP particles x kSpan lags, kWarps warps of
+// kLagBlock lags each; shared-memory tiles of kTileF frames.
+constexpr int kTileP = 32;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSpan = kWarps * kLagBlock;
+// frames of a tile: as many as the shared memory takes at d = 3 (a float
+// operand's rows are half the bytes), so the per-tile barrier and copies
+// weigh less
+template <typename T>
+__host__ __device__ constexpr int tile_frames() {
+  return sizeof(T) == 4 ? 4 * kLagBlock : 2 * kLagBlock;
+}
+// partner rows x[l0 + r] sit in ring slot (r + 1) mod ring_rows: the rows
+// a tile reads (kTileF + kSpan - kLagBlock of them), the next tile's while
+// they load, and the kLagBlock - 1 rows each warp primes its window with;
+// a multiple of kLagBlock, so the reads of one warp in a chunk of
+// kLagBlock frames never wrap
+template <typename T>
+__host__ __device__ constexpr int ring_rows() {
+  return 2 * tile_frames<T>() + kSpan;
+}
+static_assert(ring_rows<float>() % kLagBlock == 0 &&
+                  ring_rows<double>() % kLagBlock == 0,
+              "a chunk's ring slots must not wrap");
+
+template <typename T, int D>
+constexpr size_t tile_smem_bytes() {
+  return (size_t)(ring_rows<T>() + 2 * tile_frames<T>()) * D * kTileP *
+         sizeof(T);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const float* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const double* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Copy frame rows [row0, row0 + count) of particles [p0, p0 + kTileP) into
+// shared memory, component-major: value (row0 + k, particle e, c) goes to
+// dst[(c * stride + slot(k)) * kTileP + e], slot(k) = (first + k) mod
+// wrap. Past P the copy fills zeros. All threads of the CTA take part.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(const T* __restrict__ x, T* dst,
+                                          int64_t row0, int count,
+                                          int64_t p, int64_t p0, int stride,
+                                          int first, int wrap) {
+  constexpr int kRow = kTileP * D;
+  for (int e = threadIdx.x; e < count * kRow; e += kThreads) {
+    const int k = e / kRow, rem = e - k * kRow;
+    const int part = rem / D, c = rem - part * D;
+    const bool valid = p0 + part < p;
+    const T* src = valid ? x + ((row0 + k) * p + p0) * D + rem : x;
+    int slot = first + k;
+    if (slot >= wrap) slot -= wrap;
+    cp_async(dst + ((int64_t)c * stride + slot) * kTileP + part, src, valid);
+  }
+}
+
+// block (x: tile of kTileP particles, y: spans b of kSpan lags, strided);
+// warp w sums lags [b kSpan + w kLagBlock, ... + kLagBlock) of the lane's
+// particle p0 + lane.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    einstein_tile_kernel(const T* __restrict__ x, double* __restrict__ out,
+                         int64_t n, int64_t p, int64_t n_lags,
+                         int64_t nspans, double dfac) {
+  constexpr int kTileF = tile_frames<T>();
+  constexpr int kRing = ring_rows<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);            // [D][kRing][kTileP]
+  T* base = ring + (size_t)D * kRing * kTileP;      // [2][D][kTileF][kTileP]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t p0 = (int64_t)blockIdx.x * kTileP;
+  const int64_t q = p0 + lane;
+  const int64_t s = p * D;  // row stride of the operand
+  for (int64_t b = blockIdx.y; b < nspans; b += gridDim.y) {
+    const int64_t l0 = b * kSpan;
+    const int64_t lw = l0 + warp * kLagBlock;  // the warp's first lag
+    const bool active = lw < n_lags;           // uniform in the warp
+    double acc[kLagBlock];
+#pragma unroll
+    for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
+    // ring window: x[i + lw + j] of component c in w[c][j % kLagBlock]
+    double w[D][kLagBlock];
+    // frames at which every lag of the span has its partner,
+    // i + l0 + kSpan - 1 < n, in whole tiles
+    const int64_t n_full = n - l0 - (kSpan - 1);
+    const int64_t n_tiles = n_full > 0 ? n_full / kTileF : 0;
+    if (n_tiles > 0) {
+      // partner rows r = 0 .. kTileF + kSpan - 2 and base tile 0
+      load_rows<T, D>(x, ring, l0, kTileF + kSpan - 1, p, p0, kRing, 1,
+                      kRing);
+      load_rows<T, D>(x, base, 0, kTileF, p, p0, kTileF, 0, kTileF);
+      cp_async_commit();
+      for (int64_t t = 0; t < n_tiles; ++t) {
+        cp_async_wait_all();  // tile t's copies
+        // tile t's rows are in for every thread, and every warp is done
+        // with tile t - 1, whose slots the next copies take
+        __syncthreads();
+        if (t + 1 < n_tiles) {
+          // tile t + 1: partner rows r = (t + 1) kTileF + kSpan - 1 on,
+          // base rows (t + 1) kTileF on, into the other base buffer;
+          // they land while tile t is summed
+          const int64_t r = (t + 1) * kTileF + kSpan - 1;
+          load_rows<T, D>(x, ring, l0 + r, kTileF, p, p0, kRing,
+                          (int)((r + 1) % kRing), kRing);
+          load_rows<T, D>(x, base + (size_t)((t + 1) & 1) * D * kTileF *
+                                        kTileP,
+                          (t + 1) * kTileF, kTileF, p, p0, kTileF, 0, kTileF);
+          cp_async_commit();
+        }
+        if (active) {
+          if (t == 0) {
+#pragma unroll
+            for (int j = 0; j < kLagBlock - 1; ++j) {
+#pragma unroll
+              for (int c = 0; c < D; ++c)
+                w[c][j] = (double)ring[(c * kRing + warp * kLagBlock + j +
+                                        1) * kTileP + lane];
+            }
+          }
+          double part[kLagBlock];
+#pragma unroll
+          for (int l = 0; l < kLagBlock; ++l) part[l] = 0.0;
+#pragma unroll 1
+          for (int kk = 0; kk < kTileF; kk += kLagBlock) {
+            const T* xb = base + (size_t)(t & 1) * D * kTileF * kTileP +
+                          kk * kTileP + lane;
+            // slot of partner row t kTileF + kk + k + warp kLagBlock +
+            // kLagBlock - 1, frame k of the chunk
+            const int sb = (int)((t * kTileF + kk + (warp + 1) * kLagBlock) %
+                                 kRing);
+            const T* xw = ring + sb * kTileP + lane;
+#pragma unroll
+            for (int k = 0; k < kLagBlock; ++k) {
+              double xi[D];
+#pragma unroll
+              for (int c = 0; c < D; ++c) {
+                w[c][(k + kLagBlock - 1) % kLagBlock] =
+                    (double)xw[(c * kRing + k) * kTileP];
+                xi[c] = (double)xb[(c * kTileF + k) * kTileP];
+              }
+#pragma unroll
+              for (int l = 0; l < kLagBlock; ++l) {
+#pragma unroll
+                for (int c = 0; c < D; ++c) {
+                  const double diff = xi[c] - w[c][(k + l) % kLagBlock];
+                  part[l] = fma(diff, diff, part[l]);
+                }
+              }
+            }
+          }
+#pragma unroll
+          for (int l = 0; l < kLagBlock; ++l) acc[l] += part[l];
+        }
+      }
+      __syncthreads();  // the next span's copies overwrite the last tile
+    }
+    if (active && q < p) {
+      // the frames past the tiles, each lag bounded by i + lag < n: the
+      // register ring goes on from global memory, in chunks of kLagBlock
+      // frames, primed here where there were no tiles
+      const T* col = x + q * D;
+      const int64_t i_end = n - lw;
+      if (n_tiles == 0) {
+#pragma unroll
+        for (int j = 0; j < kLagBlock - 1; ++j) {
+#pragma unroll
+          for (int c = 0; c < D; ++c)
+            w[c][j] = j < i_end ? (double)col[(lw + j) * s + c] : 0.0;
+        }
+      }
+      double part[kLagBlock];
+#pragma unroll
+      for (int l = 0; l < kLagBlock; ++l) part[l] = 0.0;
+      for (int64_t i0 = n_tiles * kTileF; i0 < i_end; i0 += kLagBlock) {
+#pragma unroll
+        for (int k = 0; k < kLagBlock; ++k) {
+          const int64_t i = i0 + k;
+          const int64_t lim = i_end - i;  // lags lw + l, l < lim, pair
+          const int64_t jn = i + kLagBlock - 1;  // the new partner, - lw
+          double xi[D];
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            w[c][(k + kLagBlock - 1) % kLagBlock] =
+                jn < i_end ? (double)col[(lw + jn) * s + c] : 0.0;
+            xi[c] = lim > 0 ? (double)col[i * s + c] : 0.0;
+          }
+#pragma unroll
+          for (int l = 0; l < kLagBlock; ++l) {
+            if (l < lim) {
+#pragma unroll
+              for (int c = 0; c < D; ++c) {
+                const double diff = xi[c] - w[c][(k + l) % kLagBlock];
+                part[l] = fma(diff, diff, part[l]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < kLagBlock; ++l) {
+        const int64_t lag = lw + l;
+        if (lag < n_lags) {
+          out[lag * p + q] =
+              lag == 0 ? 0.0 : (acc[l] + part[l]) / ((double)(n - lag) * dfac);
+        }
       }
     }
   }
 }
 
 template <typename T, int D>
-void launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
-            bool einstein, double dfac, dim3 grid, unsigned cols,
-            cudaStream_t stream) {
-  const int64_t nlb = (n_lags + kLagBlock - 1) / kLagBlock;
+int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
+           bool einstein, double dfac, dim3 grid, unsigned cols,
+           cudaStream_t stream) {
   if (einstein) {
-    lag_sums_kernel<T, D, true><<<grid, cols, 0, stream>>>(
-        (const T*)x, (double*)out, n, p, n_lags, nlb, dfac);
+    constexpr size_t smem = tile_smem_bytes<T, D>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        einstein_tile_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t nspans = (n_lags + kSpan - 1) / kSpan;
+    einstein_tile_kernel<T, D><<<grid, cols, smem, stream>>>(
+        (const T*)x, (double*)out, n, p, n_lags, nspans, dfac);
   } else {
-    lag_sums_kernel<T, D, false><<<grid, cols, 0, stream>>>(
+    const int64_t nlb = (n_lags + kLagBlock - 1) / kLagBlock;
+    lag_sums_kernel<T, D><<<grid, cols, 0, stream>>>(
         (const T*)x, (double*)out, n, p, n_lags, nlb, dfac);
   }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-void launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
-              int64_t n_lags, bool einstein, double dfac, dim3 grid,
-              unsigned cols, cudaStream_t stream) {
-  if (d == 1) launch<T, 1>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
-  if (d == 2) launch<T, 2>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
-  if (d == 3) launch<T, 3>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
+int launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
+             int64_t n_lags, bool einstein, double dfac, dim3 grid,
+             unsigned cols, cudaStream_t stream) {
+  if (d == 1) return launch<T, 1>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
+  if (d == 2) return launch<T, 2>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
+  return launch<T, 3>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
 }
 
 }  // namespace
@@ -168,24 +415,26 @@ void launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
 extern "C" {
 
 // x (n, p, d) float32 (f64 == 0) or float64 -> out (n_lags, p) float64, on
-// a (grid_x, grid_y) grid of blocks of `cols` threads, one particle each,
-// grid y over the ceil(n_lags / lag_block) lag blocks; all from cuda_lag.py,
-// whose lag block must be this file's.
+// a (grid_x, grid_y) grid of blocks of `cols` threads; all from
+// cuda_lag.py, whose constants must be this file's. acf: one particle a
+// thread, grid y over the ceil(n_lags / lag_block) lag blocks, lag_block
+// = kLagBlock; einstein: kTileP particles a block of kThreads, grid y over
+// the ceil(n_lags / lag_block) spans, lag_block = kSpan.
 int ta_lag_sums(const void* x, void* out, int64_t n, int64_t p, int64_t d,
                 int64_t n_lags, int64_t f64, int64_t einstein, double dfac,
                 int64_t lag_block, int64_t cols, int64_t grid_x,
                 int64_t grid_y, void* stream) {
-  if (lag_block != kLagBlock || d < 1 || d > 3 || n_lags < 1 || n_lags > n)
+  const bool geometry = einstein ? lag_block == kSpan && cols == kThreads
+                                 : lag_block == kLagBlock;
+  if (!geometry || d < 1 || d > 3 || n_lags < 1 || n_lags > n)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   if (f64) {
-    launch_d<double>(x, out, n, p, d, n_lags, einstein != 0, dfac, grid,
-                     (unsigned)cols, (cudaStream_t)stream);
-  } else {
-    launch_d<float>(x, out, n, p, d, n_lags, einstein != 0, dfac, grid,
-                    (unsigned)cols, (cudaStream_t)stream);
+    return launch_d<double>(x, out, n, p, d, n_lags, einstein != 0, dfac,
+                            grid, (unsigned)cols, (cudaStream_t)stream);
   }
-  return (int)cudaGetLastError();
+  return launch_d<float>(x, out, n, p, d, n_lags, einstein != 0, dfac, grid,
+                         (unsigned)cols, (cudaStream_t)stream);
 }
 
 }  // extern "C"

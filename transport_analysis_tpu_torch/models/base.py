@@ -74,8 +74,11 @@ class Results(dict):
 
 
 class AnalysisBase:
-    """``device``: where the analysis computes — a CUDA (Hopper) card or
-    the CPU; default the card when one is present."""
+    """``device``: where the analysis computes — the CUDA (Hopper) card by
+    default, which raises where there is none, or the CPU when asked for
+    as ``"cpu"``. Subclasses check their own arguments before calling
+    this, so a bad argument raises its own error on a machine with no
+    card."""
 
     def __init__(self, trajectory, verbose: bool = False, engine=None,
                  frame_block: Optional[int] = None, device=None, **kwargs):

@@ -46,7 +46,8 @@ class EinsteinMSD(AnalysisBase):
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
     device : torch device, optional
-        Where the analysis computes; default the CUDA card when present.
+        Where the analysis computes: the CUDA card by default (raises
+        where there is none), the CPU only as ``"cpu"``.
     """
 
     def __init__(self, u, select: str = "all", msd_type: str = "xyz",
@@ -56,14 +57,14 @@ class EinsteinMSD(AnalysisBase):
             ag = u if select in ("all", None) else u.select_atoms(select)
         else:
             ag = u.select_atoms(select)
-        super().__init__(ag.universe.trajectory, **kwargs)
         if atom_chunk is not None or checkpoint is not None:
             raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
-        self.ag = ag
-        self.atomgroup = ag
         self.msd_type = msd_type.lower()
         self._dim, self.dim_fac = parse_dim_type(self.msd_type)
+        super().__init__(ag.universe.trajectory, **kwargs)
+        self.ag = ag
+        self.atomgroup = ag
         self.fft = fft
         self.max_lag = max_lag
         self._work_dtype = np.dtype(np.float64)

@@ -47,13 +47,13 @@ class VelocityAutocorr(AnalysisBase):
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
     device : torch device, optional
-        Where the analysis computes; default the CUDA card when present.
+        Where the analysis computes: the CUDA card by default (raises
+        where there is none), the CPU only as ``"cpu"``.
     """
 
     def __init__(self, atomgroup, dim_type: str = "xyz", fft: bool = True,
                  max_lag=None, atom_chunk=None, checkpoint=None,
                  dtype=np.float64, **kwargs):
-        super().__init__(atomgroup.universe.trajectory, **kwargs)
         if isinstance(atomgroup, UpdatingAtomGroup):
             raise TypeError(
                 "UpdatingAtomGroups are not valid for VACF computation"
@@ -63,6 +63,7 @@ class VelocityAutocorr(AnalysisBase):
         if atom_chunk is not None or checkpoint is not None:
             raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
+        super().__init__(atomgroup.universe.trajectory, **kwargs)
         self.fft = fft
         self.max_lag = max_lag
         self._work_dtype = np.dtype(np.float64)

@@ -51,7 +51,8 @@ class ViscosityHelfand(AnalysisBase):
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
     device : torch device, optional
-        Where the analysis computes; default the CUDA card when present.
+        Where the analysis computes: the CUDA card by default (raises
+        where there is none), the CPU only as ``"cpu"``.
     """
 
     def __init__(
@@ -67,7 +68,6 @@ class ViscosityHelfand(AnalysisBase):
         dtype=np.float64,
         **kwargs,
     ):
-        super().__init__(atomgroup.universe.trajectory, **kwargs)
         if isinstance(atomgroup, UpdatingAtomGroup):
             raise TypeError(
                 "UpdatingAtomGroups are not valid for viscosity computation"
@@ -79,6 +79,7 @@ class ViscosityHelfand(AnalysisBase):
         if atom_chunk is not None or checkpoint is not None:
             raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
+        super().__init__(atomgroup.universe.trajectory, **kwargs)
         self.fft = fft
         self.max_lag = max_lag
         self._work_dtype = np.dtype(np.float64)

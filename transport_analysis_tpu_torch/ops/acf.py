@@ -68,7 +68,7 @@ def acf_fft(x, device=None) -> torch.Tensor:
     ----------
     x : (N, P, d) or (N, P) float64 tensor or array — N frames, P
         particles, d components. Arrays go to ``device`` (default: the
-        CUDA card when present).
+        CUDA card; the CPU only as ``"cpu"``).
 
     Returns
     -------
@@ -106,7 +106,8 @@ def acf_windowed(x, max_lag=None, device=None) -> torch.Tensor:
     Parameters
     ----------
     x : (N, P, d) or (N, P) float64, or float32 samples, tensor or array.
-        Arrays go to ``device`` (default: the CUDA card when present).
+        Arrays go to ``device`` (default: the CUDA card; the CPU only as
+        ``"cpu"``).
         float32 samples are read at 4 bytes and upcast exactly inside the
         kernel, so the result is that of the float64 values (the JAX op
         returns float32 for them; here the float32 work mode is not

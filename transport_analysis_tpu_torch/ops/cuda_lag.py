@@ -14,7 +14,12 @@ reference's windowed summation (``_acf_windowed_impl``,
 float32 operand is read at 4 bytes and upcast exactly, a float64 one is
 read as it is, and the sums are float64 either way. It takes the place of
 the TPU's float32 kernel (K8a) and of its double-float pair kernel (K8b),
-whose N ≤ 2^17 cap does not apply here. The TPU routing switches
+whose N ≤ 2^17 cap does not apply here. The acf mode is one thread per
+particle and lag block; the einstein mode streams frame tiles through
+shared memory for a CTA of particles × a span of lags, whose work split
+:func:`einstein_tiles`, :func:`ring_slot`, :func:`ring_loads`,
+:func:`window_rows` and :func:`tail_frames` list, as ``csrc/lag.cu``
+runs it. The TPU routing switches
 (``TRANSPORT_ANALYSIS_TPU_NO_PALLAS_LAG``, ``..._PALLAS_LAG_F64``, the
 cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
 kernel, a CPU tensor its plain version.
@@ -27,7 +32,12 @@ import torch
 from .. import _build
 
 LAG_BLOCK = 16           # lags per thread, csrc/lag.cu's kLagBlock
-LAG_COLS = 128           # threads per block, one particle each
+LAG_COLS = 128           # acf: threads per block, one particle each
+# einstein mode, csrc/lag.cu's constants of the same names
+TILE_P = 32              # kTileP: particles of a CTA, one per lane
+TILE_WARPS = 8           # kWarps: warps of a CTA, LAG_BLOCK lags each
+TILE_THREADS = 32 * TILE_WARPS
+SPAN = TILE_WARPS * LAG_BLOCK    # kSpan: lags of a CTA
 MAX_D = 3                # components the kernel takes
 # lags the plain version takes at once: at most this many frame-lag-series
 # values per block, so CPU tests and the card's checks stay small
@@ -50,6 +60,57 @@ def _check(x: torch.Tensor, n_lags: int, mode: str,
     if reduce_mode not in ("mean", "sum"):
         raise ValueError(f"reduce_mode must be 'mean' or 'sum', got "
                          f"{reduce_mode!r}")
+
+
+def tile_frames(dtype: torch.dtype) -> int:
+    """Frames of the einstein mode's shared-memory tile for an operand of
+    ``dtype`` (``csrc/lag.cu`` tile_frames): what the shared memory holds
+    at d = 3."""
+    return 4 * LAG_BLOCK if dtype == torch.float32 else 2 * LAG_BLOCK
+
+
+def ring_rows(tile_f: int) -> int:
+    """The partner-row slots of the ring (``csrc/lag.cu`` ring_rows)."""
+    return 2 * tile_f + SPAN
+
+
+def einstein_tiles(n: int, l0: int, tile_f: int) -> int:
+    """The whole frame tiles of the einstein CTA at first lag ``l0``:
+    tile t covers frames [t·tile_f, (t+1)·tile_f), at which every lag of
+    the span has its partner (i + l0 + SPAN − 1 < N)."""
+    return max(0, n - l0 - (SPAN - 1)) // tile_f
+
+
+def ring_slot(r: int, tile_f: int) -> int:
+    """The ring slot of partner row l0 + r."""
+    return (r + 1) % ring_rows(tile_f)
+
+
+def ring_loads(t: int, tile_f: int) -> range:
+    """The partner rows r (row l0 + r) of tile t's copies: t = 0 the first
+    tile_f + SPAN − 1, copied before the tiles, else the tile_f rows that
+    tile t adds, issued just after the barrier that opens tile t − 1 and
+    landing while tile t − 1 is summed."""
+    if t == 0:
+        return range(0, tile_f + SPAN - 1)
+    return range(t * tile_f + SPAN - 1, (t + 1) * tile_f + SPAN - 1)
+
+
+def window_rows(t: int, warp: int, tile_f: int) -> tuple[range, range]:
+    """The partner rows r a warp reads from the ring in tile t: the rows
+    it primes its register window with (tile 0 only), and the new row of
+    each frame k, r = t·tile_f + k + warp·LAG_BLOCK + LAG_BLOCK − 1."""
+    first = warp * LAG_BLOCK
+    prime = range(first, first + LAG_BLOCK - 1) if t == 0 else range(0)
+    start = t * tile_f + first + LAG_BLOCK - 1
+    return prime, range(start, start + tile_f)
+
+
+def tail_frames(n: int, l0: int, warp: int, tile_f: int) -> range:
+    """The frames a warp sums past the tiles, from global memory in
+    chunks of LAG_BLOCK, each of its lags masked by i + lag < N."""
+    return range(einstein_tiles(n, l0, tile_f) * tile_f,
+                 max(0, n - l0 - warp * LAG_BLOCK))
 
 
 def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
@@ -100,14 +161,18 @@ def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
     if d > MAX_D:
         raise ValueError(f"lag_sums: the kernel takes d <= {MAX_D} "
                          f"components, got {d}")
-    grid = _build.launch_grid(-(-p // LAG_COLS), -(-n_lags // LAG_BLOCK))
+    if mode == "einstein":
+        lags, cols, tile = SPAN, TILE_THREADS, TILE_P
+    else:
+        lags, cols, tile = LAG_BLOCK, LAG_COLS, LAG_COLS
+    grid = _build.launch_grid(-(-p // tile), -(-n_lags // lags))
     out = torch.empty((n_lags, p), dtype=torch.float64, device=x.device)
     dfac = d if reduce_mode == "mean" else 1
     with torch.cuda.device(x.device):
         err = _build.library().ta_lag_sums(
             x.data_ptr(), out.data_ptr(), n, p, d, n_lags,
             int(x.dtype == torch.float64), int(mode == "einstein"),
-            float(dfac), LAG_BLOCK, LAG_COLS, *grid, _build.stream(x))
+            float(dfac), lags, cols, *grid, _build.stream(x))
     _build.check(err, "lag_sums")
     lag_sums.launches += 1
     return out

@@ -9,7 +9,9 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
 
 1. device  — capability (9, 0); the card's name and power limit as
    ``nvidia-smi`` reports them.
-2. build   — nvcc compiles ``transport_analysis_tpu_torch/csrc/*.cu``.
+2. build   — nvcc compiles ``transport_analysis_tpu_torch/csrc/*.cu``;
+   ``cuobjdump -sass`` must show DMMA (FP64 tensor-core) instructions in
+   each instantiation of K8's acf kernel.
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes each model phase below gives it (every
    level of its FFT plan, K2, the K5 epilogue, and K6a/K6b at its
@@ -28,10 +30,13 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    for the rest (K6's sums and scans, K8's einstein sums, whose
    subtraction comes before the square; beside that bound, the FP64
    pipe's issue-slot ceiling, two instructions a pair-component at
-   17e12/s). The library call for K6a, the reshape-sum, forms only the
-   forward leg of its totals (the kernel forms both from one read of
-   sq); for K8 it is a grouped ``F.conv1d`` of the float64 series, for
-   its acf launches only (no one call forms the einstein sums).
+   17e12/s; beside the acf bound, the kernel's share of it and the FMA
+   pipe's floor, one multiply-add a pair-component at 17e12/s, what the
+   sums would need off the tensor cores). The library call for K6a, the
+   reshape-sum, forms only the forward leg of its totals (the kernel
+   forms both from one read of sq); for K8 it is a grouped ``F.conv1d``
+   of the float64 series, for its acf launches only (no one call forms
+   the einstein sums).
 4. model   — the ethylene-carbonate system (368 molecules, 3,680 atoms;
    the recipe of ``transport_analysis_tpu/data/generate.py`` re-done in
    memory) at 8,192 frames (M = 2^14). Runs, each once warm, once timed
@@ -187,6 +192,25 @@ def build_phase(build):
           f"{secs:.1f} s")
     for ln in ptxas:
         phase("build", f"  ptxas: {ln}")
+    # K8's acf kernel runs on the FP64 tensor cores: every instantiation's
+    # SASS must hold DMMA instructions
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    dmma, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            if "acf_gram_kernel" in name:
+                dmma[name] = 0
+        elif name in dmma and "DMMA" in ln:
+            dmma[name] += 1
+    if len(dmma) != 6 or min(dmma.values()) == 0:
+        raise RuntimeError(f"build: acf_gram_kernel's SASS, DMMA instructions "
+                           f"by instantiation: {dmma}")
+    phase("build", f"acf_gram_kernel: DMMA instructions in the SASS of its "
+          f"6 instantiations (float, double x d = 1, 2, 3): "
+          f"{sorted(dmma.values())}")
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -263,7 +287,8 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     def compare(shape_key, key, kernel, plain, label, times, library=None,
                 pick=None):
         """``times`` = :func:`work` of the kernel's function; ``pick``
-        selects the kernel's outputs that the plain version forms."""
+        selects the kernel's outputs that the plain version forms.
+        Returns the kernel's milliseconds."""
         got = kernel()
         ref = plain()
         torch.cuda.synchronize()
@@ -294,6 +319,7 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
             r["library_kernel_ms"] = (r["library_kernel_ms"] or 0.0) + k_ms
+        return k_ms
 
     def level_work(a, nl, c, order, tw):
         """One level: DFTs of order nl as a matrix product, the twiddle
@@ -440,20 +466,28 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                       f"(grouped conv1d of the float64 series) agree with "
                       f"K8 to {diff / scale:.3e}")
                 del lags
-            compare(shape_key, "lag_sums",
-                    lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
-                    lambda: cuda_lag.lag_sums_plain(sub, n_lags, mode,
-                                                    reduce_mode),
-                    f"K8 lag_sums {what}: {str(dtype)[6:]} ({n}, {p}, {d}) "
-                    f"{mode}/{reduce_mode}, {n_lags} lags (plain on every "
-                    f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
-                    times, library=library,
-                    pick=lambda out: out[:, ::PLAIN_STRIDE])
+            k_ms = compare(
+                shape_key, "lag_sums",
+                lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
+                lambda: cuda_lag.lag_sums_plain(sub, n_lags, mode,
+                                                reduce_mode),
+                f"K8 lag_sums {what}: {str(dtype)[6:]} ({n}, {p}, {d}) "
+                f"{mode}/{reduce_mode}, {n_lags} lags (plain on every "
+                f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
+                times, library=library,
+                pick=lambda out: out[:, ::PLAIN_STRIDE])
             if mode == "einstein":
                 phase("kernels", f"{shape_key} K8 lag_sums {what}: FP64 "
                       f"issue-slot ceiling {1e3 * 2 * pairs / ISSUE_FP64:.3f}"
                       f" ms (2 instructions a pair-component at 17e12/s) "
                       f"beside the flop bound {1e3 * times[1]:.3f} ms")
+            else:
+                b_ms = bound(*times)[0]
+                phase("kernels", f"{shape_key} K8 lag_sums {what}: "
+                      f"{100 * b_ms / k_ms:.1f} % of its {b_ms:.3f} ms bound "
+                      f"(FP64 tensor cores, 67 TFLOP/s); the FMA pipe's "
+                      f"floor {1e3 * pairs / ISSUE_FP64:.3f} ms (one "
+                      f"multiply-add a pair-component at 17e12/s)")
             r = results[shape_key]["lag_sums"]
             r["atoms"], r["plain_atoms"] = p, sub.shape[1]
             del x, sub, library
@@ -584,7 +618,7 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
     ("einstein_tile_kernel", "K8 lag_sums einstein"),
-    ("lag_sums_kernel", "K8 lag_sums acf"),
+    ("acf_gram_kernel", "K8 lag_sums acf"),
 ]
 
 

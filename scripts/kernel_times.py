@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time K6a (kneller_totals) and K8 (lag_sums) at the EC shapes on one
-CUDA Hopper card, each against its plain version on a slice and beside
-its bound; a quick loop for tuning these kernels without the whole of
+"""Time K6a (kneller_totals), K8 (lag_sums) and the FFT path (K1 + K2 + K5
+in one autocorrelation, and K6b) at the EC shapes on one CUDA Hopper
+card, K6a and K8 against their plain versions on a slice and beside
+their bounds; a quick loop for tuning these kernels without the whole of
 chip_smoke.py.
 
-    python3 scripts/kernel_times.py [--only k6a|k8] [--reps 5]
+    python3 scripts/kernel_times.py [--only k6a|k8|vacf|fft] [--reps 5]
                                     [--package DIR]
 
 ``--package DIR`` times the package in the checkout DIR instead (for
@@ -15,7 +16,9 @@ parent.
 Prints one line per case: kernel ms (CUDA events, warm, median), the
 bound (bytes over 3.35 TB/s, flop over the FP64 peak of their kind), the
 FP64 issue-slot ceiling of the einstein sums (two instructions a pair-
-component at 17e12/s), the library call where there is one, and the
+component at 17e12/s) or the FMA-pipe floor of the acf sums (one
+multiply-add a pair-component at 17e12/s, what the sums would need off
+the tensor cores), the library call where there is one, and the
 kernel's max relative error against its plain version.
 """
 
@@ -84,14 +87,17 @@ def k6a(cuda_kneller, g, reps):
         del sq
 
 
-def k8(cuda_lag, g, reps):
+def k8(cuda_lag, g, reps, acf_only=False):
     cases = [  # (label, N, n_lags, dtype, mode, reduce)
         ("model MSD", 8192, 8192, torch.float32, "einstein", "sum"),
         ("model Helfand", 8192, 8192, torch.float64, "einstein", "mean"),
         ("deep Helfand", 65536, 2048, torch.float64, "einstein", "mean"),
+        ("model VACF", 8192, 8192, torch.float32, "acf", "sum"),
         ("deep VACF", 65536, 2048, torch.float32, "acf", "sum"),
     ]
     for label, n, n_lags, dtype, mode, reduce_mode in cases:
+        if acf_only and mode != "acf":
+            continue
         p, d = EC_ATOMS, 3
         x = torch.randn((n, p, d), dtype=dtype, device="cuda", generator=g)
         sub = x[:, ::21].contiguous()
@@ -115,12 +121,35 @@ def k8(cuda_lag, g, reps):
         else:
             bound = 1e3 * max(nbytes / PEAK_BYTES,
                               2 * pairs / PEAK_FP64_MMA)
-            ceiling = ""
+            ceiling = f", FMA-pipe floor {1e3 * pairs / ISSUE_FP64:.3f} ms"
         print(f"K8 {label} {str(dtype)[6:]} ({n}, {p}, {d}) {mode}, "
               f"{n_lags} lags: kernel {k:.3f} ms, bound {bound:.3f} ms"
               f"{ceiling}, {100 * bound / k:.1f} % of bound, err {err:.2e}; "
               f"SM clock, power under load: {busy}", flush=True)
         del x, sub, got
+
+
+def fft(cuda_fft, cuda_kneller, g, reps):
+    """The FFT path's kernels at the model and deep EC shapes: one
+    autocorrelation of the (N, 3P) float64 series (K1's levels, K2, K5)
+    and K6b."""
+    for n in (8192, 65536):
+        p, d = EC_ATOMS, 3
+        m = 2 * n
+        x = torch.randn((n, p * d), dtype=torch.float64, device="cuda",
+                        generator=g)
+        k = time_ms(lambda: cuda_fft.autocorr_power_sum(x, m, p, d), reps)
+        del x
+        sq = torch.rand((n, p), dtype=torch.float64, device="cuda",
+                        generator=g)
+        corr = torch.randn((n, p), dtype=torch.float64, device="cuda",
+                           generator=g)
+        tot = cuda_kneller.kneller_totals(sq)
+        w = time_ms(lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
+                    reps)
+        print(f"FFT ({n}, {p}, {d}): K1 + K2 + K5 autocorrelation {k:.3f} "
+              f"ms, K6b {w:.3f} ms", flush=True)
+        del sq, corr, tot
 
 
 def smi(query: str) -> str:
@@ -131,7 +160,8 @@ def smi(query: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["k6a", "k8"])
+    ap.add_argument("--only", choices=["k6a", "k8", "vacf", "fft"],
+                    help="time one group: vacf is K8's acf launches alone")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package", default=ROOT,
                     help="checkout whose transport_analysis_tpu_torch to "
@@ -140,14 +170,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.abspath(args.package))
-    from transport_analysis_tpu_torch.ops import cuda_kneller, cuda_lag
+    from transport_analysis_tpu_torch.ops import (cuda_fft, cuda_kneller,
+                                                  cuda_lag)
     print(f"{smi('name,power.limit')}; package {cuda_lag.__file__}",
           flush=True)
     g = torch.Generator(device="cuda").manual_seed(1)
     if args.only in (None, "k6a"):
         k6a(cuda_kneller, g, args.reps)
-    if args.only in (None, "k8"):
-        k8(cuda_lag, g, args.reps)
+    if args.only in (None, "k8", "vacf"):
+        k8(cuda_lag, g, args.reps, acf_only=args.only == "vacf")
+    if args.only in (None, "fft"):
+        fft(cuda_fft, cuda_kneller, g, args.reps)
     return 0
 
 

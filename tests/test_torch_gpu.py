@@ -151,15 +151,22 @@ def test_lag_einstein_tiles_vs_plain(cuda_device, n, p, d, dtype):
 
 
 @pytest.mark.parametrize("n,p,d", [(1, 1, 1), (37, 5, 3), (1000, 130, 1),
-                                   (2053, 257, 3), (300, 129, 2)])
+                                   (2053, 257, 3), (300, 129, 2), (5, 3, 1),
+                                   (5, 3, 2), (45, 3, 3), (45, 2, 2),
+                                   (1100, 3, 1), (1100, 3, 2), (1100, 3, 3),
+                                   (2100, 7, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_lag_kernel_vs_plain(cuda_device, n, p, d, dtype):
-    """K8 at ragged shapes (N not a multiple of the lag block, P not of
-    the 128-thread tile), n_lags of 1, 17 and N, both modes."""
+    """K8 at ragged shapes, both modes: N below the acf mode's 16 frame
+    phases, not a multiple of them, of its 1,024-frame chunk or of the
+    einstein lag block; n_lags of 1, 17, the acf CTA's most lags and one
+    either side of it (spans of unequal work), and N."""
     rng = np.random.RandomState(n + p)
     x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
         cuda_device, dtype)
-    for n_lags in sorted({1, min(17, n), n}):
+    span = cuda_lag.ACF_SPAN
+    for n_lags in sorted({1, 17, span - 1, span, span + 1, n}
+                         & set(range(1, n + 1))):
         for mode, reduce_mode in (("acf", "sum"), ("einstein", "mean"),
                                   ("einstein", "sum")):
             got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)

@@ -207,6 +207,129 @@ def test_einstein_ring_holds_a_tile_and_the_next(dtype):
     assert (ring + 2 * tile_f) * row <= 232_448
 
 
+def acf_gram_replay(x, n_lags):
+    """K8's acf launch replayed in numpy from cuda_lag's work split, as
+    csrc/lag.cu runs it: for each span, chunk, warp and step, the A and B
+    fragments' frame rows (B through the warp's register ring, whose slots
+    it checks), the tile products into the Gram matrix C, then each lag's
+    diagonal sum / (N − lag). Returns the (n_lags, P) sums and the count of
+    each (lag, frame) pair that a nonzero product added to a stored lag."""
+    n, p, _ = x.shape
+    chunk, cols = cuda_lag.ACF_CHUNK, cuda_lag.ACF_COLS
+    xpad = np.concatenate([x, np.zeros((chunk + cols,) + x.shape[1:])])
+    spans, span = cuda_lag.acf_spans(n_lags)
+    assert span <= cuda_lag.ACF_SPAN and spans * span >= n_lags
+    tiles = cuda_lag.acf_tiles(span)
+    out = np.zeros((n_lags, p))
+    count = np.zeros((n_lags, n), dtype=np.int64)
+    for b in range(spans):
+        l0 = b * span
+        gram = np.zeros((p, cuda_lag.ACF_ROWS, cols))
+        for f0 in cuda_lag.acf_chunks(n, l0):
+            for warp in range(cuda_lag.ACF_WARPS):
+                held = {}
+                for v in cuda_lag.acf_ring_loads(-1):
+                    held[v % cuda_lag.ACF_RING] = v
+                for s in range(cuda_lag.ACF_STEPS):
+                    for v in cuda_lag.acf_ring_loads(s):
+                        held[v % cuda_lag.ACF_RING] = v
+                    rows = cuda_lag.acf_frame_rows(s)
+                    assert rows.min() >= 0 and rows.max() < chunk
+                    a = xpad[f0 + rows]                       # (K, 16, P, d)
+                    for e, i, m in cuda_lag.acf_tile_columns(warp, tiles):
+                        v = held[(s + i) % cuda_lag.ACF_RING]
+                        assert v == s + i
+                        partner = cuda_lag.acf_partner_rows(v, warp, e)
+                        assert partner.max() < chunk + cols
+                        gram[:, :, m:m + 8] += np.einsum(
+                            "kaqc,knqc->qan", a, xpad[f0 + l0 + partner])
+                        t = f0 + rows[:, :, None]              # (K, 16, 1)
+                        u = f0 + l0 + partner[:, None, :]      # (K, 1, 8)
+                        ell = cuda_lag.acf_column_lag(
+                            m + np.arange(8)[None, None, :],
+                            np.arange(cuda_lag.ACF_ROWS)[None, :, None])
+                        assert np.all(u - t == l0 + ell)
+                        live = ((t < n) & (u < n) & (ell >= 0) & (ell < span)
+                                & (l0 + ell < n_lags))
+                        lags, frames = np.broadcast_arrays(l0 + ell, t)
+                        np.add.at(count, (lags[live], frames[live]), 1)
+        for ell in range(min(span, n_lags - l0)):
+            lag = l0 + ell
+            assert ell + cuda_lag.ACF_ROWS - 1 < 8 * tiles
+            diag = gram[:, np.arange(cuda_lag.ACF_ROWS),
+                        ell + np.arange(cuda_lag.ACF_ROWS)]
+            out[lag] = diag.sum(1) / (n - lag)
+    return out, count
+
+
+ACF_SPLIT_CASES = [  # (N, n_lags): N below the 16 frame phases, not a
+    # multiple of them, not a multiple of the chunk; n_lags 1, a CTA's most
+    # lags and one either side of it, all N
+    (n, n_lags) for n in (5, 45, 1100) for n_lags in sorted(
+        {1, cuda_lag.ACF_SPAN - 1, cuda_lag.ACF_SPAN, cuda_lag.ACF_SPAN + 1,
+         n} & set(range(1, n + 1)))]
+
+
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("n,n_lags", ACF_SPLIT_CASES)
+def test_acf_gram_split_sums_each_pair_once(n, n_lags, d):
+    """K8's acf work split: every (frame t, lag) pair with t + lag < N is
+    summed exactly once, and no other; the diagonal sums of the replayed
+    Gram matrices meet the plain version within 1e-12 and the TPU's float32
+    kernel (K8a, interpret mode) within its 1e-5."""
+    x32 = np.random.RandomState(n + d + n_lags).normal(
+        0.3, 1.5, (n, 3, d)).astype(np.float32)
+    x = x32.astype(np.float64)
+    got, count = acf_gram_replay(x, n_lags)
+    lag, i = np.indices((n_lags, n))
+    np.testing.assert_array_equal(count, (i + lag < n).astype(np.int64))
+    ref = cuda_lag.lag_sums_plain(torch.from_numpy(x), n_lags).numpy()
+    assert rel(got, ref) <= TOL
+    ref32 = np.asarray(windowed_lag_pallas(x32, max_lag=n_lags, mode="acf"))
+    assert rel(got, ref32) <= F32_TOL
+
+
+@pytest.mark.parametrize("n_lags,spans,span", [
+    (1, 1, 1), (497, 1, 497), (498, 2, 249), (2048, 5, 410),
+    (8192, 17, 482)])
+def test_acf_spans_spread_the_lags(n_lags, spans, span):
+    """As few spans as a CTA's lags allow, the lags spread evenly: the
+    deep windowed VACF's 2,048 lags and the model's 8,192."""
+    assert cuda_lag.acf_spans(n_lags) == (spans, span)
+    assert (spans - 1) * span < n_lags <= spans * span
+
+
+def test_acf_fragment_reads_avoid_bank_conflicts():
+    """Every fragment register a warp reads from shared memory: the 16
+    lanes of each half-warp (lane = 4g + t) fall on 16 distinct bank pairs
+    of 8-byte words, and every row lies inside its component's stride;
+    the CTA's shared memory within Hopper's 227 KB."""
+    rows, k, steps = cuda_lag.ACF_ROWS, cuda_lag.ACF_MMA_K, cuda_lag.ACF_STEPS
+    chunk, cols = cuda_lag.ACF_CHUNK, cuda_lag.ACF_COLS
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    reads = []
+    for s in range(steps):
+        a = cuda_lag.acf_frame_rows(s)
+        for i in range(k // 4):
+            for h in range(2):
+                reads.append((a[t + 4 * i, g + 8 * h], chunk))
+    for v in range(steps + cuda_lag.ACF_RING - 1):
+        for warp in range(cuda_lag.ACF_WARPS):
+            for e in range(2):
+                b = cuda_lag.acf_partner_rows(v, warp, e)
+                for i in range(k // 4):
+                    reads.append((b[t + 4 * i, g], chunk + cols))
+    for lane_rows, limit in reads:
+        assert lane_rows.max() < limit
+        slots = cuda_lag.acf_smem_row(lane_rows)
+        assert slots.max() < cuda_lag.acf_smem_row(limit)
+        for half in (slice(0, 16), slice(16, 32)):
+            assert len(set(slots[half] % 16)) == 16
+    stage = 3 * (cuda_lag.acf_smem_row(chunk) + cuda_lag.acf_smem_row(
+        chunk + cols)) * (8 + 8)
+    assert max(stage, rows * (cols + 8) * 8) <= 232_448
+
+
 # --- the ops against the JAX XLA windowed kernels --------------------------
 
 

@@ -20,40 +20,71 @@
 // What bounds it: float64 arithmetic. Every (frame, lag, series) pair costs
 // one multiply-add (acf) or a subtract and a multiply-add (einstein). At
 // 3,680 atoms x 8,192 frames over all lags (3.7e11 pairs) the acf sums, a
-// Gram product of frame tiles, could run on the tensor cores' 67 TFLOP/s
-// FP64 peak (H100 SXM data sheet) in 11.1 ms; the einstein sums subtract
-// before they square, which is no matrix product, so the 34 TFLOP/s FP64
-// peak outside the tensor cores allows 32.7 ms (and the FP64 pipe's issue
-// rate, two instructions a pair-component, 43.7 ms). The operand, 362 MB
-// in float32 or 723 MB in float64, takes at most 0.22 ms to read once.
-// Both modes run on the FP64 units, outside the tensor cores.
+// Gram product of frame tiles, can run on the tensor cores' 67 TFLOP/s
+// FP64 peak (H100 SXM data sheet) in 11.1 ms, where the FP64 units' one
+// multiply-add a pair at 17e12 instructions/s would need 21.8 ms; the
+// einstein sums subtract before they square, which is no matrix product,
+// so the 34 TFLOP/s FP64 peak outside the tensor cores allows 32.7 ms (and
+// the FP64 pipe's issue rate, two instructions a pair-component, 43.7 ms).
+// The operand, 362 MB in float32 or 723 MB in float64, takes at most 0.22
+// ms to read once.
 //
-// The acf mode (lag_sums_kernel): one thread per particle keeps kLagBlock
-// float64 sums and a register window of kLagBlock future frames of each
-// component; per frame it loads one new value per component and does
-// kLagBlock * d multiply-adds, all on registers, so an operand value is
-// read from memory once per lag block rather than once per lag. The frame
-// loop is unrolled by kLagBlock, so the window is a ring whose slots are
-// compile-time indices: no register moves. The mask i < N - lag is needed
-// only on the last frames of a lag block, which a separate masked loop
-// takes. A warp's threads are neighbouring particles, so each load of a
-// frame row is coalesced. Each lag block still streams the whole operand,
-// through the L2 cache.
+// The acf mode (acf_gram_kernel) runs on the FP64 tensor cores. For one
+// series, zero past frame N, and B = kRows frame phases, let
+//   C[p, m] = sum_u sum_c x[B u + p, c] x[B u + m, c],  p < B;
+// then S[lag] = sum_{p < B} C[p, p + lag]: frame t = B u + p runs over
+// every frame once, and the zeros give the bound t + lag < N. C is a
+// product (B x K)(K x cols), K = (u, c), whose two factors are slices of
+// the same frames, so a CTA stages one window of frames and feeds both
+// from it. A CTA takes one particle and a span of at most kAcfSpan lags:
+// columns m in [l0, l0 + kAcfCols), 8 warps of kWarpTiles n8 tiles each,
+// the accumulators (4 doubles a lane a m16n8 tile) in registers for the
+// whole frame loop. The FP64 MMA on Hopper is mma.sync (wgmma has no
+// f64): scripts/dmma_shapes.py times m16n8k4, m16n8k8 and m16n8k16 at 98
+// % of the 67 TFLOP/s peak, even at 2 warps a sub-partition, and m8n8k4
+// at half of it. The kernel takes m16n8k4: its fragments are the fewest
+// registers, so two CTAs fit an SM (128 registers a thread, 94 KB of
+// shared memory for a float operand at d = 3), and one CTA's barriers and
+// conversion pass overlap the other's products; one CTA an SM ran 20-25 %
+// slower. Shared memory would bound it next: read afresh for every MMA,
+// the B fragments of a warp's 8 tiles would move about the bytes a clock
+// that shared memory delivers. Two things lower it. (1) The k-slices of
+// one MMA lie kSteps frame rows
+// u apart, and a chunk of frames is kSteps consecutive steps, so the B
+// fragment of tile m + B at step s is that of tile m at step s + 1 (the
+// Hankel shift): a warp keeps a ring of kRing fragments of each residue in
+// registers and reads one new fragment a residue a step. (2) Frame rows
+// sit in shared memory component-major with kPad doubles of padding every
+// kPadEvery rows, so the 16 lanes of a half-warp read 16 distinct bank
+// pairs. A float operand is converted once, when a chunk lands: cp.async
+// copies it (4 or 8 bytes a value, zero past N) one chunk ahead into a
+// landing buffer, and one pass converts it into the double buffer the
+// fragments read. A span at first lag l0 needs frames t < N - l0 only, so
+// its frame loop stops there; grid y orders the spans, so the long CTAs
+// (low lags) start first. The operand's rows of one particle are 12 bytes
+// (float, d = 3) at a stride of P d values; neighbouring particles' CTAs
+// run together along grid x and share their sectors in L2. After the
+// frame loop the warps store C into shared memory and each lag's diagonal
+// sum of B elements, / ((N - lag) dfac), is written once. Each element of
+// C sums N d / B products, so the sums are shorter than a single running
+// sum of N d terms. cuda_lag.py lists this work split (acf_spans,
+// acf_tile_columns, acf_frame_rows, ...) and the CPU tests check it.
 //
-// The einstein mode (einstein_tile_kernel): that re-read held it to 30-33
-// % of its bound with a double operand, about 0.5 byte of L2 traffic per
-// FP64 instruction, more than L2 delivers to 132 SMs. So a CTA takes a
+// The einstein mode (einstein_tile_kernel): a kernel that streamed the
+// whole operand through L2 once per 16-lag block was held to 30-33 % of
+// its bound with a double operand, about 0.5 byte of L2 traffic per FP64
+// instruction, more than L2 delivers to 132 SMs. So a CTA takes a
 // tile of kTileP = 32 particles (a lane each) x a span of kSpan = 128 lags
-// (a warp each kLagBlock of them, the register ring as above), and the
-// frames stream through shared memory, component-major ([c][frame]
-// [particle], so a warp's 32 reads of a component are 32 consecutive
-// values): a double-buffered tile of base frames x[i] (32 frames for a
-// double operand, 64 for a float one: what 227 KB hold at d = 3), and a
-// ring of partner rows x[i + lag] that every warp of the CTA reads its new
-// window value from. Copies go by cp.async (one 4- or 8-byte copy a value,
-// the transposition for free, zero-filled past P) one tile ahead of the
-// sums, with one barrier a tile. Each operand value now crosses L2 about twice per 128 lags, not
-// twice per 16. Each lag sums a tile of kTileF frames into a partial that
+// (a warp each kLagBlock of them, a lane a register ring of kLagBlock
+// frames), and the frames stream through shared memory, component-major
+// ([c][frame][particle], so a warp's 32 reads of a component are 32
+// consecutive values): a double-buffered tile of base frames x[i] (32
+// frames for a double operand, 64 for a float one: what 227 KB hold at d =
+// 3), and a ring of partner rows x[i + lag] that every warp of the CTA
+// reads its new window value from. Copies go by cp.async (one 4- or 8-byte
+// copy a value, the transposition for free, zero-filled past P) one tile
+// ahead of the sums, with one barrier a tile. Each operand value crosses
+// L2 about twice per 128 lags, not twice per 16. Each lag sums a tile of kTileF frames into a partial that
 // it adds to its running sum (a two-level sum), so the error grows with
 // N / kTileF terms, not N. The sums are the reference's (a - b)^2, never
 // the cancelling a^2 + b^2 - 2ab. Past the last whole tile at which every
@@ -61,11 +92,10 @@
 // memory, each lag masked by i + lag < N. cuda_lag.py lists this work
 // split (einstein_tiles, ring_slot, ...) and the CPU tests check it.
 //
-// Launch geometry: grid x walks tiles of particles (`cols` threads of one
-// particle each in the acf mode, kTileP particles in the einstein mode),
-// grid y the lag blocks or spans, strided by gridDim.y past CUDA's y limit
-// of 65,535. Any N >= 1, n_lags in [1, N] and P >= 1; sizes and offsets
-// are 64-bit.
+// Launch geometry: grid x walks the particles (one a CTA in the acf mode,
+// tiles of kTileP in the einstein mode), grid y the spans of lags, strided
+// by gridDim.y past CUDA's y limit of 65,535. Any N >= 1, n_lags in [1, N]
+// and P >= 1; sizes and offsets are 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,83 +103,6 @@
 namespace {
 
 constexpr int kLagBlock = 16;
-
-// The acf mode. block (x: particle tile, y: lag blocks b, strided): lags
-// [b kLagBlock, (b + 1) kLagBlock) of particle q, one thread each.
-template <typename T, int D>
-__global__ void lag_sums_kernel(const T* __restrict__ x,
-                                double* __restrict__ out, int64_t n,
-                                int64_t p, int64_t n_lags, int64_t nlb,
-                                double dfac) {
-  const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= p) return;
-  const int64_t s = p * D;  // row stride of the operand
-  const T* col = x + q * D;
-  for (int64_t b = blockIdx.y; b < nlb; b += gridDim.y) {
-    const int64_t l0 = b * kLagBlock;
-    double acc[kLagBlock];
-#pragma unroll
-    for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
-    // frames i at which every lag of the block has its partner,
-    // i + l0 + kLagBlock - 1 < n, in whole groups of kLagBlock
-    const int64_t n_full = n - l0 - (kLagBlock - 1);
-    const int64_t i_main = n_full > 0 ? n_full - n_full % kLagBlock : 0;
-    if (i_main > 0) {
-      // ring window: x[j + l0] of component c lives in w[c][j % kLagBlock]
-      double w[D][kLagBlock];
-#pragma unroll
-      for (int j = 0; j < kLagBlock - 1; ++j) {
-#pragma unroll
-        for (int c = 0; c < D; ++c) w[c][j] = (double)col[(l0 + j) * s + c];
-      }
-      const T* xi_ptr = col;
-      const T* xw_ptr = col + (l0 + kLagBlock - 1) * s;
-      for (int64_t i0 = 0; i0 < i_main; i0 += kLagBlock) {
-#pragma unroll
-        for (int k = 0; k < kLagBlock; ++k) {
-          // frame i = i0 + k: the new partner x[i + l0 + kLagBlock - 1]
-          // takes the slot x[i - 1 + l0] held, which no lag needs again
-          double xi[D];
-#pragma unroll
-          for (int c = 0; c < D; ++c) {
-            w[c][(k + kLagBlock - 1) % kLagBlock] = (double)xw_ptr[c];
-            xi[c] = (double)xi_ptr[c];
-          }
-          xi_ptr += s;
-          xw_ptr += s;
-#pragma unroll
-          for (int l = 0; l < kLagBlock; ++l) {
-#pragma unroll
-            for (int c = 0; c < D; ++c)
-              acc[l] = fma(xi[c], w[c][(k + l) % kLagBlock], acc[l]);
-          }
-        }
-      }
-    }
-    // the last frames of the block, each lag bounded by i + lag < n
-    for (int64_t i = i_main; i < n - l0; ++i) {
-      double xi[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c) xi[c] = (double)col[i * s + c];
-#pragma unroll
-      for (int l = 0; l < kLagBlock; ++l) {
-        const int64_t j = i + l0 + l;
-        if (j < n) {
-#pragma unroll
-          for (int c = 0; c < D; ++c)
-            acc[l] = fma(xi[c], (double)col[j * s + c], acc[l]);
-        }
-      }
-    }
-#pragma unroll
-    for (int l = 0; l < kLagBlock; ++l) {
-      const int64_t lag = l0 + l;
-      if (lag < n_lags) {
-        out[lag * p + q] = acc[l] / ((double)(n - lag) * dfac);
-      }
-    }
-  }
-}
 
 // The einstein mode's CTA: kTileP particles x kSpan lags, kWarps warps of
 // kLagBlock lags each; shared-memory tiles of kTileF frames.
@@ -380,10 +333,229 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The acf mode's CTA: one particle x a span of at most kAcfSpan lags, the
+// Gram product C of the header on the FP64 tensor cores (mma.sync
+// m16n8k{kMmaK}, M = kRows frame phases p, N = 8 columns m, K = kMmaK
+// frame rows u of one component).
+constexpr int kRows = 16;                  // B: frame phases p, the MMA's m
+constexpr int kMmaK = 4;                   // the MMA's k
+constexpr int kSteps = 16;                 // k-slice j of step s: row u = s + j kSteps
+constexpr int kChunk = kRows * kMmaK * kSteps;  // frames of a chunk: 1024
+constexpr int kAcfWarps = 8;
+constexpr int kAcfThreads = 32 * kAcfWarps;
+constexpr int kWarpTiles = 8;              // n8 tiles of a warp
+constexpr int kRing = kWarpTiles / 2;      // B fragments of a residue held
+constexpr int kWarpCols = 8 * kWarpTiles;  // columns m of a warp: 64
+constexpr int kAcfCols = kAcfWarps * kWarpCols;   // of a CTA: 512
+constexpr int kAcfSpan = kAcfCols - (kRows - 1);  // lags of a CTA: 497
+// shared memory: frame row r of a component at smem_row(r), kPad doubles of
+// padding every kPadEvery rows, the rows one lane's k-slices lie apart
+constexpr int kPadEvery = kRows * kSteps;
+constexpr int kPad = 4;
+__host__ __device__ constexpr int smem_row(int r) {
+  return r + kPad * (r / kPadEvery);
+}
+constexpr int kARows = kChunk;             // rows x[f0 + r] of a chunk
+constexpr int kBRows = kChunk + kAcfCols;  // partner rows x[f0 + l0 + r]
+constexpr int kAStride = smem_row(kARows);
+constexpr int kBStride = smem_row(kBRows);
+constexpr int kCStride = kAcfCols + 8;     // a row of C in shared memory
+static_assert(kRing * 2 == kWarpTiles && kRows == 16 && kSteps >= kRing,
+              "a warp's tiles are two residues of kRing tiles 16 apart");
+static_assert(kWarpCols == 16 * kRing,
+              "the ring's last fragment reaches the warp's last column");
+
+template <typename T, int D>
+constexpr size_t acf_smem_bytes() {
+  const size_t stage = (size_t)D * (kAStride + kBStride) * (sizeof(T) + 8);
+  const size_t gram = (size_t)kRows * kCStride * 8;
+  return stage > gram ? stage : gram;
+}
+
+// d += a b: one m16n8k4 tile, a[h] = A[g + 8 h][t], b[0] = B[t][g],
+// d[2 h + j] = C[g + 8 h][2 t + j] (lane = 4 g + t); scripts/dmma_shapes.cu
+// checks this layout (and those of k8 and k16, the other kMmaK) on the card
+static_assert(kMmaK == 4, "mma_f64 issues m16n8k4");
+__device__ __forceinline__ void mma_f64(double (&d)[4],
+                                        const double (&a)[kMmaK / 2],
+                                        const double (&b)[kMmaK / 4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+
+// Copy chunk f0 of particle q into the landing buffer, component-major:
+// rows x[f0 + r] (r < kARows) to land[c kAStride + smem_row(r)], partner
+// rows x[f0 + l0 + r] (r < kBRows) to land[D kAStride + c kBStride +
+// smem_row(r)]; zeros past frame N.
+template <typename T, int D>
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ x, T* land,
+                                            int64_t f0, int64_t l0,
+                                            int64_t n, int64_t p, int64_t q) {
+  for (int e = threadIdx.x; e < (kARows + kBRows) * D; e += kAcfThreads) {
+    const int row = e / D, c = e - row * D;
+    const bool partner = row >= kARows;
+    const int r = partner ? row - kARows : row;
+    const int64_t frame = f0 + r + (partner ? l0 : 0);
+    const bool valid = frame < n;
+    const T* src = valid ? x + (frame * p + q) * D + c : x;
+    T* dst = land + (partner ? D * kAStride + c * kBStride : c * kAStride) +
+             smem_row(r);
+    cp_async(dst, src, valid);
+  }
+}
+
+// One chunk's products into a warp's accumulators: for each component and
+// step s, the A fragment (rows 16 (s + j kSteps) + p, k-slice j), one new B
+// fragment of each residue e (tiles m = 64 warp + 8 e + 16 i use ring slot
+// (s + i) mod kRing, the fragment of tile 64 warp + 8 e at step s + i),
+// and the MMAs of the warp's tiles that the span needs. kGroup warps'
+// columns fill the rows between two pads, so for warp = kGroup w' + kSub
+// every shared-memory offset is kLaneK (t + w') + g plus a compile-time
+// constant: no address arithmetic a load.
+constexpr int kLaneK = kPadEvery + kPad;  // shared-memory rows between k-slices
+constexpr int kGroup = kPadEvery / kWarpCols;
+static_assert(kPadEvery % kWarpCols == 0, "warps' columns tile the pads");
+
+template <int D, int kSub>
+__device__ __forceinline__ void gram_chunk_at(const double* buf,
+                                              double (&acc)[2][kRing][4],
+                                              int warp, int g, int t,
+                                              int tiles) {
+  bool on[2][kRing];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < kRing; ++i)
+      on[e][i] = warp * kWarpTiles + e + 2 * i < tiles;
+  const double* lane = buf + kLaneK * t + g;
+#pragma unroll 1
+  for (int c = 0; c < D; ++c) {
+    const double* A = lane + c * kAStride;
+    const double* B =
+        lane + D * kAStride + c * kBStride + kLaneK * (warp / kGroup);
+    double ring[2][kRing][kMmaK / 4];
+    // fragment of tile 64 warp + 8 e at step v: rows 16 (v + j kSteps) +
+    // 64 warp + 8 e + g, k-slice j = t + 4 i
+    auto load_b = [&](int e, int v, double (&f)[kMmaK / 4]) {
+      const int off = smem_row(kWarpCols * kSub + 16 * v + 8 * e);
+#pragma unroll
+      for (int i = 0; i < kMmaK / 4; ++i) f[i] = B[off + 4 * i * kLaneK];
+    };
+#pragma unroll
+    for (int v = 0; v < kRing - 1; ++v) {
+      load_b(0, v, ring[0][v]);
+      load_b(1, v, ring[1][v]);
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      double a[kMmaK / 2];
+#pragma unroll
+      for (int i = 0; i < kMmaK / 4; ++i) {
+        a[2 * i] = A[4 * i * kLaneK + 16 * s];
+        a[2 * i + 1] = A[4 * i * kLaneK + 16 * s + 8];
+      }
+      load_b(0, s + kRing - 1, ring[0][(s + kRing - 1) % kRing]);
+      load_b(1, s + kRing - 1, ring[1][(s + kRing - 1) % kRing]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int i = 0; i < kRing; ++i)
+          if (on[e][i]) mma_f64(acc[e][i], a, ring[e][(s + i) % kRing]);
+    }
+  }
+}
+
+template <int D, int kSub = 0>
+__device__ __forceinline__ void gram_chunk(const double* buf,
+                                           double (&acc)[2][kRing][4],
+                                           int warp, int g, int t,
+                                           int tiles) {
+  if constexpr (kSub + 1 < kGroup) {
+    if (warp % kGroup != kSub) {
+      gram_chunk<D, kSub + 1>(buf, acc, warp, g, t, tiles);
+      return;
+    }
+  }
+  gram_chunk_at<D, kSub>(buf, acc, warp, g, t, tiles);
+}
+
+// block (x: particle q, y: spans b, strided): lags [b span, (b + 1) span)
+// of particle q, span <= kAcfSpan.
+template <typename T, int D>
+__global__ void __launch_bounds__(kAcfThreads, 2)
+    acf_gram_kernel(const T* __restrict__ x, double* __restrict__ out,
+                    int64_t n, int64_t p, int64_t n_lags, int64_t nspans,
+                    int span, double dfac) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStage = D * (kAStride + kBStride);
+  T* land = reinterpret_cast<T*>(smem);              // [kStage] of T
+  double* buf = reinterpret_cast<double*>(smem + (size_t)kStage * sizeof(T));
+  double* gram = reinterpret_cast<double*>(smem);    // [kRows][kCStride]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t q = blockIdx.x;
+  const int tiles = (span + kRows - 1 + 7) / 8;  // n8 tiles the span needs
+  for (int64_t b = blockIdx.y; b < nspans; b += gridDim.y) {
+    const int64_t l0 = b * span;
+    // frames t < N - l0 have a partner for some lag of the span
+    const int64_t chunks = (n - l0 + kChunk - 1) / kChunk;
+    double acc[2][kRing][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < kRing; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[e][i][v] = 0.0;
+    stage_chunk<T, D>(x, land, 0, l0, n, p, q);
+    cp_async_commit();
+    for (int64_t k = 0; k < chunks; ++k) {
+      cp_async_wait_all();
+      // chunk k has landed for every thread, and every warp is done with
+      // chunk k - 1's doubles
+      __syncthreads();
+      for (int i = threadIdx.x; i < kStage; i += kAcfThreads)
+        buf[i] = (double)land[i];
+      __syncthreads();  // the doubles are in; the landing buffer is free
+      if (k + 1 < chunks) {
+        stage_chunk<T, D>(x, land, (k + 1) * kChunk, l0, n, p, q);
+        cp_async_commit();
+      }
+      if (warp * kWarpTiles < tiles)
+        gram_chunk<D>(buf, acc, warp, g, t, tiles);
+    }
+    __syncthreads();  // every warp is done with buf, which C takes over
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int i = 0; i < kRing; ++i) {
+        double* dst = gram + g * kCStride + kWarpCols * warp + 8 * e +
+                      16 * i + 2 * t;
+        *reinterpret_cast<double2*>(dst) =
+            make_double2(acc[e][i][0], acc[e][i][1]);
+        *reinterpret_cast<double2*>(dst + 8 * kCStride) =
+            make_double2(acc[e][i][2], acc[e][i][3]);
+      }
+    __syncthreads();
+    for (int l = threadIdx.x; l < span; l += kAcfThreads) {
+      const int64_t lag = l0 + l;
+      if (lag < n_lags) {
+        double s = 0.0;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) s += gram[r * kCStride + l + r];
+        out[lag * p + q] = s / ((double)(n - lag) * dfac);
+      }
+    }
+    __syncthreads();  // the next span's copies overwrite C
+  }
+}
+
 template <typename T, int D>
 int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
-           bool einstein, double dfac, dim3 grid, unsigned cols,
-           cudaStream_t stream) {
+           bool einstein, double dfac, int64_t lag_block, dim3 grid,
+           unsigned cols, cudaStream_t stream) {
   if (einstein) {
     constexpr size_t smem = tile_smem_bytes<T, D>();
     const cudaError_t err = cudaFuncSetAttribute(
@@ -394,20 +566,26 @@ int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
     einstein_tile_kernel<T, D><<<grid, cols, smem, stream>>>(
         (const T*)x, (double*)out, n, p, n_lags, nspans, dfac);
   } else {
-    const int64_t nlb = (n_lags + kLagBlock - 1) / kLagBlock;
-    lag_sums_kernel<T, D><<<grid, cols, 0, stream>>>(
-        (const T*)x, (double*)out, n, p, n_lags, nlb, dfac);
+    constexpr size_t smem = acf_smem_bytes<T, D>();
+    const cudaError_t err = cudaFuncSetAttribute(
+        acf_gram_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t nspans = (n_lags + lag_block - 1) / lag_block;
+    acf_gram_kernel<T, D><<<grid, cols, smem, stream>>>(
+        (const T*)x, (double*)out, n, p, n_lags, nspans, (int)lag_block,
+        dfac);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
-             int64_t n_lags, bool einstein, double dfac, dim3 grid,
-             unsigned cols, cudaStream_t stream) {
-  if (d == 1) return launch<T, 1>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
-  if (d == 2) return launch<T, 2>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
-  return launch<T, 3>(x, out, n, p, n_lags, einstein, dfac, grid, cols, stream);
+             int64_t n_lags, bool einstein, double dfac, int64_t lag_block,
+             dim3 grid, unsigned cols, cudaStream_t stream) {
+  if (d == 1) return launch<T, 1>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  if (d == 2) return launch<T, 2>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  return launch<T, 3>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
 }
 
 }  // namespace
@@ -417,24 +595,28 @@ extern "C" {
 // x (n, p, d) float32 (f64 == 0) or float64 -> out (n_lags, p) float64, on
 // a (grid_x, grid_y) grid of blocks of `cols` threads; all from
 // cuda_lag.py, whose constants must be this file's. acf: one particle a
-// thread, grid y over the ceil(n_lags / lag_block) lag blocks, lag_block
-// = kLagBlock; einstein: kTileP particles a block of kThreads, grid y over
-// the ceil(n_lags / lag_block) spans, lag_block = kSpan.
+// block of kAcfThreads, grid y over the ceil(n_lags / lag_block) spans,
+// lag_block <= kAcfSpan; einstein: kTileP particles a block of kThreads,
+// grid y over the ceil(n_lags / lag_block) spans, lag_block = kSpan.
 int ta_lag_sums(const void* x, void* out, int64_t n, int64_t p, int64_t d,
                 int64_t n_lags, int64_t f64, int64_t einstein, double dfac,
                 int64_t lag_block, int64_t cols, int64_t grid_x,
                 int64_t grid_y, void* stream) {
-  const bool geometry = einstein ? lag_block == kSpan && cols == kThreads
-                                 : lag_block == kLagBlock;
+  const bool geometry =
+      einstein ? lag_block == kSpan && cols == kThreads
+               : lag_block >= 1 && lag_block <= kAcfSpan &&
+                     cols == kAcfThreads && grid_x == p;
   if (!geometry || d < 1 || d > 3 || n_lags < 1 || n_lags > n)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
   if (f64) {
     return launch_d<double>(x, out, n, p, d, n_lags, einstein != 0, dfac,
-                            grid, (unsigned)cols, (cudaStream_t)stream);
+                            lag_block, grid, (unsigned)cols,
+                            (cudaStream_t)stream);
   }
-  return launch_d<float>(x, out, n, p, d, n_lags, einstein != 0, dfac, grid,
-                         (unsigned)cols, (cudaStream_t)stream);
+  return launch_d<float>(x, out, n, p, d, n_lags, einstein != 0, dfac,
+                         lag_block, grid, (unsigned)cols,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -14,12 +14,16 @@ reference's windowed summation (``_acf_windowed_impl``,
 float32 operand is read at 4 bytes and upcast exactly, a float64 one is
 read as it is, and the sums are float64 either way. It takes the place of
 the TPU's float32 kernel (K8a) and of its double-float pair kernel (K8b),
-whose N ≤ 2^17 cap does not apply here. The acf mode is one thread per
-particle and lag block; the einstein mode streams frame tiles through
-shared memory for a CTA of particles × a span of lags, whose work split
-:func:`einstein_tiles`, :func:`ring_slot`, :func:`ring_loads`,
-:func:`window_rows` and :func:`tail_frames` list, as ``csrc/lag.cu``
-runs it. The TPU routing switches
+whose N ≤ 2^17 cap does not apply here. The acf mode is a Gram product of
+frame tiles on the FP64 tensor cores for a CTA of one particle × a span
+of lags, whose work split :func:`acf_spans`, :func:`acf_tiles`,
+:func:`acf_chunks`, :func:`acf_tile_columns`, :func:`acf_ring_loads`,
+:func:`acf_frame_rows`, :func:`acf_partner_rows`, :func:`acf_column_lag`
+and :func:`acf_smem_row` list; the einstein mode streams frame tiles
+through shared memory for a CTA of particles × a span of lags, whose work
+split :func:`einstein_tiles`, :func:`ring_slot`, :func:`ring_loads`,
+:func:`window_rows` and :func:`tail_frames` list, as ``csrc/lag.cu`` runs
+them. The TPU routing switches
 (``TRANSPORT_ANALYSIS_TPU_NO_PALLAS_LAG``, ``..._PALLAS_LAG_F64``, the
 cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
 kernel, a CPU tensor its plain version.
@@ -27,13 +31,30 @@ kernel, a CPU tensor its plain version.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
 
-LAG_BLOCK = 16           # lags per thread, csrc/lag.cu's kLagBlock
-LAG_COLS = 128           # acf: threads per block, one particle each
+# acf mode, csrc/lag.cu's constants: kRows, kMmaK, kSteps, kChunk,
+# kAcfWarps, kWarpTiles, kRing, kWarpCols, kAcfCols, kAcfSpan, kPadEvery,
+# kPad
+ACF_ROWS = 16            # frame phases p: the MMA's m
+ACF_MMA_K = 4            # the MMA's k (m16n8k4)
+ACF_STEPS = 16           # steps of a chunk; k-slice j of step s is row
+                         # u = s + j·ACF_STEPS
+ACF_CHUNK = ACF_ROWS * ACF_MMA_K * ACF_STEPS     # frames of a chunk
+ACF_WARPS = 8
+ACF_THREADS = 32 * ACF_WARPS
+ACF_WARP_TILES = 8       # n8 tiles of a warp
+ACF_RING = ACF_WARP_TILES // 2   # B fragments of a residue a warp holds
+ACF_WARP_COLS = 8 * ACF_WARP_TILES
+ACF_COLS = ACF_WARPS * ACF_WARP_COLS             # columns m of a CTA
+ACF_SPAN = ACF_COLS - (ACF_ROWS - 1)             # most lags of a CTA
+ACF_PAD_EVERY = ACF_ROWS * ACF_STEPS   # shared-memory rows between pads
+ACF_PAD = 4                            # doubles of padding
 # einstein mode, csrc/lag.cu's constants of the same names
+LAG_BLOCK = 16           # kLagBlock: lags of a warp's register ring
 TILE_P = 32              # kTileP: particles of a CTA, one per lane
 TILE_WARPS = 8           # kWarps: warps of a CTA, LAG_BLOCK lags each
 TILE_THREADS = 32 * TILE_WARPS
@@ -72,6 +93,80 @@ def tile_frames(dtype: torch.dtype) -> int:
 def ring_rows(tile_f: int) -> int:
     """The partner-row slots of the ring (``csrc/lag.cu`` ring_rows)."""
     return 2 * tile_f + SPAN
+
+
+def acf_spans(n_lags: int) -> tuple[int, int]:
+    """(spans, lags of a span) of the acf launch: as few spans of at most
+    ACF_SPAN lags as cover ``n_lags``, the lags spread evenly over them;
+    span b takes lags [b·span, (b+1)·span) (grid y)."""
+    spans = -(-n_lags // ACF_SPAN)
+    return spans, -(-n_lags // spans)
+
+
+def acf_tiles(span: int) -> int:
+    """The n8 column tiles of a CTA that the span's lags need: lag l0 + ℓ
+    sums C[p, ℓ + p] over p < ACF_ROWS, so columns ℓ + p < span + 15."""
+    return -(-(span + ACF_ROWS - 1) // 8)
+
+
+def acf_chunks(n: int, l0: int) -> range:
+    """The first frames f0 of the chunks of a span at first lag ``l0``:
+    frames t < N − l0, the only ones with a partner t + lag < N."""
+    return range(0, n - l0, ACF_CHUNK)
+
+
+def acf_tile_columns(warp: int, tiles: int) -> list[tuple[int, int, int]]:
+    """(residue e, ring offset i, first column m) of each tile of ``warp``
+    that the CTA's ``tiles`` include: m = ACF_WARP_COLS·warp + 8e + 16i,
+    tile index m / 8 < tiles."""
+    out = []
+    for e in range(2):
+        for i in range(ACF_RING):
+            m = ACF_WARP_COLS * warp + 8 * e + 16 * i
+            if m // 8 < tiles:
+                out.append((e, i, m))
+    return out
+
+
+def acf_ring_loads(s: int) -> range:
+    """The steps v whose B fragment a warp reads at step ``s`` into ring
+    slot v mod ACF_RING: the first ACF_RING − 1 before step 0, then one a
+    step; tile (e, i) at step s uses slot (s + i) mod ACF_RING, which holds
+    v = s + i."""
+    if s < 0:
+        return range(0, ACF_RING - 1)
+    return range(s + ACF_RING - 1, s + ACF_RING)
+
+
+def acf_frame_rows(s: int) -> np.ndarray:
+    """(ACF_MMA_K, ACF_ROWS) frame rows, from the chunk's first frame, of
+    the A fragment at step ``s``: k-slice j, phase p → 16(s + j·ACF_STEPS)
+    + p."""
+    j = np.arange(ACF_MMA_K)[:, None]
+    return ACF_ROWS * (s + j * ACF_STEPS) + np.arange(ACF_ROWS)[None, :]
+
+
+def acf_partner_rows(v: int, warp: int, e: int) -> np.ndarray:
+    """(ACF_MMA_K, 8) partner rows, from frame f0 + l0, of the B fragment
+    that ring slot v mod ACF_RING holds for residue ``e``: the fragment of
+    column tile ACF_WARP_COLS·warp + 8e at step v, k-slice j, column n →
+    16(v + j·ACF_STEPS) + ACF_WARP_COLS·warp + 8e + n. Under the Hankel
+    shift it is tile m + 16i's fragment at step v − i."""
+    j = np.arange(ACF_MMA_K)[:, None]
+    return (ACF_ROWS * (v + j * ACF_STEPS) + ACF_WARP_COLS * warp + 8 * e
+            + np.arange(8)[None, :])
+
+
+def acf_column_lag(m, p):
+    """The lag, from the span's first, that C[p, m] adds to: m − p."""
+    return m - p
+
+
+def acf_smem_row(r):
+    """The shared-memory slot of frame row ``r`` of a component: ACF_PAD
+    doubles of padding every ACF_PAD_EVERY rows, so a half-warp's 16 reads
+    of a fragment fall on 16 distinct bank pairs."""
+    return r + ACF_PAD * (r // ACF_PAD_EVERY)
 
 
 def einstein_tiles(n: int, l0: int, tile_f: int) -> int:
@@ -162,10 +257,12 @@ def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
         raise ValueError(f"lag_sums: the kernel takes d <= {MAX_D} "
                          f"components, got {d}")
     if mode == "einstein":
-        lags, cols, tile = SPAN, TILE_THREADS, TILE_P
+        lags, cols = SPAN, TILE_THREADS
+        grid = _build.launch_grid(-(-p // TILE_P), -(-n_lags // SPAN))
     else:
-        lags, cols, tile = LAG_BLOCK, LAG_COLS, LAG_COLS
-    grid = _build.launch_grid(-(-p // tile), -(-n_lags // lags))
+        spans, lags = acf_spans(n_lags)
+        cols = ACF_THREADS
+        grid = _build.launch_grid(p, spans)
     out = torch.empty((n_lags, p), dtype=torch.float64, device=x.device)
     dfac = d if reduce_mode == "mean" else 1
     with torch.cuda.device(x.device):

@@ -17,9 +17,13 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    level of its FFT plan, K2, the K5 epilogue, and K6a/K6b at its
    (frames, atoms)): M = 2^14 and 2^17 over the EC width (5,520 packed
    columns), M = 2^21 over 80 atoms (120 packed columns); the same
-   kernels at the top of the plan's range, M = 2^24 over 8 series; and
-   K8 at each windowed run's shapes (the kernel over every atom, its
-   plain version over every 21st atom's series). Max relative error
+   kernels on narrow, very long series, 4 particles of 2 components at
+   M = 2^24 and at M = 2^25 (past the plan's old cap), with K2's share
+   of its bound and its work split at every shape; K8 at each windowed
+   run's shapes (the kernel over every atom, its plain version over
+   every 21st atom's series) and at d = 5 (8,192 frames x 64 atoms, 512
+   lags, both modes and operand types; one launch per group of at most
+   three components). Max relative error
    <= 1e-12; kernel and library-call milliseconds, warm, median of 5
    timings of back-to-back calls (at least about 5 ms each, so a short
    kernel is timed on the card, not the host's launch), plain
@@ -106,7 +110,12 @@ MODEL_PHASES = [
 # phases with a windowed (fft=False) run -> its max_lag (None: all lags)
 WINDOWED = {"model": None, "deep": 2048}
 MSD_PHASES = ("model",)  # phases that also run EinsteinMSD, both ways
-TOP_SHAPE = ("top", 2 ** 23, 4, 2)  # the plan's top: N, particles, d
+# narrow, very long series: N, particles, d (the old cap of the plan, M =
+# 2^24, and once past it)
+NARROW_SHAPES = [("top", 2 ** 23, 4, 2), ("past", 2 ** 24, 4, 2)]
+# K8 past three components, one launch a group: (key, frames, atoms, d)
+# and its lags
+GROUPED_SHAPE, GROUPED_LAGS = ("d5", 8192, 64, 5), 512
 PLAIN_STRIDE = 21        # K8's plain version runs on every 21st atom
 PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
 # the card's peaks for the bounds (H100 SXM data sheet)
@@ -272,10 +281,11 @@ def max_abs_diff(got, ref):
 
 def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     """Each kernel against its plain version at every model phase's
-    shapes and at the top of the plan's range. The JSON numbers are the
-    deep model's: M = 2^17 over the EC width, the fft_level times summed
-    over the levels of one autocorrelation, K8 summed over the windowed
-    run's VACF and Helfand launches (65,536 frames, 2,048 lags)."""
+    shapes, at the narrow shapes and, for K8, at d = 5. The JSON numbers
+    are the deep model's: M = 2^17 over the EC width, the fft_level times
+    summed over the levels of one autocorrelation, K8 summed over the
+    windowed run's VACF and Helfand launches (65,536 frames, 2,048
+    lags)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
@@ -331,7 +341,7 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
     shapes = [(name, n, n_molecules * len(EC_ATOMS), 3)
               for name, n, n_molecules, _ in MODEL_PHASES]
-    for shape_key, n, p, d in shapes + [TOP_SHAPE]:
+    for shape_key, n, p, d in shapes + NARROW_SHAPES:
         m = 2 * n
         plan = cuda_fft.plan_levels(m)
         w, ph = (p * d + 1) // 2, (p + 1) // 2
@@ -348,14 +358,21 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                     library=lambda: torch.fft.fft(x, dim=1))
             del x
         z = crandn(m, w)
-        compare(shape_key, "unpack_power_inva",
-                lambda: cuda_fft.unpack_power_inva(z, p, d),
-                lambda: cuda_fft.unpack_power_inva_plain(z, p, d),
-                f"K2 unpack_power_inva ({m}, {w}) -> ({plan[-1]}, "
-                f"{m // plan[-1]}, {ph})",
-                (16 * m * (w + ph + 1) / PEAK_BYTES,
-                 (8 * m * w + 6 * m * ph) / PEAK_FP64
-                 + 8 * plan[-1] * m * ph / PEAK_FP64_MMA))
+        k2_work = (16 * m * (w + ph + 1) / PEAK_BYTES,
+                   (8 * m * w + 6 * m * ph) / PEAK_FP64
+                   + 8 * plan[-1] * m * ph / PEAK_FP64_MMA)
+        tl = cuda_fft.UnpackTiles(m, plan[-1], w, p, d)
+        k2_ms = compare(shape_key, "unpack_power_inva",
+                        lambda: cuda_fft.unpack_power_inva(z, p, d),
+                        lambda: cuda_fft.unpack_power_inva_plain(z, p, d),
+                        f"K2 unpack_power_inva ({m}, {w}) -> ({plan[-1]}, "
+                        f"{m // plan[-1]}, {ph})", k2_work)
+        k2_bound = bound(*k2_work)[0]
+        phase("kernels", f"{shape_key} K2: {100 * k2_bound / k2_ms:.1f} % "
+              f"of its {k2_bound:.3f} ms bound; split: {tl.tq} pairs x "
+              f"{tl.nj} k_lows a block, {tl.ktc} k_top rows a pass, "
+              f"{tl.tiles} x {tl.runs} blocks, {tl.smem} bytes of shared "
+              "memory")
         del z
         *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
         for i, (a, nl, c, order, tw) in enumerate(levels):
@@ -422,14 +439,22 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                 work(8 * (3 * n * p + 2 * nb * p), 6 * n * p))
         del sq, corr, tot
         torch.cuda.empty_cache()
-    for shape_key, n, p, d in shapes:
-        if shape_key not in WINDOWED:
+    for shape_key, n, p, d in shapes + [GROUPED_SHAPE]:
+        if shape_key == GROUPED_SHAPE[0]:
+            n_lags = GROUPED_LAGS
+            runs = [(dtype, mode, reduce_mode, f"d = {d}")
+                    for dtype in (torch.float32, torch.float64)
+                    for mode, reduce_mode in (("acf", "sum"),
+                                              ("einstein", "mean"))]
+        elif shape_key in WINDOWED:
+            n_lags = (n if WINDOWED[shape_key] is None
+                      else WINDOWED[shape_key])
+            runs = [(torch.float32, "acf", "sum", "VACF"),
+                    (torch.float64, "einstein", "mean", "Helfand")]
+            if shape_key in MSD_PHASES:
+                runs.append((torch.float32, "einstein", "sum", "MSD"))
+        else:
             continue
-        n_lags = n if WINDOWED[shape_key] is None else WINDOWED[shape_key]
-        runs = [(torch.float32, "acf", "sum", "VACF"),
-                (torch.float64, "einstein", "mean", "Helfand")]
-        if shape_key in MSD_PHASES:
-            runs.append((torch.float32, "einstein", "sum", "MSD"))
         for dtype, mode, reduce_mode, what in runs:
             x = torch.randn((n, p, d), dtype=dtype, device=dev, generator=g)
             sub = x[:, ::PLAIN_STRIDE].contiguous()
@@ -509,6 +534,10 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
           "run's launches (VACF, Helfand and, in model, MSD), its plain "
           f"version on every {PLAIN_STRIDE}st atom only, its library call "
           "on the acf (VACF) launch only")
+    # the roots tables of this phase's transforms (512 MiB at M = 2^25)
+    # would stay cached and count in the model phases' peak memory
+    cuda_fft.roots_tensor.cache_clear()
+    torch.cuda.empty_cache()
     return results["deep"]
 
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time K6a (kneller_totals), K8 (lag_sums) and the FFT path (K1 + K2 + K5
-in one autocorrelation, and K6b) at the EC shapes on one CUDA Hopper
-card, K6a and K8 against their plain versions on a slice and beside
-their bounds; a quick loop for tuning these kernels without the whole of
-chip_smoke.py.
+"""Time K6a (kneller_totals), K8 (lag_sums) and the FFT path (K1, K2 and
+K5 apart and in one autocorrelation, and K6b) at the EC shapes, and the
+FFT path also on narrow, very long series, on one CUDA Hopper card, K2,
+K6a and K8 against their plain versions and beside their bounds; a quick
+loop for tuning these kernels without the whole of chip_smoke.py.
 
-    python3 scripts/kernel_times.py [--only k6a|k8|vacf|fft] [--reps 5]
-                                    [--package DIR]
+    python3 scripts/kernel_times.py [--only k6a|k8|vacf|fft|k2]
+                                    [--reps 5] [--package DIR]
 
+``--only k2`` times K2 alone at each FFT shape under each work split of
+``K2_SPLITS`` (``cuda_fft``'s ``UNPACK_*`` constants, the default first).
 ``--package DIR`` times the package in the checkout DIR instead (for
 example an earlier commit unpacked with ``git archive``), so that two
 versions are compared in one call on one card: parent, change, change,
@@ -129,13 +131,93 @@ def k8(cuda_lag, g, reps, acf_only=False):
         del x, sub, got
 
 
-def fft(cuda_fft, cuda_kneller, g, reps):
-    """The FFT path's kernels at the model and deep EC shapes: one
-    autocorrelation of the (N, 3P) float64 series (K1's levels, K2, K5)
-    and K6b."""
-    for n in (8192, 65536):
-        p, d = EC_ATOMS, 3
+FFT_SHAPES = [  # (label, N, P, d): the EC model and deep widths, and the
+    # narrow, very long series at the plan's old cap and past it
+    ("model", 8192, EC_ATOMS, 3), ("deep", 65536, EC_ATOMS, 3),
+    ("top", 2 ** 23, 4, 2), ("past", 2 ** 24, 4, 2)]
+
+
+K2_SPLITS = [  # (UNPACK_PAIRS, UNPACK_SLAB, UNPACK_STAGE)
+    (32, 1024, 2048), (32, 512, 2048), (32, 512, 1024), (32, 256, 1024),
+    (32, 2048, 4096), (16, 512, 1024), (32, 1024, 1024), (32, 1024, 4096)]
+
+
+def crandn(g, *shape):
+    return torch.randn(shape, dtype=torch.complex128, device="cuda",
+                       generator=g)
+
+
+def k2_bound(m, w, ph, n_top):
+    """K2's least milliseconds, as chip_smoke.py reckons them: the
+    spectrum, the output and the order-M table moved once, or its flop."""
+    return 1e3 * max(16 * m * (w + ph + 1) / PEAK_BYTES,
+                     (8 * m * w + 6 * m * ph) / PEAK_FP64
+                     + 8 * n_top * m * ph / PEAK_FP64_MMA)
+
+
+def k2_splits(cuda_fft, g, reps):
+    """K2 alone at FFT_SHAPES under the default split and each of
+    K2_SPLITS, against its plain version and beside its bound."""
+    default = (cuda_fft.UNPACK_PAIRS, cuda_fft.UNPACK_SLAB,
+               cuda_fft.UNPACK_STAGE)
+    for label, n, p, d in FFT_SHAPES:
         m = 2 * n
+        n_top = cuda_fft.plan_levels(m)[-1]
+        w, ph = (p * d + 1) // 2, (p + 1) // 2
+        z = crandn(g, m, w)
+        ref = cuda_fft.unpack_power_inva_plain(z, p, d)
+        bound = k2_bound(m, w, ph, n_top)
+        for split in [default] + K2_SPLITS:
+            (cuda_fft.UNPACK_PAIRS, cuda_fft.UNPACK_SLAB,
+             cuda_fft.UNPACK_STAGE) = split
+            tl = cuda_fft.UnpackTiles(m, n_top, w, p, d)
+            k2 = time_ms(lambda: cuda_fft.unpack_power_inva(z, p, d), reps)
+            err = rel(cuda_fft.unpack_power_inva(z, p, d), ref)
+            tag = " (default)" if split == default else ""
+            print(f"K2 {label} M = {m}, split {split}{tag}: {tl.tq} pairs "
+                  f"x {tl.nj} k_lows, {tl.ktc} k_top rows a pass, "
+                  f"{tl.smem} B: {k2:.3f} ms, {100 * bound / k2:.1f} % of "
+                  f"{bound:.3f} ms, err {err:.2e}", flush=True)
+        (cuda_fft.UNPACK_PAIRS, cuda_fft.UNPACK_SLAB,
+         cuda_fft.UNPACK_STAGE) = default
+        del z, ref
+        torch.cuda.empty_cache()
+
+
+def fft(cuda_fft, cuda_kneller, g, reps):
+    """The FFT path's kernels at FFT_SHAPES: K2 alone (beside its bound,
+    as chip_smoke.py reckons it, and against its plain version), K1
+    summed over the levels of one autocorrelation, K5, the whole
+    autocorrelation of the (N, P·d) float64 series (K1 + K2 + K5) and
+    K6b. A package whose plan does not reach a shape says so."""
+    for label, n, p, d in FFT_SHAPES:
+        m = 2 * n
+        try:
+            plan = cuda_fft.plan_levels(m)
+        except ValueError as err:
+            print(f"FFT {label} ({n}, {p}, {d}): {err}", flush=True)
+            continue
+        w, ph = (p * d + 1) // 2, (p + 1) // 2
+        z = crandn(g, m, w)
+        k2 = time_ms(lambda: cuda_fft.unpack_power_inva(z, p, d), reps)
+        err = rel(cuda_fft.unpack_power_inva(z, p, d),
+                  cuda_fft.unpack_power_inva_plain(z, p, d))
+        del z
+        bound = k2_bound(m, w, ph, plan[-1])
+        k1 = 0.0
+        levels = [(shape, -1) for shape in cuda_fft.level_shapes(plan, w)]
+        *inverse, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+        levels += [(shape, +1) for shape in inverse]
+        for (a, nl, c, order, tw), sign in levels:
+            x = crandn(g, a, nl, c)
+            k1 += time_ms(lambda: cuda_fft.fft_level(x, order, sign,
+                                                     twiddle_cols=tw), reps)
+            del x
+        a, nl, c, _, _ = last
+        t = crandn(g, a, nl, c)
+        k5 = time_ms(lambda: cuda_fft.inverse_last_level(t, n, p, True),
+                     reps)
+        del t
         x = torch.randn((n, p * d), dtype=torch.float64, device="cuda",
                         generator=g)
         k = time_ms(lambda: cuda_fft.autocorr_power_sum(x, m, p, d), reps)
@@ -145,11 +227,15 @@ def fft(cuda_fft, cuda_kneller, g, reps):
         corr = torch.randn((n, p), dtype=torch.float64, device="cuda",
                            generator=g)
         tot = cuda_kneller.kneller_totals(sq)
-        w = time_ms(lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
-                    reps)
-        print(f"FFT ({n}, {p}, {d}): K1 + K2 + K5 autocorrelation {k:.3f} "
-              f"ms, K6b {w:.3f} ms", flush=True)
+        k6b = time_ms(lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
+                      reps)
+        print(f"FFT {label} ({n}, {p}, {d}), M = {m}: K2 {k2:.3f} ms, "
+              f"{100 * bound / k2:.1f} % of its {bound:.3f} ms bound, err "
+              f"{err:.2e}; K1 {k1:.3f} ms over {len(levels)} levels, K5 "
+              f"{k5:.3f} ms; K1 + K2 + K5 autocorrelation {k:.3f} ms; K6b "
+              f"{k6b:.3f} ms", flush=True)
         del sq, corr, tot
+        torch.cuda.empty_cache()
 
 
 def smi(query: str) -> str:
@@ -160,8 +246,9 @@ def smi(query: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["k6a", "k8", "vacf", "fft"],
-                    help="time one group: vacf is K8's acf launches alone")
+    ap.add_argument("--only", choices=["k6a", "k8", "vacf", "fft", "k2"],
+                    help="time one group: vacf is K8's acf launches alone, "
+                    "k2 K2 under each split of K2_SPLITS")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package", default=ROOT,
                     help="checkout whose transport_analysis_tpu_torch to "
@@ -181,6 +268,8 @@ def main() -> int:
         k8(cuda_lag, g, args.reps, acf_only=args.only == "vacf")
     if args.only in (None, "fft"):
         fft(cuda_fft, cuda_kneller, g, args.reps)
+    if args.only == "k2":
+        k2_splits(cuda_fft, g, args.reps)
     return 0
 
 

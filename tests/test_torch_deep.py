@@ -1,6 +1,6 @@
 """The port's multi-level FFT plan (transport_analysis_tpu_torch/ops/
-cuda_fft.py) over the deep range, M > 65,536 up to 2^24, against numpy and
-the JAX package's deep composition (ops/deep_acf.py).
+cuda_fft.py) over the deep range, M > 65,536, against numpy and the JAX
+package's deep composition (ops/deep_acf.py), and K2's work split.
 
 On the CPU every level, the unpack and the epilogue run their plain
 PyTorch versions through the orchestration the card runs, so these tests
@@ -56,7 +56,7 @@ def small_levels(monkeypatch):
 # (a) the plan
 # ---------------------------------------------------------------------
 
-def plan_launches(m, w, P):
+def plan_launches(m, w, P, d):
     """(tile count, rows) of every launch the autocorrelation of an
     (N, P·d) operand packed into w columns makes at M: the forward levels,
     K2, the inverse levels and the epilogue, as autocorr_power_sum lays
@@ -65,22 +65,25 @@ def plan_launches(m, w, P):
     ph = (P + 1) // 2
     launches = [(-(-c // cuda_fft.tile_cols(n)), a)
                 for a, n, c, _, _ in cuda_fft.level_shapes(plan, w)]
-    launches.append((-(-ph // cuda_fft.tile_cols(plan[-1])), m // plan[-1]))
+    k2 = cuda_fft.UnpackTiles(m, plan[-1], w, P, d)
+    launches.append((k2.tiles, k2.runs))
     launches += [(-(-c // cuda_fft.tile_cols(n)), a)
                  for a, n, c, _, _ in cuda_fft.level_shapes(
                      plan[:-1], ph, a0=plan[-1])]
     return plan, launches
 
 
-@pytest.mark.parametrize("bits", range(1, 25))
+@pytest.mark.parametrize("bits", range(1, 29))
 def test_plan_levels_cover_the_range(monkeypatch, bits):
-    """Every power of two 2 … 2^24: the levels multiply to M, each is a
-    power of two within the kernels' maximum, and every launch of the
-    EC width (w = 5,520, P = 3,680) and of a narrow width fits the grid
-    (y folded at its limit, x within its own)."""
+    """Every power of two 2 … 2^28, past the old cap of 2^24: the levels
+    multiply to M, each is a power of two within the kernels' maximum,
+    and every launch of the EC width (w = 5,520, P = 3,680) and of a
+    narrow width fits the grid (y folded at its limit, x within its own;
+    at the EC width the first level's column tiles reach grid x's limit
+    past 2^28, where the spectrum would take 24 TB)."""
     m = 1 << bits
-    for w, P in ((5520, 3680), (4, 8)):
-        plan, launches = plan_launches(m, w, P)
+    for w, P, d in ((5520, 3680, 3), (4, 8, 1)):
+        plan, launches = plan_launches(m, w, P, d)
         assert np.prod(plan) == m and len(plan) >= 2
         assert all(1 <= n <= cuda_fft.MAX_LEVEL and not n & (n - 1)
                    for n in plan)
@@ -94,6 +97,11 @@ def test_plan_levels_cover_the_range(monkeypatch, bits):
 
 
 def test_plan_levels_rejects_outside_the_range():
+    """The range ends at 2^53, where the roots' float64 angles stop being
+    exact: M = 2^53 has a plan, 2^54 raises naming the limit."""
+    assert cuda_fft.MAX_M == 2 ** 53
+    plan = cuda_fft.plan_levels(cuda_fft.MAX_M)
+    assert np.prod(plan, dtype=object) == 2 ** 53 and max(plan) <= 16
     with pytest.raises(ValueError, match=str(cuda_fft.MAX_M)):
         cuda_fft.plan_levels(2 * cuda_fft.MAX_M)
     for bad in (0, 1, 3 * 2 ** 20):
@@ -103,8 +111,10 @@ def test_plan_levels_rejects_outside_the_range():
 
 def test_deep_operand_past_the_range_raises():
     """A series whose M is past the plan's range raises ValueError before
-    anything is allocated for the transform."""
-    x = torch.zeros((cuda_fft.MAX_M // 2 + 1, 1), dtype=torch.float64)
+    anything is allocated for the transform (the operand is a meta
+    tensor: it has a shape and no storage)."""
+    x = torch.zeros((cuda_fft.MAX_M // 2 + 1, 1), dtype=torch.float64,
+                    device="meta")
     with pytest.raises(ValueError, match="range"):
         acf.raw_autocorr_sumlast_flat(x, 1, 1)
 
@@ -241,6 +251,183 @@ def test_unpack_rejects_a_bad_top_level():
     z = torch.zeros((64, 2), dtype=torch.complex128)
     with pytest.raises(ValueError):
         cuda_fft.unpack_power_inva(z, 4, 1, n_top=3)
+
+
+def particle_series(tl, q):
+    """The series of pair q's two particles: q's d, then q + ph's (none
+    when q + ph = P)."""
+    first = [q * tl.d + c for c in range(tl.d)]
+    if q + tl.ph < tl.P:
+        return first, [(q + tl.ph) * tl.d + c for c in range(tl.d)]
+    return first, []
+
+
+def replay_unpack_split(m, n_top, P, d):
+    """K2's work split (cuda_fft.UnpackTiles) as csrc/fft.cu runs it:
+    every spectrum element is read by one block (at odd P the ``shift``
+    columns a tile shares with its neighbour, and the wrap, by at most
+    one more), every output (dd, k_low, q) is written once, the mirror
+    row of each loaded row is one the block loads, k_low = 0 and R/2 are
+    their own mirrors, and each particle's series are staged where the
+    component sums read them. A block reads the rows of its k_lows and
+    their mirrors (all k_top) at the columns of its tile, and writes the
+    outputs of the same k_lows at the pairs of its tile, so the counts
+    factor into columns by tile and k_low rows by run."""
+    w = (P * d + 1) // 2
+    tl = cuda_fft.UnpackTiles(m, n_top, w, P, d)
+    r = m // n_top
+    assert (tl.r, tl.ph, tl.pairs) == (r, (P + 1) // 2, r // 2 + 1)
+    assert tl.shift == (0 if P % 2 == 0 else d // 2)
+    assert 1 <= tl.tq <= cuda_fft.UNPACK_PAIRS
+    assert tl.nj & (tl.nj - 1) == 0 and tl.ktc & (tl.ktc - 1) == 0
+    assert n_top % tl.ktc == 0
+    assert tl.smem <= cuda_fft.SMEM_LIMIT
+    gx, gy = _build.launch_grid(tl.tiles, tl.runs)
+    assert gx == tl.tiles and 1 <= gy <= _build.MAX_GRID_Y
+    # columns by tile, and the pairs each tile writes
+    col_reads = np.zeros(w, dtype=np.int64)
+    q_writes = np.zeros(tl.ph, dtype=np.int64)
+    for t in range(tl.tiles):
+        c_lo, span, wrap = tl.columns(t)
+        assert span >= 1 and wrap in (0, tl.shift)
+        assert span + wrap <= tl.cols and c_lo + span <= w
+        col_reads[c_lo:c_lo + span] += 1
+        col_reads[:wrap] += 1
+        pairs = tl.pairs_of(t)
+        q_writes[pairs.start:pairs.stop] += 1
+        for q in pairs:
+            for half_of, series in zip((0, 1), particle_series(tl, q)):
+                for s in series:
+                    slot, half = tl.slot(t, s)
+                    col = slot + c_lo if slot < span else slot - span
+                    assert 0 <= slot < span + wrap
+                    assert (col, half) == ((s, 0) if s < w else (s - w, 1))
+    np.testing.assert_array_equal(q_writes, 1)
+    if tl.shift == 0:
+        np.testing.assert_array_equal(col_reads, 1)
+    else:
+        assert col_reads.min() == 1 and col_reads.max() <= 2
+        assert (col_reads == 2).sum() <= tl.tiles * tl.shift
+    # k_low rows by run: the runs' k_lows partition [0, R/2], and with
+    # their mirrors they cover every k_low once, for reads and writes
+    assert (tl.runs - 1) * tl.nj < tl.pairs <= tl.runs * tl.nj
+    assert all(tl.klows(b) == range(b * tl.nj, min((b + 1) * tl.nj,
+                                                     tl.pairs))
+               for b in (0, tl.runs - 1))
+    kl = np.arange(tl.pairs)
+    mirror = cuda_fft.mirror_klow(kl, r)
+    own = mirror == kl
+    np.testing.assert_array_equal(own, (kl == 0) | (2 * kl == r))
+    rows = np.bincount(np.concatenate([kl, mirror[~own]]), minlength=r)
+    np.testing.assert_array_equal(rows, 1)
+    for kt in range(n_top):
+        k = kt * r + kl
+        mk = (m - k) & (m - 1)
+        np.testing.assert_array_equal(mk % r, mirror)
+        np.testing.assert_array_equal(
+            mk // r, np.where(kl == 0, (n_top - kt) % n_top, n_top - 1 - kt))
+    return tl
+
+
+UNPACK_SHAPES = [  # (name, M, n_top, P, d): the chip's shapes
+    ("model", 2 ** 14, 8, 3680, 3), ("deep", 2 ** 17, 8, 3680, 3),
+    ("depth", 2 ** 21, 8, 80, 3), ("top", 2 ** 24, 16, 4, 2),
+    ("past the old range", 2 ** 25, 8, 4, 2)]
+
+
+@pytest.mark.parametrize("name,m,n_top,P,d", UNPACK_SHAPES)
+def test_unpack_split_at_the_chip_shapes(name, m, n_top, P, d):
+    """Wide: column tiles of at most 32 pairs, spread evenly, and a few
+    k_lows a block; narrow: every column and many k_lows a block, so
+    every lane has work."""
+    assert n_top == cuda_fft.plan_levels(m)[-1]
+    tl = replay_unpack_split(m, n_top, P, d)
+    if tl.ph > cuda_fft.UNPACK_PAIRS:
+        assert tl.tiles == -(-tl.ph // cuda_fft.UNPACK_PAIRS) > 1
+    else:
+        assert tl.tiles == 1 and tl.nj * tl.cols >= 128
+
+
+@pytest.mark.parametrize("d", range(1, 8))
+@pytest.mark.parametrize("m,n_top,P", [(4096, 2, 1), (4096, 4, 3),
+                                       (4096, 8, 7), (4096, 16, 65),
+                                       (2 ** 12, 16, 131), (2 ** 13, 8, 130),
+                                       (64, 16, 9), (16, 16, 5)])
+def test_unpack_split_reads_each_row_once(m, n_top, P, d):
+    """Odd and even P (odd P shifts the partners' imaginary halves by
+    ph·d − w columns and wraps the last particle's upper components to
+    the first columns), d = 1 … 7, n_top 2 … 16, and R = 1."""
+    replay_unpack_split(m, n_top, P, d)
+
+
+def unpack_replay(z, P, d, n_top):
+    """K2's arithmetic replayed in numpy block by block from
+    cuda_fft.UnpackTiles, as csrc/fft.cu runs it: each row pair's two
+    halves' powers staged once, the component sums read from the staging
+    slots, A1 and A2 over k_top from the real p1, p2, the low output
+    tw·(A1 + i·A2) and the mirror's conj(tw)·(conj A1 + i·conj A2), tw
+    the product of a fine and a coarse entry of the order-M table."""
+    m, w = z.shape
+    tl = cuda_fft.UnpackTiles(m, n_top, w, P, d)
+    r, ph = tl.r, tl.ph
+    roots = cuda_fft.unit_roots(m)
+    fine = (1 << tl.fine_bits) - 1
+    kt = np.arange(n_top)
+    dd = np.arange(n_top)
+    w_n = np.conj(roots[(np.outer(kt, dd) % n_top) * (m // n_top)])
+    out = np.zeros((n_top, r, ph), dtype=complex)
+    written = np.zeros(out.shape, dtype=np.int64)
+    for t in range(tl.tiles):
+        c_lo, span, wrap = tl.columns(t)
+        cols = np.r_[c_lo:c_lo + span, 0:wrap]
+        qs = np.array(tl.pairs_of(t))
+        for b in range(tl.runs):
+            kls = np.array(tl.klows(b))
+            k = kt[:, None] * r + kls[None, :]
+            a = z[k][:, :, cols]
+            bm = z[(m - k) & (m - 1)][:, :, cols]
+            staged = ((a.real + bm.real) ** 2 + (a.imag - bm.imag) ** 2,
+                      (a.real - bm.real) ** 2 + (a.imag + bm.imag) ** 2)
+            p = np.zeros((2, n_top, len(kls), len(qs)))
+            for i, q in enumerate(qs):
+                for h, series in enumerate(particle_series(tl, q)):
+                    for s in series:
+                        slot, half = tl.slot(t, s)
+                        p[h, :, :, i] += staged[half][:, :, slot]
+            p *= 0.25 / m
+            a1 = np.einsum("kjq,kd->djq", p[0], w_n)
+            a2 = np.einsum("kjq,kd->djq", p[1], w_n)
+            e = (dd[:, None] * kls[None, :]) & (m - 1)
+            tw = np.conj(roots[e & fine] * roots[e & ~fine])[:, :, None]
+            out[np.ix_(dd, kls, qs)] = tw * (a1 + 1j * a2)
+            written[np.ix_(dd, kls, qs)] += 1
+            high = cuda_fft.mirror_klow(kls, r) != kls
+            kh = r - kls[high]
+            out[np.ix_(dd, kh, qs)] = (np.conj(tw[:, high])
+                                       * (np.conj(a1[:, high])
+                                          + 1j * np.conj(a2[:, high])))
+            written[np.ix_(dd, kh, qs)] += 1
+    np.testing.assert_array_equal(written, 1)
+    return out
+
+
+@pytest.mark.parametrize("m,n_top,P,d,pairs,stage", [
+    (256, 8, 6, 3, 32, 2048), (256, 8, 7, 3, 2, 64), (512, 16, 9, 5, 2, 40),
+    (256, 4, 13, 7, 4, 128), (128, 16, 4, 2, 32, 2048), (64, 64, 3, 1, 1, 8),
+    (64, 2, 5, 4, 2, 16), (32, 32, 2, 1, 32, 2048)])
+def test_unpack_replay_matches_the_plain_version(monkeypatch, m, n_top, P,
+                                                  d, pairs, stage):
+    """The kernel's arithmetic, on splits of several column tiles, k_low
+    runs and staging passes (small UNPACK_PAIRS and UNPACK_STAGE), odd P
+    with its wrap, R = 1 and 2: within 1e-12 of the plain version."""
+    monkeypatch.setattr(cuda_fft, "UNPACK_PAIRS", pairs)
+    monkeypatch.setattr(cuda_fft, "UNPACK_STAGE", stage)
+    w = (P * d + 1) // 2
+    z = crandn(np.random.RandomState(m + P + d), m, w)
+    got = unpack_replay(z, P, d, n_top)
+    ref = cuda_fft.unpack_power_inva_plain(torch.from_numpy(z), P, d,
+                                           n_top).numpy()
+    assert rel(got, ref) <= TOL
 
 
 # ---------------------------------------------------------------------

@@ -42,12 +42,13 @@ def crandn(rng, device, *shape):
 
 
 @pytest.mark.parametrize("m,b", [(2, 3), (16, 5), (4096, 7), (2 ** 16, 3),
-                                 (2 ** 17, 3), (2 ** 21, 2), (2 ** 24, 2)])
+                                 (2 ** 17, 3), (2 ** 21, 2), (2 ** 24, 2),
+                                 (2 ** 25, 2)])
 def test_fft_kernels_vs_plain(cuda_device, m, b):
     """K1 (every forward level of the plan, and the inverse levels), K2
-    and the K5 epilogue against their plain versions over the plan's M
-    range; at M = 2^24 the last levels have A > 65,535 rows and K2 more
-    than 65,535 k_low rows, so the grid fold runs."""
+    and the K5 epilogue against their plain versions from M = 2 to 2^25,
+    past the old cap of 2^24; there the last levels have A > 65,535 rows
+    and K2 more than 65,535 runs of k_low, so the grid fold runs."""
     rng = np.random.RandomState(m % 1000)
     z = crandn(rng, cuda_device, m, b)
     got = cuda_fft.fft_forward(z)
@@ -190,10 +191,74 @@ def test_model_on_card_vs_cpu(cuda_device):
     assert rel(ts_gpu, torch.from_numpy(cpu.results.timeseries)) <= TOL
 
 
-def test_past_the_plan_range_raises(cuda_device):
-    """M = 2^25 is past the plan's range: ValueError naming the limit,
-    before the transform allocates anything."""
-    x = torch.zeros((2 ** 23 + 1, 1), dtype=torch.float64,
-                    device=cuda_device)
-    with pytest.raises(ValueError, match=str(cuda_fft.MAX_M)):
-        acf.raw_autocorr_sumlast_flat(x, 1, 1)
+def test_vacf_past_the_old_plan_range(cuda_device):
+    """VelocityAutocorr(fft=True) at 2^23 + 1 frames (M = 2^25, once past
+    the plan's range) against the card's own rfft/irfft autocorrelation
+    of the same velocities, within 1e-11 on lags < N/2."""
+    n, n_atoms = 2 ** 23 + 1, 2
+    rng = np.random.RandomState(25)
+    vel = rng.normal(0, 10, (n, n_atoms, 3)).astype(np.float32)
+    u = convert.universe_from_arrays(n_atoms, {"masses": np.ones(n_atoms)},
+                                     np.zeros_like(vel), velocities=vel)
+    got = VelocityAutocorr(u.atoms, device=cuda_device).run()
+    assert got.results.vacf_by_particle.shape == (n, n_atoms)
+    v = torch.from_numpy(vel).to(cuda_device, torch.float64)
+    m = 2 ** 25
+    f = torch.fft.rfft(v, n=m, dim=0)
+    ref = torch.fft.irfft(f.abs().square().sum(-1), n=m, dim=0)[:n]
+    ref = ref / (n - torch.arange(n, device=cuda_device,
+                                  dtype=torch.float64))[:, None]
+    head = slice(0, n // 2)
+    by_particle = torch.from_numpy(got.results.vacf_by_particle)
+    assert rel(by_particle[head], ref[head]) <= 1e-11
+    assert rel(torch.from_numpy(got.results.timeseries)[head],
+               ref[head].mean(1)) <= 1e-11
+
+
+@pytest.mark.parametrize("m,n_top,P,d", [
+    (2 ** 12, 16, 1, 1), (2 ** 12, 16, 2, 7), (2 ** 14, 8, 3, 1),
+    (2 ** 14, 8, 4, 7), (2 ** 14, 8, 5, 7), (2 ** 13, 16, 6, 1),
+    (2 ** 13, 16, 131, 7), (2 ** 14, 8, 3680, 3), (64, 64, 3, 2),
+    (2 ** 12, 2, 9, 3)])
+@pytest.mark.parametrize("pairs,stage", [(32, 2048), (2, 48)])
+def test_unpack_kernel_vs_plain(cuda_device, monkeypatch, m, n_top, P, d,
+                                pairs, stage):
+    """K2 at ph = 1, 2 and 3 and wide, odd P (its partners' shifted
+    imaginary halves and the wrap), d = 1 and 7, R = 1, on the default
+    split and on one of small column tiles, runs and staging passes."""
+    monkeypatch.setattr(cuda_fft, "UNPACK_PAIRS", pairs)
+    monkeypatch.setattr(cuda_fft, "UNPACK_STAGE", stage)
+    w = (P * d + 1) // 2
+    z = crandn(np.random.RandomState(m + P * d), cuda_device, m, w)
+    before = cuda_fft.unpack_power_inva.launches
+    got = cuda_fft.unpack_power_inva(z, P, d, n_top)
+    assert cuda_fft.unpack_power_inva.launches == before + 1
+    ref = cuda_fft.unpack_power_inva_plain(z, P, d, n_top)
+    assert got.shape == (n_top, m // n_top, (P + 1) // 2)
+    assert rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("n,p,d", [(1100, 5, 4), (300, 33, 6), (45, 3, 7),
+                                   (2100, 7, 7), (37, 2, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lag_kernel_past_three_components(cuda_device, n, p, d, dtype):
+    """K8 at d = 4, 6 and 7: one launch per group of at most three
+    components, both modes, against the plain version over all d."""
+    rng = np.random.RandomState(n + p + d)
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
+        cuda_device, dtype)
+    groups = len(cuda_lag.component_groups(d))
+    for n_lags in sorted({1, 17, cuda_lag.ACF_SPAN + 1, n}
+                         & set(range(1, n + 1))):
+        for mode, reduce_mode in (("acf", "sum"), ("acf", "mean"),
+                                  ("einstein", "mean"),
+                                  ("einstein", "sum")):
+            before = cuda_lag.lag_sums.launches
+            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+            assert cuda_lag.lag_sums.launches == before + groups
+            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode)
+            assert got.shape == (n_lags, p) and got.dtype == torch.float64
+            if mode == "einstein":
+                assert torch.all(got[0] == 0.0)
+            if n_lags > 1 or mode == "acf":
+                assert rel(got, ref) <= TOL, (n_lags, mode, reduce_mode)

@@ -169,6 +169,7 @@ def test_cpu_tensor_runs_on_cpu_without_device(call, monkeypatch):
     lambda t: cuda_fft.unpack_power_inva(t.reshape(8, 1), 1, 1),
     lambda t: cuda_kneller.kneller_totals(t.real.reshape(4, 2)),
     lambda t: cuda_lag.lag_sums(t.real.reshape(4, 2, 1), 2),
+    lambda t: cuda_lag.lag_sums(t.real.reshape(2, 1, 4), 2),
 ])
 def test_kernel_wrappers_never_fall_back(call):
     """A tensor that is not on the CPU goes to the kernel path, which

@@ -128,6 +128,39 @@ def test_lag_sums_rejects_bad_operands(call, err):
         call()
 
 
+@pytest.mark.parametrize("d,groups", [(1, [(0, 1)]), (3, [(0, 3)]),
+                                      (4, [(0, 2), (2, 4)]),
+                                      (5, [(0, 2), (2, 5)]),
+                                      (6, [(0, 3), (3, 6)]),
+                                      (7, [(0, 2), (2, 4), (4, 7)])])
+def test_component_groups(d, groups):
+    """K8 takes at most three components a launch: one group up to
+    three, past it as few groups as cover d, evenly."""
+    assert cuda_lag.component_groups(d) == groups
+    assert all(c1 - c0 <= cuda_lag.MAX_D for c0, c1 in groups)
+
+
+@pytest.mark.parametrize("d", [4, 5, 6, 7])
+@pytest.mark.parametrize("mode,reduce_mode", [("acf", "sum"),
+                                              ("acf", "mean"),
+                                              ("einstein", "mean"),
+                                              ("einstein", "sum")])
+def test_grouped_components_match_one_sum(d, mode, reduce_mode):
+    """The card's route past three components, replayed with the plain
+    version: each group's 'sum' sums added, then divided once by dfac,
+    equal the sums over all d components within 1e-15 of the maximum;
+    einstein's lag 0 stays exactly 0."""
+    x = torch.from_numpy(np.random.RandomState(d).normal(0.3, 1.5,
+                                                         (70, 3, d)))
+    got = cuda_lag.sum_component_groups(cuda_lag.lag_sums_plain, x, 50,
+                                        mode, reduce_mode)
+    ref = cuda_lag.lag_sums_plain(x, 50, mode, reduce_mode)
+    assert got.shape == ref.shape == (50, 3)
+    assert rel(got.numpy(), ref.numpy()) <= 1e-15
+    if mode == "einstein":
+        assert torch.all(got[0] == 0.0)
+
+
 def test_lag_kernel_takes_cuda_tensors_only():
     """A tensor off the CPU goes to the kernel path, which raises for
     anything but a CUDA tensor and counts no launch."""
@@ -336,7 +369,9 @@ def test_acf_fragment_reads_avoid_bank_conflicts():
 @pytest.mark.parametrize("shape,max_lag", [((200, 7, 3), None),
                                            ((200, 7, 3), 31),
                                            ((97, 4), None),
-                                           ((150, 5, 2), 150)])
+                                           ((150, 5, 2), 150),
+                                           ((120, 4, 5), None),
+                                           ((90, 3, 7), 40)])
 def test_acf_windowed_vs_jax(shape, max_lag):
     x = np.random.RandomState(len(shape) + shape[0]).normal(0.0, 3.0, shape)
     ref = np.asarray(jops.acf_windowed(x, max_lag=max_lag))
@@ -349,7 +384,9 @@ def test_acf_windowed_vs_jax(shape, max_lag):
 @pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
 @pytest.mark.parametrize("shape,max_lag", [((200, 7, 3), None),
                                            ((200, 7, 3), 31),
-                                           ((97, 4), None)])
+                                           ((97, 4), None),
+                                           ((120, 4, 5), 60),
+                                           ((90, 3, 7), None)])
 def test_einstein_windowed_vs_jax(shape, max_lag, reduce_mode):
     """A large offset on every series: the windowed path differences the
     raw series, with no centering, as the reference does."""

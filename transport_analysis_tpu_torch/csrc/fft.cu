@@ -18,9 +18,10 @@
 //     (K7a, K7b): the Hermitian unpack of the two-for-one packed spectrum,
 //     the power spectra summed over the d components of each particle, and
 //     inverse level A over the top frequency digit, in one kernel. The
-//     mirror Z[(M - k) mod M] is an index (K7a's permutation matmuls), and
-//     both Z[k] and Z[M - k] are read for every k (K7b's synthesis of the
-//     upper half by symmetry).
+//     mirror Z[(M - k) mod M] is an index (K7a's permutation matmuls): a
+//     block loads each row and its mirror once and forms the outputs of
+//     both from the one load (K7b's synthesis of the upper half by
+//     symmetry).
 // K5  ta_inverse_last_level
 //     Replaces ops/deep_acf.py::_epilogue_transpose_pallas: the last inverse
 //     level, writing the (N, P) float64 result itself (the real parts of the
@@ -45,6 +46,22 @@
 // Next: more than one row of A per block when C is narrow (a 64-column tile
 // of a 4-column level is mostly idle), then register blocking or a radix
 // form for longer levels.
+//
+// K2 is bounded by device memory: it reads the spectrum once and writes a
+// third of its bytes (at the EC width). A first design, one block per
+// k_low row, read every row twice (the row and, for its mirror, again from
+// the block of R - k_low) with strided component reads and 64-column tiles
+// that narrow widths left idle: 10.2 ms at M = 2^17 over the EC width
+// (44 % of its 4.608 ms bound), 18.3 ms at M = 2^24 over 4 columns (3 %).
+// What the design does about it: a block takes a run of k_low values in
+// [0, R/2] with their mirrors R - k_low, loads each row pair once with
+// consecutive lanes on consecutive columns (and, at narrow widths, on
+// consecutive rows), sums components from shared memory, forms both
+// outputs of a pair from one DFT over k_top of the real power halves, and
+// forms its twiddles from ~sqrt(M)-entry parts of the table. Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W (scripts/kernel_times.py --only k2):
+// 5.4 ms at M = 2^17 over the EC width (85 % of its bound), 0.66 ms at
+// M = 2^24 and 1.22 ms at M = 2^25 over 4 columns (84 %, 92 %).
 //
 // Launch geometry: grid x walks column tiles, grid y the A axis (the
 // frequency rows for K2); when A exceeds CUDA's y limit of 65,535 a block
@@ -110,21 +127,21 @@ __device__ __forceinline__ double2 dft_point(const double2* slab,
   return make_double2(re, im);
 }
 
-// dst[k * k_stride + c] for k < n_out and c = c0 + cl < C: the DFT over j of
-// slab[j * tc + cl], times the twiddle W_m^(sign * k * f) with
-// f = c / tw_cols when tw_cols > 0, else f = tw_fixed (no twiddle if < 0).
+// dst[k * k_stride + c] for k < n and c = c0 + cl < C: the DFT over j of
+// slab[j * tc + cl], times the twiddle W_m^(sign * k * (c / tw_cols)) when
+// tw_cols > 0.
 __device__ void dft_columns(const double2* slab, const double2* rts, int n,
-                            int tc, int n_out, int64_t c0, int64_t C,
-                            double2* dst, int64_t k_stride,
+                            int tc, int64_t c0, int64_t C, double2* dst,
+                            int64_t k_stride,
                             const double2* __restrict__ roots, int64_t m,
-                            int sign, int64_t tw_cols, int64_t tw_fixed) {
-  for (int idx = threadIdx.x; idx < n_out * tc; idx += blockDim.x) {
+                            int sign, int64_t tw_cols) {
+  for (int idx = threadIdx.x; idx < n * tc; idx += blockDim.x) {
     const int k = idx / tc;
     const int cl = idx - k * tc;
     const int64_t c = c0 + cl;
     if (c >= C) continue;
     double2 v = dft_point(slab, rts, n, tc, k, cl);
-    const int64_t f = tw_cols > 0 ? c / tw_cols : tw_fixed;
+    const int64_t f = tw_cols > 0 ? c / tw_cols : 0;
     if (f > 0 && k > 0) {
       double2 t = roots[(k * f) & (m - 1)];
       if (sign > 0) t.y = -t.y;
@@ -149,71 +166,155 @@ __global__ void fft_level_kernel(const double2* __restrict__ in,
     __syncthreads();  // the slab's last readers are done
     load_slab(slab, in + a * n * C, n, tc, c0, C);
     __syncthreads();
-    dft_columns(slab, rts, n, tc, n, c0, C, out + a * C, A * C, roots, m, sign,
-                tw_cols, -1);
+    dft_columns(slab, rts, n, tc, c0, C, out + a * C, A * C, roots, m, sign,
+                tw_cols);
   }
 }
 
-// 4 |F_s[k]|^2 of real series s in the two-for-one packing: series s < w is
-// the real part of column s, series s >= w the imaginary part of column
-// s - w; F1 = (Z[k] + conj Z[M-k]) / 2 and F2 = (Z[k] - conj Z[M-k]) / 2i.
-__device__ __forceinline__ double series_power4(const double2* __restrict__ z,
-                                                int64_t row, int64_t mrow,
-                                                int64_t s, int64_t w) {
-  double re, im;
-  if (s < w) {
-    const double2 a = z[row + s];
-    const double2 b = z[mrow + s];
-    re = a.x + b.x;
-    im = a.y - b.y;
-  } else {
-    const double2 a = z[row + s - w];
-    const double2 b = z[mrow + s - w];
-    re = a.x - b.x;
-    im = a.y + b.y;
-  }
-  return re * re + im * im;
+// log2 of the lanes of a warp that share one row of n items: a power of
+// two, at most 32 and at least min(n, 32); the warp takes 32 / lanes rows
+// at a time.
+__device__ __forceinline__ int row_lanes_log2(int n) {
+  int l = 0;
+  while ((1 << l) < n && l < 5) ++l;
+  return l;
 }
 
-// K2: block (x: tile of output columns q, y: k_low, strided). z (m, w) in
-// natural frequency order k = k_top * R + k_low -> out (n_top, R, ph) =
-// (dd, k_low, q): inverse level A over k_top, with the twiddle
-// W_m^(k_low * dd), of
+// The staged power of series s: the real (x) or imaginary (y) half of its
+// column, s < w the real part of column s, else the imaginary part of
+// column s - w; columns left of the tile's first are the wrap slots.
+__device__ __forceinline__ double staged_power(const double2* row, int64_t s,
+                                               int64_t w, int64_t c_lo,
+                                               int span) {
+  const bool re = s < w;
+  const int64_t col = re ? s : s - w;
+  const double2 v = row[col >= c_lo ? (int)(col - c_lo) : span + (int)col];
+  return re ? v.x : v.y;
+}
+
+// K2: block (x: column tile of tq particle pairs, y: run of nj k_low values
+// [kl0, kl0 + nj) within [0, R/2], strided). z (m, w) in natural frequency
+// order k = k_top * R + k_low -> out (n_top, R, ph) = (dd, k_low, q):
+// inverse level A over k_top, with the twiddle W_m^(k_low * dd), of
 // P[k, q] = (sum_c |F_{q d + c}|^2 + i sum_c |F_{(q + ph) d + c}|^2) / m.
-__global__ void unpack_power_inva_kernel(const double2* __restrict__ z,
-                                         double2* __restrict__ out,
-                                         const double2* __restrict__ roots,
-                                         int64_t m, int n_top, int64_t R,
-                                         int64_t w, int64_t P, int d,
-                                         int64_t ph, int tc) {
+// Row k and its mirror (m - k) mod m = (n_top - 1 - k_top) R + (R - k_low)
+// give 4 |F_s|^2 = (a.x + b.x)^2 + (a.y - b.y)^2 for a real-part series and
+// (a.x - b.x)^2 + (a.y + b.y)^2 for an imaginary-part one (a = Z[k], b =
+// Z[m - k]), the same for both rows, so a block loads the rows of its k_low
+// values and of their mirrors R - k_low once and forms the outputs of both.
+// Per run: (1) each staging pass of ktc k_top rows loads the element pairs
+// of its rows' column span (coalesced: consecutive lanes, consecutive
+// columns, and at narrow widths consecutive k_low rows) and stores the two
+// halves' powers; (2) each (k_top, k_low, q) sums its particles' d
+// components from there into the slab; (3) each (dd, k_low, q) forms
+// A1 = sum_kt p1[kt] W_n^(kt dd) and A2 likewise from the real p1, p2, and
+// writes tw (A1 + i A2) at k_low and conj(tw) (conj A1 + i conj A2) at
+// R - k_low: the mirror's power runs over k_top reversed, and W_m^((R - kl)
+// dd) = W_n^dd conj(W_m^(kl dd)). tw = W_m^(kl dd) is formed once per
+// (k_low, dd) as the product of a fine and a coarse entry of the order-m
+// table (fine_bits low bits, the rest): both sets of entries are ~sqrt(m).
+// cuda_fft.UnpackTiles lists this split; the CPU tests replay it.
+__global__ void unpack_power_inva_kernel(
+    const double2* __restrict__ z, double2* __restrict__ out,
+    const double2* __restrict__ roots, int64_t m, int n_top, int64_t R,
+    int64_t w, int64_t P, int d, int64_t ph, int shift, int tq, int nj,
+    int ktc, int cols_alloc, int fine_bits) {
   extern __shared__ double2 smem[];
-  double2* rts = smem;
-  double2* slab = smem + n_top;
-  const int64_t q0 = (int64_t)blockIdx.x * tc;
-  load_roots(rts, roots, m, n_top, +1);
+  double2* rts = smem;                                // n_top
+  double2* tws = rts + n_top;                         // (j, dd)
+  double2* slab = tws + nj * n_top;                   // (kt, j, ql): p1, p2
+  double2* stage = slab + n_top * nj * tq;            // (kt, j, col)
+  const int lnj = __ffs(nj) - 1, lntop = __ffs(n_top) - 1;
+  const int64_t q0 = (int64_t)blockIdx.x * tq;
+  const int tq_eff = (int)(ph - q0 < tq ? ph - q0 : tq);
+  const int64_t c_lo = q0 * d;
+  const int64_t c_hi = (q0 + tq_eff) * d + shift;
+  const int span = (int)((c_hi < w ? c_hi : w) - c_lo);
+  const int wrap = (q0 + tq_eff == ph && c_lo > 0) ? shift : 0;
+  const int cols = span + wrap;
+  const int64_t pairs = R / 2 + 1;
+  const int64_t fine = ((int64_t)1 << fine_bits) - 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int llc = row_lanes_log2(cols), llq = row_lanes_log2(tq);
   // the halves' 1/4 and the inverse transform's 1/m: a power of two, exact
   const double scale = 0.25 / (double)m;
-  for (int64_t kl = blockIdx.y; kl < R; kl += gridDim.y) {
-    __syncthreads();  // the slab's last readers are done
-    for (int idx = threadIdx.x; idx < n_top * tc; idx += blockDim.x) {
-      const int kt = idx / tc;
-      const int64_t q = q0 + (idx - kt * tc);
-      double p1 = 0.0, p2 = 0.0;
-      if (q < ph) {
-        const int64_t k = kt * R + kl;
-        const int64_t row = k * w;
-        const int64_t mrow = ((m - k) & (m - 1)) * w;  // the mirror (M - k) mod M
-        for (int c = 0; c < d; ++c) p1 += series_power4(z, row, mrow, q * d + c, w);
-        if (q + ph < P) {
-          for (int c = 0; c < d; ++c)
-            p2 += series_power4(z, row, mrow, (q + ph) * d + c, w);
+  load_roots(rts, roots, m, n_top, +1);
+  for (int64_t kl0 = (int64_t)blockIdx.y * nj; kl0 < pairs;
+       kl0 += (int64_t)gridDim.y * nj) {
+    const int nj_eff = (int)(pairs - kl0 < nj ? pairs - kl0 : nj);
+    __syncthreads();  // the last run's readers of tws and slab are done
+    for (int i = threadIdx.x; i < (nj << lntop); i += blockDim.x) {
+      const int j = i >> lntop, dd = i & (n_top - 1);
+      if (j >= nj_eff) continue;
+      const int64_t e = ((kl0 + j) * dd) & (m - 1);
+      double2 t = cmul(roots[e & fine], roots[e & ~fine]);
+      t.y = -t.y;  // W_m^(+e)
+      tws[i] = t;
+    }
+    for (int kt0 = 0; kt0 < n_top; kt0 += ktc) {
+      __syncthreads();  // the last pass's readers of the stage are done
+      for (int row = (warp << (5 - llc)) + (lane >> llc); row < (ktc << lnj);
+           row += warps << (5 - llc)) {
+        const int j = row & (nj - 1);
+        if (j >= nj_eff) continue;
+        const int64_t k = (int64_t)(kt0 + (row >> lnj)) * R + kl0 + j;
+        const double2* za = z + k * w;
+        const double2* zb = z + ((m - k) & (m - 1)) * w;
+        double2* dst = stage + row * cols_alloc;
+        for (int col = lane & ((1 << llc) - 1); col < cols; col += 1 << llc) {
+          const int64_t c = col < span ? c_lo + col : col - span;
+          const double2 a = za[c], b = zb[c];
+          const double sr = a.x + b.x, di = a.y - b.y;
+          const double dr = a.x - b.x, si = a.y + b.y;
+          dst[col] = make_double2(sr * sr + di * di, dr * dr + si * si);
         }
       }
-      slab[idx] = make_double2(p1 * scale, p2 * scale);
+      __syncthreads();
+      for (int row = (warp << (5 - llq)) + (lane >> llq); row < (ktc << lnj);
+           row += warps << (5 - llq)) {
+        const int j = row & (nj - 1), ql = lane & ((1 << llq) - 1);
+        if (j >= nj_eff || ql >= tq_eff) continue;
+        const double2* src = stage + row * cols_alloc;
+        const int64_t q = q0 + ql;
+        double p1 = 0.0, p2 = 0.0;
+        for (int c = 0; c < d; ++c)
+          p1 += staged_power(src, q * d + c, w, c_lo, span);
+        if (q + ph < P) {
+          for (int c = 0; c < d; ++c)
+            p2 += staged_power(src, (q + ph) * d + c, w, c_lo, span);
+        }
+        slab[(((kt0 << lnj) + row) * tq) + ql] =
+            make_double2(p1 * scale, p2 * scale);
+      }
     }
     __syncthreads();
-    dft_columns(slab, rts, n_top, tc, n_top, q0, ph, out + kl * ph, R * ph,
-                roots, m, +1, 0, kl);
+    for (int row = (warp << (5 - llq)) + (lane >> llq); row < (n_top << lnj);
+         row += warps << (5 - llq)) {
+      const int j = row & (nj - 1), dd = row >> lnj;
+      const int ql = lane & ((1 << llq) - 1);
+      if (j >= nj_eff || ql >= tq_eff) continue;
+      const double2* src = slab + j * tq + ql;
+      double a1r = 0.0, a1i = 0.0, a2r = 0.0, a2i = 0.0;
+      int e = 0;
+      for (int kt = 0; kt < n_top; ++kt) {
+        const double2 p = src[(kt << lnj) * tq];
+        const double2 r = rts[e];
+        a1r = fma(p.x, r.x, a1r);
+        a1i = fma(p.x, r.y, a1i);
+        a2r = fma(p.y, r.x, a2r);
+        a2i = fma(p.y, r.y, a2i);
+        e = (e + dd) & (n_top - 1);
+      }
+      const double2 tw = tws[(j << lntop) + dd];
+      const int64_t kl = kl0 + j, q = q0 + ql;
+      out[(dd * R + kl) * ph + q] =
+          cmul(tw, make_double2(a1r - a2i, a1i + a2r));
+      if (kl != 0 && 2 * kl != R) {
+        out[(dd * R + R - kl) * ph + q] =
+            cmul(make_double2(tw.x, -tw.y), make_double2(a1r + a2i, a2r - a1i));
+      }
+    }
   }
 }
 
@@ -288,18 +389,28 @@ int ta_fft_level(const void* in, void* out, const void* roots, int64_t A,
 }
 
 // z (m, w) complex128, natural order -> out (n_top, R, ph) complex128;
-// roots: the order-m table.
+// roots: the order-m table; the work split (shift, tq, nj, ktc, cols,
+// fine_bits and the grid) from cuda_fft.UnpackTiles.
 int ta_unpack_power_inva(const void* z, void* out, const void* roots,
                          int64_t m, int64_t n_top, int64_t R, int64_t w,
-                         int64_t P, int64_t d, int64_t ph, int64_t tc,
-                         int64_t grid_x, int64_t grid_y, void* stream) {
-  const size_t smem = smem_bytes(n_top, tc);
+                         int64_t P, int64_t d, int64_t ph, int64_t shift,
+                         int64_t tq, int64_t nj, int64_t ktc, int64_t cols,
+                         int64_t fine_bits, int64_t grid_x, int64_t grid_y,
+                         void* stream) {
+  const bool pow2 = !(n_top & (n_top - 1)) && !(nj & (nj - 1)) &&
+                    !(ktc & (ktc - 1));
+  if (!pow2 || n_top < 1 || nj < 1 || ktc < 1 || ktc > n_top || tq < 1 ||
+      tq > 32 || shift < 0 || cols < tq * d + 2 * shift)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(n_top * (1 + nj * (1 + tq)) + ktc * nj * cols) * sizeof(double2);
   cudaError_t err = allow_smem((const void*)unpack_power_inva_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   unpack_power_inva_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), kThreads, smem,
                              (cudaStream_t)stream>>>(
       (const double2*)z, (double2*)out, (const double2*)roots, m, (int)n_top,
-      R, w, P, (int)d, ph, (int)tc);
+      R, w, P, (int)d, ph, (int)shift, (int)tq, (int)nj, (int)ktc, (int)cols,
+      (int)fine_bits);
   return (int)cudaGetLastError();
 }
 

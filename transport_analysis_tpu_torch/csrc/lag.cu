@@ -3,8 +3,9 @@
 // called through ctypes from transport_analysis_tpu_torch/ops/cuda_lag.py.
 //
 // K8  ta_lag_sums
-//     For the series of an (N, P, d) row-major operand x, d <= 3, and each
-//     lag < n_lags:
+//     For the series of an (N, P, d) row-major operand x, d <= 3 (past
+//     that cuda_lag.lag_sums launches it once per group of at most three
+//     components and adds the sums), and each lag < n_lags:
 //       acf:      out[lag, p] = sum_{i < N-lag} sum_c x[i,p,c] x[i+lag,p,c]
 //                               / ((N - lag) dfac)
 //       einstein: out[lag, p] = sum_{i < N-lag} sum_c (x[i,p,c] - x[i+lag,p,c])^2

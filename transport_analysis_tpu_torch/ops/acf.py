@@ -9,10 +9,11 @@ power spectra so the inverse transform carries one column per particle
 (the JAX CPU path's ``_raw_autocorr_native_sumlast``). The transform is
 the multi-level four-step plan of ``cuda_fft``: hand-written kernels on a
 CUDA tensor, their plain PyTorch versions on a CPU tensor. One plan
-serves every M up to 2^24 (N ≤ 8,388,608 frames), so the JAX dispatch's
-two routes, the Pallas engine for M ≤ 65,536 (``acf.py:307-349``,
-``:533-577``) and the deep composition past it (``deep_acf.py``), are one
-route here. The exact windowed :func:`acf_windowed` (``fft=False``) runs
+serves every M up to 2^53 (``cuda_fft.plan_levels``; device memory ends
+a run long before), so the JAX dispatch's routes, the Pallas engine for
+M ≤ 65,536 (``acf.py:307-349``, ``:533-577``), the deep composition up to
+2^24 (``deep_acf.py``) and native ``jnp.fft`` past it, are one route
+here. The exact windowed :func:`acf_windowed` (``fft=False``) runs
 the lag-sum kernel of ``cuda_lag``.
 """
 

@@ -25,7 +25,8 @@ Autocorrelation (:func:`autocorr_power_sum`): the forward transform of
 the two-for-one packed series (series s < w of the flat (N, S) operand is
 the real part of complex column s and series w + s the imaginary part,
 w = ceil(S/2)); K2 (:func:`unpack_power_inva`), the Hermitian unpack
-reading Z[k] and Z[(M − k) mod M], the power spectra summed over each
+from Z[k] and Z[(M − k) mod M], each row read once with its mirror
+(:class:`UnpackTiles`), the power spectra summed over each
 particle's d components with particles q and q + ph (ph = ceil(P/2))
 packed into column q, and inverse level A over the top frequency digit
 (k = k_top·R + k_low, lag = c·n_top + dd),
@@ -57,7 +58,7 @@ from .. import _build
 # at PLAN_LEVEL, and K2's explicit ``n_top`` and scripts/fft_plan_sweep.py
 # reach the rest.
 MAX_LEVEL = 512
-MAX_M = 2 ** 24          # the plan's range, as the JAX deep composition's
+MAX_M = 2 ** 53          # the plan's range: see plan_levels
 PLAN_LEVEL = 16          # the longest level a plan takes (measured fastest)
 
 
@@ -67,7 +68,20 @@ def plan_levels(m: int) -> tuple[int, ...]:
     first, each ≤ ``PLAN_LEVEL``, whose product is M. A level costs n
     complex multiply-adds per point and one pass over the tensor, and on
     the card the pass dominates above n ≈ 16 (``scripts/fft_plan_sweep.py``).
-    M past ``MAX_M`` raises."""
+
+    M past ``MAX_M`` = 2^53 raises. That is where the arithmetic ends:
+    :func:`unit_roots` forms each root's angle 2π·t/M from t and M in
+    float64, exact for integers up to 2^53. Every index and offset in
+    ``csrc/fft.cu`` is 64-bit (the largest, an element offset below M·w,
+    and the twiddle exponents k·f and k_low·dd, below M, all fit), the
+    loop counters that are 32-bit run over one block's shared-memory
+    tile, and every grid strides over its rows past CUDA's y limit, so
+    no kernel limit comes first. Device memory does, long before: at
+    M = 2^25 the order-M roots table takes 512 MiB and each packed
+    spectrum 16·M·w bytes (512 MiB a packed column, two of them at the
+    forward levels); torch's out-of-memory error reports a shape that
+    does not fit, and the grid's x limit a width that does not
+    (:func:`_build.launch_grid`)."""
     if m < 2 or m & (m - 1):
         raise ValueError(f"M must be a power of two >= 2, got {m}")
     if m > MAX_M:
@@ -117,8 +131,8 @@ def unit_roots(m: int) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def roots_tensor(m: int, device: torch.device) -> torch.Tensor:
     """:func:`unit_roots` as a complex128 tensor, cached per (M, device).
-    The order-M table of M = 2^24 is 256 MiB; a plan's other levels use
-    the much smaller tables of their sub-orders."""
+    The order-M table is 16·M bytes (512 MiB at M = 2^25); a plan's other
+    levels use the much smaller tables of their sub-orders."""
     return torch.as_tensor(unit_roots(m), dtype=torch.complex128,
                            device=device)
 
@@ -247,6 +261,89 @@ def unpack_power_inva_plain(z: torch.Tensor, P: int, d: int,
     return out.reshape(n_top, m // n_top, ph)
 
 
+# K2's work split (csrc/fft.cu unpack_power_inva_kernel). A block takes a
+# column tile of particle pairs [q0, q0 + tq) and a run of nj k_low values
+# [kl0, kl0 + nj) ⊂ [0, R/2] together with their mirrors R − k_low: the
+# rows k_top·R + k_low and their mirrors (M − k) mod M = (n_top − 1 −
+# k_top)·R + (R − k_low) hold the same power spectrum, so one load of the
+# two rows gives both, and the block reads each row it needs once.
+# The constants gave the fastest splits of those scripts/kernel_times.py
+# --only k2 times, at the EC and the narrow shapes alike.
+UNPACK_PAIRS = 32       # most particle pairs of a column tile
+UNPACK_SLAB = 1024      # most power values (k_top, k_low, q) a block holds
+UNPACK_STAGE = 1536     # most (row, column) element pairs staged a pass
+SMEM_LIMIT = 232_448    # Hopper's dynamic shared memory a block
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+class UnpackTiles:
+    """K2's work split for an (M, w) spectrum of P particles of d components
+    and a top level of ``n_top``: ``tq`` particle pairs a column tile,
+    ``nj`` k_low values a block (a power of two), ``ktc`` k_top rows a
+    staging pass (a power of two dividing n_top), ``cols`` columns of the
+    staging rows (the tile's span plus the wrap), and the grid (x: column
+    tiles, y: runs of k_low, strided past the y limit). ``shift`` = ph·d
+    − w: 0 for even P; for odd P the imaginary halves of the partner
+    particles q + ph lie that many columns right of particle q's, and the
+    last particle's upper components are the imaginary halves of columns
+    [0, shift) (the wrap)."""
+
+    def __init__(self, m: int, n_top: int, w: int, P: int, d: int):
+        self.m, self.n_top, self.w, self.P, self.d = m, n_top, w, P, d
+        self.r = m // n_top
+        self.ph = (P + 1) // 2
+        self.shift = self.ph * d - w
+        self.pairs = self.r // 2 + 1            # k_low in [0, R/2]
+        tq = min(self.ph, UNPACK_PAIRS, max(1, UNPACK_SLAB // n_top),
+                 max(1, (UNPACK_STAGE - 2 * self.shift) // d))
+        self.tiles = -(-self.ph // tq)
+        self.tq = -(-self.ph // self.tiles)     # the pairs spread evenly
+        self.cols = self.tq * d + 2 * self.shift
+        nj = min(UNPACK_SLAB // (n_top * self.tq), UNPACK_STAGE // self.cols)
+        self.nj = min(_pow2_floor(nj), 1 << (self.pairs - 1).bit_length())
+        self.ktc = min(_pow2_floor(UNPACK_STAGE // (self.nj * self.cols)),
+                       n_top)
+        self.runs = -(-self.pairs // self.nj)
+        self.fine_bits = ((m.bit_length() - 1) + 1) // 2
+        self.smem = 16 * (n_top * (1 + self.nj * (1 + self.tq))
+                          + self.ktc * self.nj * self.cols)
+
+    def columns(self, t: int) -> tuple[int, int, int]:
+        """(first column, span, wrap) of column tile t's staging rows:
+        columns [c_lo, c_lo + span), then the wrap columns [0, wrap)."""
+        q0 = t * self.tq
+        q1 = min(q0 + self.tq, self.ph)
+        c_lo = q0 * self.d
+        span = min(self.w, q1 * self.d + self.shift) - c_lo
+        wrap = self.shift if q1 == self.ph and c_lo > 0 else 0
+        return c_lo, span, wrap
+
+    def pairs_of(self, t: int) -> range:
+        """The particle pairs q of column tile t."""
+        return range(t * self.tq, min((t + 1) * self.tq, self.ph))
+
+    def klows(self, b: int) -> range:
+        """The k_low values of run b whose rows the block loads with
+        their mirrors."""
+        return range(b * self.nj, min((b + 1) * self.nj, self.pairs))
+
+    def slot(self, t: int, s: int) -> tuple[int, int]:
+        """(staging column, half: 0 real, 1 imaginary) of series s in
+        column tile t."""
+        col, half = (s, 0) if s < self.w else (s - self.w, 1)
+        c_lo, span, _ = self.columns(t)
+        return (col - c_lo if col >= c_lo else span + col), half
+
+
+def mirror_klow(kl: int, r: int) -> int:
+    """The k_low of the mirrors (M − k) mod M of the rows k_top·R + kl:
+    R − kl, and kl itself for kl = 0 and kl = R/2."""
+    return (r - kl) % r
+
+
 def unpack_power_inva(z: torch.Tensor, P: int, d: int,
                       n_top: int | None = None) -> torch.Tensor:
     """From the forward spectrum ``z`` (M, w) of the two-for-one packed
@@ -257,7 +354,8 @@ def unpack_power_inva(z: torch.Tensor, P: int, d: int,
     with F1 = (Z[k] + conj Z[M-k])/2 and F2 = (Z[k] - conj Z[M-k])/2i the
     spectra of a column's real and imaginary series, and run inverse
     level A over the top digit of k = k_top·R + k_low (length ``n_top``,
-    R = M/n_top): out (n_top, R, ph) = (dd, k_low, q)."""
+    R = M/n_top): out (n_top, R, ph) = (dd, k_low, q). The kernel's work
+    split is :class:`UnpackTiles`."""
     n_top = _unpack_args(z, P, d, n_top)
     if z.device.type == "cpu":
         return unpack_power_inva_plain(z, P, d, n_top)
@@ -266,17 +364,19 @@ def unpack_power_inva(z: torch.Tensor, P: int, d: int,
     if n_top > MAX_LEVEL:
         raise ValueError(f"unpack_power_inva: the kernel takes a top level "
                          f"of length <= {MAX_LEVEL}, got {n_top}")
-    r = m // n_top
-    ph = (P + 1) // 2
-    tc = tile_cols(n_top)
-    grid = _build.launch_grid(-(-ph // tc), r)
-    out = torch.empty((n_top, r, ph), dtype=torch.complex128,
+    tl = UnpackTiles(m, n_top, w, P, d)
+    if tl.smem > SMEM_LIMIT:
+        raise ValueError(f"unpack_power_inva: d = {d} needs {tl.smem} bytes "
+                         f"of shared memory a block, past {SMEM_LIMIT}")
+    grid = _build.launch_grid(tl.tiles, tl.runs)
+    out = torch.empty((n_top, tl.r, tl.ph), dtype=torch.complex128,
                       device=z.device)
     roots = roots_tensor(m, z.device)
     with torch.cuda.device(z.device):
         err = _build.library().ta_unpack_power_inva(
-            z.data_ptr(), out.data_ptr(), roots.data_ptr(), m, n_top, r, w, P,
-            d, ph, tc, *grid, _build.stream(z))
+            z.data_ptr(), out.data_ptr(), roots.data_ptr(), m, n_top, tl.r,
+            w, P, d, tl.ph, tl.shift, tl.tq, tl.nj, tl.ktc, tl.cols,
+            tl.fine_bits, *grid, _build.stream(z))
     _build.check(err, "unpack_power_inva")
     unpack_power_inva.launches += 1
     return out

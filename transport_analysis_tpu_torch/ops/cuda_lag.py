@@ -14,7 +14,10 @@ reference's windowed summation (``_acf_windowed_impl``,
 float32 operand is read at 4 bytes and upcast exactly, a float64 one is
 read as it is, and the sums are float64 either way. It takes the place of
 the TPU's float32 kernel (K8a) and of its double-float pair kernel (K8b),
-whose N ≤ 2^17 cap does not apply here. The acf mode is a Gram product of
+whose N ≤ 2^17 cap does not apply here. A launch takes d ≤ 3 components;
+past that :func:`lag_sums` launches it once per group of
+:func:`component_groups` and adds the groups' sums, so d is unbounded
+as in the reference. The acf mode is a Gram product of
 frame tiles on the FP64 tensor cores for a CTA of one particle × a span
 of lags, whose work split :func:`acf_spans`, :func:`acf_tiles`,
 :func:`acf_chunks`, :func:`acf_tile_columns`, :func:`acf_ring_loads`,
@@ -59,7 +62,7 @@ TILE_P = 32              # kTileP: particles of a CTA, one per lane
 TILE_WARPS = 8           # kWarps: warps of a CTA, LAG_BLOCK lags each
 TILE_THREADS = 32 * TILE_WARPS
 SPAN = TILE_WARPS * LAG_BLOCK    # kSpan: lags of a CTA
-MAX_D = 3                # components the kernel takes
+MAX_D = 3                # components one launch takes (lag_sums groups more)
 # lags the plain version takes at once: at most this many frame-lag-series
 # values per block, so CPU tests and the card's checks stay small
 PLAIN_BLOCK_VALUES = 1 << 22
@@ -242,20 +245,51 @@ def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
     return out
 
 
+def component_groups(d: int) -> list[tuple[int, int]]:
+    """The component ranges [c0, c1) of K8's launches on an operand of d
+    components: one range for d ≤ ``MAX_D``, else as few ranges of at
+    most ``MAX_D`` components as cover d, their sizes differing by at
+    most one."""
+    groups = -(-d // MAX_D)
+    bounds = [g * d // groups for g in range(groups + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def sum_component_groups(fn, x: torch.Tensor, n_lags: int, mode: str,
+                         reduce_mode: str) -> torch.Tensor:
+    """The windowed lag sums of an operand of any d from ``fn`` (K8 or
+    its plain version) over :func:`component_groups`: each group's
+    ``'sum'`` result, added in order, divided once by dfac. Both modes
+    sum over the components, so the grouping changes only the order of
+    the additions; einstein's lag 0 stays exactly 0."""
+    total = None
+    for c0, c1 in component_groups(x.shape[2]):
+        part = fn(x[:, :, c0:c1].contiguous(), n_lags, mode, "sum")
+        total = part if total is None else total.add_(part)
+    return total / x.shape[2] if reduce_mode == "mean" else total
+
+
 def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
              reduce_mode: str = "sum") -> torch.Tensor:
     """K8: the windowed lag sums of the module docstring for lags
-    < ``n_lags`` of an (N, P, d) float32 or float64 tensor (d ≤ 3 on the
-    card) → (n_lags, P) float64 on its device. A CUDA tensor launches the
-    kernel or raises; a CPU tensor runs :func:`lag_sums_plain`."""
+    < ``n_lags`` of an (N, P, d) float32 or float64 tensor → (n_lags, P)
+    float64 on its device. A CUDA tensor launches the kernel or raises:
+    once for d ≤ ``MAX_D``, past it once per :func:`component_groups`
+    range (:func:`sum_component_groups`). A CPU tensor runs
+    :func:`lag_sums_plain`."""
     _check(x, n_lags, mode, reduce_mode)
     if x.device.type == "cpu":
         return lag_sums_plain(x, n_lags, mode, reduce_mode)
     _build.kernel_operand(x, "lag_sums")
+    if x.shape[2] > MAX_D:
+        return sum_component_groups(_launch, x, n_lags, mode, reduce_mode)
+    return _launch(x, n_lags, mode, reduce_mode)
+
+
+def _launch(x: torch.Tensor, n_lags: int, mode: str,
+            reduce_mode: str) -> torch.Tensor:
+    """One K8 launch on a contiguous CUDA operand of d ≤ ``MAX_D``."""
     n, p, d = x.shape
-    if d > MAX_D:
-        raise ValueError(f"lag_sums: the kernel takes d <= {MAX_D} "
-                         f"components, got {d}")
     if mode == "einstein":
         lags, cols = SPAN, TILE_THREADS
         grid = _build.launch_grid(-(-p // TILE_P), -(-n_lags // SPAN))

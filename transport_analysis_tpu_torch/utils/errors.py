@@ -30,11 +30,11 @@ class SelectionError(TransportAnalysisError, ValueError):
 ROADMAP_ITEMS = {
     "io": "ROADMAP.md queue 1 item 1 (io/ and data/: trajectory and "
           "topology files)",
-    "float32": "ROADMAP.md queue 1 item 2 (the float32 work mode, "
+    "float32": "ROADMAP.md queue 1 item 4 (the float32 work mode, "
                "dtype=np.float32)",
     "streaming": "ROADMAP.md queue 1 item 3 (streaming, out-of-core and "
                  "prefetch: atom_chunk, checkpoint, frame_block)",
-    "multigpu": "ROADMAP.md queue 1 item 4 (multiple GPUs: parallel/)",
+    "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
 }
 
 

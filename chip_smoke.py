@@ -15,8 +15,9 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes each model phase below gives it (every
    level of its FFT plan, K2, the K5 epilogue, and K6a/K6b at its
-   (frames, atoms)): M = 2^14 and 2^17 over the EC width (5,520 packed
-   columns), M = 2^21 over 80 atoms (120 packed columns); the same
+   (frames, atoms), K6b with its share of its bound and its split, and
+   its past/top time ratio): M = 2^14 and 2^17 over the EC width (5,520
+   packed columns), M = 2^21 over 80 atoms (120 packed columns); the same
    kernels on narrow, very long series, 4 particles of 2 components at
    M = 2^24 and at M = 2^25 (past the plan's old cap), with K2's share
    of its bound and its work split at every shape; K8 at each windowed
@@ -339,6 +340,7 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         return t_bytes, t_dft + (6 * a * nl * c if tw else 0) / PEAK_FP64
 
     lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
+    k6b_ms = {}
     shapes = [(name, n, n_molecules * len(EC_ATOMS), 3)
               for name, n, n_molecules, _ in MODEL_PHASES]
     for shape_key, n, p, d in shapes + NARROW_SHAPES:
@@ -432,13 +434,24 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                 library=(lambda: sq.view(nb, rows, p).sum(1))
                 if n % rows == 0 else None)
         tot = cuda_kneller.kneller_totals(sq)
-        compare(shape_key, "kneller_windows",
-                lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
-                lambda: cuda_kneller.kneller_windows_plain(sq, corr, d),
-                f"K6b kneller_windows ({n}, {p}) mean d={d}",
-                work(8 * (3 * n * p + 2 * nb * p), 6 * n * p))
+        k6b_work = work(8 * (3 * n * p + 2 * nb * p), 6 * n * p)
+        k6b_ms[shape_key] = compare(
+            shape_key, "kneller_windows",
+            lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
+            lambda: cuda_kneller.kneller_windows_plain(sq, corr, d),
+            f"K6b kneller_windows ({n}, {p}) mean d={d}", k6b_work)
+        k6b_bound = bound(*k6b_work)[0]
+        sp = cuda_kneller.windows_split(n, p)
+        phase("kernels", f"{shape_key} K6b: "
+              f"{100 * k6b_bound / k6b_ms[shape_key]:.1f} % of its "
+              f"{k6b_bound:.3f} ms bound; split: {sp.cols} columns x "
+              f"{sp.lanes} row lanes a block, tiles of {sp.tile_rows} lags, "
+              f"{sp.col_tiles} x {sp.tiles} blocks; scan of {sp.segs} "
+              f"segments of {sp.segt} tiles")
         del sq, corr, tot
         torch.cuda.empty_cache()
+    phase("kernels", f"K6b past/top time ratio "
+          f"{k6b_ms['past'] / k6b_ms['top']:.3f} (2x the frames)")
     for shape_key, n, p, d in shapes + [GROUPED_SHAPE]:
         if shape_key == GROUPED_SHAPE[0]:
             n_lags = GROUPED_LAGS
@@ -646,6 +659,7 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("inverse_last_level_kernel", "K5 inverse_last_level"),
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
+    ("kneller_scan", "K6b kneller_windows scan"),
     ("einstein_tile_kernel", "K8 lag_sums einstein"),
     ("acf_gram_kernel", "K8 lag_sums acf"),
 ]

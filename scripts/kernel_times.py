@@ -5,9 +5,13 @@ FFT path also on narrow, very long series, on one CUDA Hopper card, K2,
 K6a and K8 against their plain versions and beside their bounds; a quick
 loop for tuning these kernels without the whole of chip_smoke.py.
 
-    python3 scripts/kernel_times.py [--only k6a|k8|vacf|fft|k2]
+    python3 scripts/kernel_times.py [--only k6a|k6b|k8|vacf|fft|k2]
                                     [--reps 5] [--package DIR]
 
+``--only k6b`` times K6b (kneller_windows, its scan's launches included)
+at the EC model, deep and depth shapes and the narrow top and past ones,
+beside its bound and against its plain version, and splits its device
+time by kernel under ``torch.profiler``.
 ``--only k2`` times K2 alone at each FFT shape under each work split of
 ``K2_SPLITS`` (``cuda_fft``'s ``UNPACK_*`` constants, the default first).
 ``--package DIR`` times the package in the checkout DIR instead (for
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -238,6 +243,57 @@ def fft(cuda_fft, cuda_kneller, g, reps):
         torch.cuda.empty_cache()
 
 
+K6B_SHAPES = [  # (label, N, P, d): the shapes chip_smoke.py gives K6b
+    ("model", 8192, EC_ATOMS, 3), ("deep", 65536, EC_ATOMS, 3),
+    ("depth", 2 ** 20, 80, 3), ("top", 2 ** 23, 4, 2),
+    ("past", 2 ** 24, 4, 2)]
+
+
+def k6b(cuda_kneller, g, reps):
+    """K6b at K6B_SHAPES: ms (CUDA events), share of its bound (sq, corr,
+    out and tot moved once), error against its plain version, and the
+    device ms of each of its kernels a call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    times = {}
+    for label, n, p, d in K6B_SHAPES:
+        sq = torch.rand((n, p), dtype=torch.float64, device="cuda",
+                        generator=g)
+        corr = torch.randn((n, p), dtype=torch.float64, device="cuda",
+                           generator=g)
+        tot = cuda_kneller.kneller_totals(sq)
+        nb = tot.shape[1]
+
+        def call():
+            return cuda_kneller.kneller_windows(sq, corr, tot, d)
+
+        err = rel(call(), cuda_kneller.kneller_windows_plain(sq, corr, d))
+        k = times[label] = time_ms(call, reps)
+        bound = 1e3 * max(8 * (3 * n * p + 2 * nb * p) / PEAK_BYTES,
+                          6 * n * p / PEAK_FP64)
+        calls = 5
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.events():
+            found = re.search(r"kneller_\w+_kernel", e.name)
+            if e.device_type == torch.autograd.DeviceType.CUDA and found:
+                name = found.group(0)
+                by_kernel[name] = by_kernel.get(name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3 / calls
+        split = ", ".join(f"{name} {ms:.4f} ms"
+                          for name, ms in sorted(by_kernel.items()))
+        print(f"K6b {label} ({n}, {p}): kernel {k:.3f} ms, bound "
+              f"{bound:.3f} ms (bytes), {100 * bound / k:.1f} % of bound, "
+              f"err {err:.2e}; device a call: {split}", flush=True)
+        del sq, corr, tot
+        torch.cuda.empty_cache()
+    print(f"K6b past/top {times['past'] / times['top']:.3f}", flush=True)
+
+
 def smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                            "--format=csv,noheader"], capture_output=True,
@@ -246,9 +302,11 @@ def smi(query: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["k6a", "k8", "vacf", "fft", "k2"],
+    ap.add_argument("--only",
+                    choices=["k6a", "k6b", "k8", "vacf", "fft", "k2"],
                     help="time one group: vacf is K8's acf launches alone, "
-                    "k2 K2 under each split of K2_SPLITS")
+                    "k2 K2 under each split of K2_SPLITS, k6b K6b at the "
+                    "EC and narrow shapes")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package", default=ROOT,
                     help="checkout whose transport_analysis_tpu_torch to "
@@ -270,6 +328,8 @@ def main() -> int:
         fft(cuda_fft, cuda_kneller, g, args.reps)
     if args.only == "k2":
         k2_splits(cuda_fft, g, args.reps)
+    if args.only == "k6b":
+        k6b(cuda_kneller, g, args.reps)
     return 0
 
 

@@ -104,16 +104,38 @@ def test_deep_autocorrelation_vs_host(cuda_device, n, P, d):
 
 
 @pytest.mark.parametrize("n,p,d", [(1024, 37, 3), (1000, 5, 3), (7, 2, 1),
-                                   (8192, 300, 3), (2 ** 23, 3, 3)])
+                                   (8192, 300, 3), (2 ** 23, 3, 3),
+                                   (2 ** 20 + 1, 4, 2), (131, 1, 3),
+                                   (8193, 33, 3), (2 ** 23, 4, 2),
+                                   (2 ** 23 + 1, 33, 1)])
 def test_kneller_kernels_vs_plain(cuda_device, n, p, d):
+    """K6a and K6b, narrow and wide, ragged N, one column, and past grid
+    y's 65,535 tiles (2^23 + 1 frames at 33 columns); K6b counts its
+    three launches (the scan's two and the windows)."""
     rng = np.random.RandomState(n)
     sq = torch.from_numpy(rng.uniform(0, 2, (n, p))).to(cuda_device)
     corr = torch.from_numpy(rng.normal(size=(n, p))).to(cuda_device)
     tot = cuda_kneller.kneller_totals(sq)
     assert rel(tot, cuda_kneller.kneller_totals_plain(sq)) <= TOL
+    before = cuda_kneller.kneller_windows.launches
     got = cuda_kneller.kneller_windows(sq, corr, tot, d)
+    assert cuda_kneller.kneller_windows.launches == before + 3
     assert rel(got, cuda_kneller.kneller_windows_plain(sq, corr, d)) <= TOL
     assert torch.all(got[0] == 0.0)
+
+
+@pytest.mark.parametrize("n,p", [(4096, 1), (2 ** 20 + 3, 4), (70000, 33)])
+def test_windows_deep_lags_without_cancellation_on_card(cuda_device, n, p):
+    """The card's window sums at the deepest lags come out at the grade
+    of the few squares they hold, not at eps·total: every part of K6b's
+    sums (offsets, later row lanes, own rows) is a sum of later terms."""
+    sq = torch.ones((n, p), dtype=torch.float64, device=cuda_device)
+    sq[0] = sq[-1] = 1e-6
+    corr = torch.zeros_like(sq)
+    out = cuda_kneller.kneller_windows(
+        sq, corr, cuda_kneller.kneller_totals(sq), 1)
+    assert torch.allclose(out[n - 1], torch.full_like(out[n - 1], 2e-6),
+                          rtol=1e-12, atol=0.0)
 
 
 @pytest.mark.parametrize("n,p", [

@@ -40,7 +40,8 @@ def _centered_inputs(n, p, d, seed=11):
     return a, sq, corr.reshape(n, p, d).sum(axis=-1)
 
 
-SHAPES = [(1024, 37, 3), (1000, 5, 3), (7, 2, 1)]
+SHAPES = [(1024, 37, 3), (1000, 5, 3), (7, 2, 1), (4097, 4, 2),
+          (129, 33, 3)]
 
 
 @pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
@@ -142,6 +143,155 @@ def test_totals_split_runs(n):
     nb = -(-n // cuda_kneller.KNELLER_ROWS)
     assert (runs - 1) * run < nb <= runs * run
     assert run == (min(cuda_kneller.TOTALS_MIN_RUN, nb) if r else 1)
+
+
+def emulate_windows(sq: np.ndarray, corr: np.ndarray, tot: np.ndarray,
+                    dfac: float):
+    """K6b as ``csrc/kneller.cu`` runs it, in numpy, from its work split
+    (``windows_split``, ``scan_tiles``, ``windows_lags``): the scan of
+    ``tot`` into each tile's offsets, then each row lane's lags, walked
+    from the last down. Returns out, the offsets, and how often each
+    total and each row of sq was read and each row of out written."""
+    n, p = sq.shape
+    nb = tot.shape[1]
+    sp = cuda_kneller.windows_split(n, p)
+    tot_reads = np.zeros(nb, dtype=np.int64)
+    sq_reads = np.zeros(n, dtype=np.int64)
+    writes = np.zeros(n, dtype=np.int64)
+
+    def tile_total(i):
+        rows = slice(i * sp.g, min((i + 1) * sp.g, nb))
+        tot_reads[rows] += 1
+        return tot[:, rows].sum(1)
+
+    # first launch: each segment's sum, its row lanes striding its rows
+    seg = np.zeros((2, sp.segs, p))
+    seg_rows = sp.segt * sp.g
+    for s in range(sp.segs):
+        for j in range(sp.lanes):
+            rows = range(s * seg_rows, min((s + 1) * seg_rows, nb))[
+                j::sp.lanes]
+            tot_reads[rows.start:rows.stop:sp.lanes] += 1
+            seg[:, s] += tot[:, rows.start:rows.stop:sp.lanes].sum(1)
+    # second launch: the later segments' sums, then the segment's tiles,
+    # a chunk of them a row lane, each lane on top of the later lanes
+    off = np.full((2, sp.tiles, p), np.nan)
+    for s in range(sp.segs):
+        base = seg[:, s + 1:].sum(1)
+        mine = [sum((tile_total(i) for i in cuda_kneller.scan_tiles(
+            sp, s, j)), np.zeros((2, p))) for j in range(sp.lanes)]
+        for j in range(sp.lanes):
+            run = base + sum(mine[j + 1:], np.zeros((2, p)))
+            for i in reversed(cuda_kneller.scan_tiles(sp, s, j)):
+                assert np.isnan(off[:, i]).all()
+                off[:, i] = run
+                run = run + tile_total(i)
+    # the windows: each row lane on top of the tile's offsets and the
+    # later row lanes' sums of its forward and reversed rows
+    out = np.full((n, p), np.nan)
+    for y in range(sp.tiles):
+        tile = cuda_kneller.windows_tile(sp, y)
+        lags = [cuda_kneller.windows_lags(n, sp, tile, j)
+                for j in range(sp.lanes)]
+        own = [np.stack([sq[lg.start:lg.stop].sum(0),
+                         sq[n - lg.stop:n - lg.start].sum(0)])
+               for lg in lags]
+        for j, lg in enumerate(lags):
+            run = off[:, tile] + sum(own[j + 1:], np.zeros((2, p)))
+            for lag in reversed(lg):
+                sq_reads[lag] += 1
+                sq_reads[n - 1 - lag] += 1
+                writes[lag] += 1
+                run = run + np.stack([sq[lag], sq[n - 1 - lag]])
+                out[lag] = (0.0 if lag == 0 else
+                            (run.sum(0) - 2.0 * corr[lag])
+                            / ((n - lag) * dfac))
+    return out, off, tot_reads, sq_reads, writes
+
+
+WINDOW_NS = [1, 5, 127, 128, 129, 1000, 1151, 4097, 8192, 16383]
+
+
+@pytest.mark.parametrize("segment", [cuda_kneller.WINDOWS_SEGMENT, 3])
+@pytest.mark.parametrize("n", WINDOW_NS)
+@pytest.mark.parametrize("p", [1, 4, 31, 33, 300])
+def test_windows_replay_vs_plain(monkeypatch, n, p, segment):
+    """K6b's split, replayed in numpy, at r = N mod R of 0, 1, R − 1 and
+    between, N < R and narrow and wide P, with the default segments of
+    the scan and with short ones (many segments): every lag written once, each
+    tile's offsets the suffix sums of the totals past it, each total read
+    three times and each row of sq twice, whatever nb is; the result
+    equals kneller_windows_plain."""
+    monkeypatch.setattr(cuda_kneller, "WINDOWS_SEGMENT", segment)
+    rng = np.random.RandomState(n * 7 + p)
+    sq = rng.uniform(0, 2, (n, p))
+    corr = rng.normal(size=(n, p))
+    tot = cuda_kneller.kneller_totals_plain(torch.from_numpy(sq)).numpy()
+    out, off, tot_reads, sq_reads, writes = emulate_windows(sq, corr, tot, 3)
+    sp = cuda_kneller.windows_split(n, p)
+    suffix = np.stack([tot[:, (i + 1) * sp.g:].sum(1)
+                       for i in range(sp.tiles)], axis=1)
+    assert np.abs(off - suffix).max() <= TOL * tot.sum(1).max()
+    assert np.all(writes == 1) and np.all(sq_reads == 2)
+    assert np.all(tot_reads == 3)
+    ref = cuda_kneller.kneller_windows_plain(
+        torch.from_numpy(sq), torch.from_numpy(corr), 3).numpy()
+    assert np.all(out[0] == 0.0)
+    if n > 1:
+        assert rel(out, ref) <= TOL
+
+
+@pytest.mark.parametrize("reduce_mode", ["mean", "sum"])
+@pytest.mark.parametrize("n,p,d", [(1000, 5, 3), (1151, 33, 3), (7, 2, 1)])
+def test_windows_replay_vs_jax(n, p, d, reduce_mode):
+    """The replayed K6b on centered inputs against the JAX package's
+    ``einstein._einstein_fft_impl``."""
+    _, sq, corr = _centered_inputs(n, p, d)
+    tot = cuda_kneller.kneller_totals_plain(torch.from_numpy(sq)).numpy()
+    out = emulate_windows(sq, corr, tot,
+                          d if reduce_mode == "mean" else 1)[0]
+    ref = np.asarray(jein._einstein_fft_impl(
+        jnp.asarray(sq), reduce_mode, d, jnp.asarray(corr)))
+    assert rel(out, ref) <= TOL
+
+
+@pytest.mark.parametrize("n", [1, 128, 8193, 2 ** 23, 2 ** 23 + 1, 2 ** 24])
+@pytest.mark.parametrize("p", [1, 4, 31, 33, 3680])
+def test_windows_split_covers(n, p):
+    """K6b's split alone, up to 2^24 frames (past grid y's 65,535 tiles
+    at wide P): columns covered by the column tiles; tiles a whole number
+    of K6a's row blocks, covering the lags, each taken once in the mirror
+    order; segments covering the tiles,
+    at most ``segt`` of them; every tile's offsets written by one row lane
+    of the scan."""
+    sp = cuda_kneller.windows_split(n, p)
+    rows = cuda_kneller.KNELLER_ROWS
+    assert sp.cols == min(32, 1 << (p - 1).bit_length()) == 1 << sp.log2c
+    assert (sp.col_tiles - 1) * sp.cols < p <= sp.col_tiles * sp.cols
+    assert sp.lanes * sp.cols == cuda_kneller.WINDOWS_THREADS
+    assert sp.tile_rows == sp.g * rows == sp.lanes * cuda_kneller.WINDOWS_RUN
+    assert (sp.tiles - 1) * sp.tile_rows < n <= sp.tiles * sp.tile_rows
+    assert (sp.segs - 1) * sp.segt < sp.tiles <= sp.segs * sp.segt
+    assert sp.segs <= sp.segt and sp.chunk * sp.lanes >= sp.segt
+    grid = cuda_kneller._build.launch_grid(sp.col_tiles, sp.tiles)
+    assert grid == (sp.col_tiles, min(sp.tiles, 65535))
+    # row lanes of a tile, and tiles, abut; the last lag is N − 1
+    for t in {0, sp.tiles // 2, sp.tiles - 1}:
+        lags = [cuda_kneller.windows_lags(n, sp, t, j)
+                for j in range(sp.lanes)]
+        assert lags[0].start == min(t * sp.tile_rows, n)
+        assert all(a.stop == b.start for a, b in zip(lags, lags[1:]))
+        assert lags[-1].stop == min((t + 1) * sp.tile_rows, n)
+    assert cuda_kneller.windows_lags(n, sp, sp.tiles - 1,
+                                     sp.lanes - 1).stop == n
+    order = [cuda_kneller.windows_tile(sp, y) for y in range(sp.tiles)]
+    assert sorted(order) == list(range(sp.tiles))
+    written = np.zeros(sp.tiles, dtype=np.int64)
+    for s in range(sp.segs):
+        for j in range(sp.lanes):
+            tiles = cuda_kneller.scan_tiles(sp, s, j)
+            written[tiles.start:tiles.stop] += 1
+    assert np.all(written == 1)
 
 
 def test_windows_deep_lags_without_cancellation():

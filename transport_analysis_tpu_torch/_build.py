@@ -42,8 +42,9 @@ SIGNATURES = {
     "ta_inverse_last_level": [_P, _P, _P, *[_L] * 10, _P],
     # sq, tot, n, p, rows, nb, run, runs, grid x, y, stream
     "ta_kneller_totals": [_P, _P, *[_L] * 8, _P],
-    # sq, corr, tot, out, n, p, rows, nb, dfac, cols, grid x, y, stream
-    "ta_kneller_windows": [_P, _P, _P, _P, *[_L] * 4, _D, *[_L] * 3, _P],
+    # sq, corr, tot, seg, off, out, n, p, rows, nb, dfac, log2c, g, tiles,
+    # segt, segs, chunk, grid x, grid y of the scan, of the windows, stream
+    "ta_kneller_windows": [*[_P] * 6, *[_L] * 4, _D, *[_L] * 9, _P],
     # x, out, n, p, d, n_lags, f64, einstein, dfac, lag_block, cols,
     # grid x, y, stream
     "ta_lag_sums": [_P, _P, *[_L] * 6, _D, *[_L] * 4, _P],

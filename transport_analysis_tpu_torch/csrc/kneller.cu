@@ -17,13 +17,12 @@
 //     subtraction of large prefixes; the reversed leg is read by index.
 //
 // What bounds them: device-memory bandwidth; there is almost no
-// arithmetic. K6b reads sq twice and corr once and writes out once. K6a
-// needs to read sq once, and does so: with N = q R + r (R = `rows`,
-// 0 <= r < R) the reversed block b covers rows [(q-b-1) R + r, (q-b) R + r),
-// the upper part (the "hi", from row k R + r on) of forward block q-b-1
-// and the lower r rows (the "lo") of forward block q-b. So K6a walks runs
-// of consecutive forward blocks, sums each as lo and hi, writes lo + hi
-// as the forward total and the previous block's
+// arithmetic. K6a needs to read sq once, and does so: with N = q R + r
+// (R = `rows`, 0 <= r < R) the reversed block b covers rows
+// [(q-b-1) R + r, (q-b) R + r), the upper part (the "hi", from row k R + r
+// on) of forward block q-b-1 and the lower r rows (the "lo") of forward
+// block q-b. So K6a walks runs of consecutive forward blocks, sums each as
+// lo and hi, writes lo + hi as the forward total and the previous block's
 // hi plus this block's lo as a reversed total; block 0's lone lo is the
 // last reversed block. When r = 0 the reversed totals are the forward ones
 // in reverse order. A run starts by summing the hi of the block before it
@@ -35,13 +34,34 @@
 // many short-lived blocks each reading a compact tile, rather than
 // long-lived threads streaming down whole columns (a few percent faster
 // on the H100 at the deep shape, PERF.md; each sum is 16 terms, not 128).
-// A warp reads 32 neighbouring columns of a row (256 contiguous bytes),
-// in both kernels. K6b takes the suffix offsets of a block from the
-// small (2, nb, P) totals array, so no prefix array is written to device
-// memory. Any N >= 1 and P >= 1: the ragged last block is masked by the
-// row bound. Grid y walks K6a's runs and K6b's row blocks; past CUDA's y
-// limit of 65,535 a block strides over them by gridDim.y, so N up to 2^23
-// and beyond runs with the same per-block arithmetic. Sizes are 64-bit.
+// A warp of K6a reads 32 neighbouring columns of a row (256 contiguous
+// bytes).
+//
+// K6b reads sq twice (its forward and its reversed rows), corr once and
+// writes out once. Its sums past a row come in three parts, each a sum of
+// later terms: the tile's offsets, the later row lanes of the tile, and
+// the thread's own later rows.
+//  - The offsets, off[leg, i] = sum of tot[leg] past tile i, come from one
+//    scan of the (2, nb, P) totals in two small launches (segment sums,
+//    then each segment's exclusive suffix scan on top of the later
+//    segments' sums), so each total is read three times whatever nb is.
+//    Segments are at least sqrt(tiles) long, so the later-segment sums of
+//    the second launch stay linear in N too.
+//  - A tile is (kThreads / cols) kRun lags of `cols` columns: cols is 32
+//    for P >= 32 and P rounded up to a power of two below, so at narrow
+//    widths the lanes of a warp lie over 32 / cols row lanes of the same
+//    columns, and a warp reads one contiguous span of sq. Each thread
+//    loads its kRun consecutive lags' forward and reversed rows at once
+//    (32 independent loads in flight a thread), and the row lanes' sums
+//    meet in a shuffle scan within a warp and shared memory across warps.
+//  - Tiles run in mirror order (a tile beside its mirror), so that sq's
+//    second read can come from L2 rather than device memory.
+// tile rows are a multiple of R, so a tile's offsets are sums of whole
+// totals. Any N >= 1 and P >= 1: the ragged last block is masked by the
+// row bound. Grid y walks K6a's runs and K6b's tiles and segments; past
+// CUDA's y limit of 65,535 a block strides over them by gridDim.y, so N
+// up to 2^23 and beyond runs with the same per-block arithmetic. Sizes are
+// 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,32 +133,202 @@ __global__ void kneller_totals_kernel(const double* __restrict__ sq,
   }
 }
 
-// block (x: column tile, y: lag blocks b, strided): lags [b rows,
-// (b + 1) rows).
-__global__ void kneller_windows_kernel(const double* __restrict__ sq,
-                                       const double* __restrict__ corr,
-                                       const double* __restrict__ tot,
-                                       double* __restrict__ out, int64_t n,
-                                       int64_t p, int rows, int64_t nb,
-                                       double dfac) {
-  const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= p) return;
-  for (int64_t b = blockIdx.y; b < nb; b += gridDim.y) {
-    // suffix sums past this block: tail over sq, head over reversed sq
-    double tail = 0.0, head = 0.0;
-    for (int64_t bb = nb - 1; bb > b; --bb) {
-      tail += tot[bb * p + col];
-      head += tot[(nb + bb) * p + col];
+// K6b. Threads of a block: kThreads, as `cols` = 2^log2c columns (a
+// power of two up to 32, covering P where P < 32) by kThreads / cols row
+// lanes; thread t takes column t mod cols and row lane t / cols, so a warp
+// holds 32 / cols consecutive row lanes of its columns.
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 16;  // consecutive lags of one K6b thread
+
+struct Legs {  // a sum over sq (f) and over the reversed rows (r)
+  double f, r;
+};
+
+// Exclusive suffix sums over the block's row lanes of one column: thread
+// (c, j) gets the sum of x over row lanes j' > j of column c. Within a warp
+// by shuffles (the lanes of a column lie `cols` apart), across warps
+// through shared memory `wsum` (kWarps x 32). Sums of later terms only,
+// never a total minus a prefix. Every thread of the block calls it.
+__device__ __forceinline__ Legs later_lanes(Legs x, int log2c, Legs* wsum) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = lane & ((1 << log2c) - 1), jj = lane >> log2c;
+  const int per_warp = 32 >> log2c;
+  Legs inc = x;  // inclusive: row lanes jj' >= jj of this warp
+  for (int d = 1; d < per_warp; d <<= 1) {
+    const double f = __shfl_down_sync(full, inc.f, d << log2c);
+    const double r = __shfl_down_sync(full, inc.r, d << log2c);
+    if (jj + d < per_warp) {
+      inc.f += f;
+      inc.r += r;
     }
-    const int64_t r0 = b * rows;
-    const int64_t r1 = r0 + rows < n ? r0 + rows : n;
-    for (int64_t lag = r1 - 1; lag >= r0; --lag) {
-      tail += sq[lag * p + col];
-      head += sq[(n - 1 - lag) * p + col];
-      const int64_t at = lag * p + col;
-      out[at] = lag == 0 ? 0.0
-                         : (head + tail - 2.0 * corr[at]) /
-                               ((double)(n - lag) * dfac);
+  }
+  Legs out;
+  out.f = __shfl_down_sync(full, inc.f, 1 << log2c);
+  out.r = __shfl_down_sync(full, inc.r, 1 << log2c);
+  if (jj + 1 >= per_warp) out.f = out.r = 0.0;
+  if (jj == 0) wsum[w * 32 + c] = inc;
+  __syncthreads();
+  for (int v = w + 1; v < kWarps; ++v) {
+    out.f += wsum[v * 32 + c].f;
+    out.r += wsum[v * 32 + c].r;
+  }
+  __syncthreads();  // wsum is free again when the caller returns
+  return out;
+}
+
+// the sum of tot[leg] (2, nb, P) over rows b0, b0 + stride, ... below
+// b1 of column col: a segment's rows for one row lane of the scan, or the
+// rows of consecutive tiles (stride 1)
+__device__ __forceinline__ Legs total_rows(const double* __restrict__ tot,
+                                           int64_t b0, int64_t b1,
+                                           int64_t stride, int64_t nb,
+                                           int64_t p, int64_t col) {
+  Legs a = {0.0, 0.0};
+#pragma unroll 8
+  for (int64_t b = b0; b < b1; b += stride) {
+    a.f += tot[b * p + col];
+    a.r += tot[(nb + b) * p + col];
+  }
+  return a;
+}
+
+// K6b's scan, first launch. block (x: column tile, y: segments s,
+// strided): seg[leg, s] = the sum of tot[leg] over rows [s seg_rows,
+// (s + 1) seg_rows) (tiles [s segt, (s + 1) segt)). Row lane j reads
+// rows j, j + lanes, ..., so a warp reads consecutive rows.
+__global__ void __launch_bounds__(kThreads)
+    kneller_scan_segments_kernel(const double* __restrict__ tot,
+                                 double* __restrict__ seg, int64_t nb,
+                                 int64_t p, int log2c, int64_t seg_rows,
+                                 int64_t segs) {
+  __shared__ Legs wsum[kWarps * 32];
+  const int c = threadIdx.x & ((1 << log2c) - 1);
+  const int j = threadIdx.x >> log2c, lanes = kThreads >> log2c;
+  const int64_t col = ((int64_t)blockIdx.x << log2c) + c;
+  const bool in = col < p;
+  for (int64_t s = blockIdx.y; s < segs; s += gridDim.y) {
+    const int64_t b0 = s * seg_rows;
+    const int64_t b1 = b0 + seg_rows < nb ? b0 + seg_rows : nb;
+    const Legs x = in ? total_rows(tot, b0 + j, b1, lanes, nb, p, col)
+                      : Legs{0.0, 0.0};
+    const Legs later = later_lanes(x, log2c, wsum);
+    if (j == 0 && in) {
+      seg[s * p + col] = x.f + later.f;
+      seg[(segs + s) * p + col] = x.r + later.r;
+    }
+  }
+}
+
+// K6b's scan, second launch. block (x: column tile, y: segments s,
+// strided): off[leg, i] = sum of tot[leg] over the rows past tile i, for
+// the tiles i of segment s: the later segments' sums (seg), reduced over
+// the row lanes, plus an exclusive suffix scan of the segment's tiles,
+// `chunk` consecutive tiles a row lane.
+__global__ void __launch_bounds__(kThreads)
+    kneller_scan_offsets_kernel(const double* __restrict__ tot,
+                                const double* __restrict__ seg,
+                                double* __restrict__ off, int64_t nb,
+                                int64_t p, int log2c, int64_t g, int64_t nt,
+                                int64_t segt, int64_t segs, int64_t chunk) {
+  __shared__ Legs wsum[kWarps * 32];
+  __shared__ Legs base[32];
+  const int c = threadIdx.x & ((1 << log2c) - 1);
+  const int j = threadIdx.x >> log2c, lanes = kThreads >> log2c;
+  const int64_t col = ((int64_t)blockIdx.x << log2c) + c;
+  const bool in = col < p;
+  for (int64_t s = blockIdx.y; s < segs; s += gridDim.y) {
+    Legs x = {0.0, 0.0};
+    if (in)
+      for (int64_t s2 = s + 1 + j; s2 < segs; s2 += lanes) {
+        x.f += seg[s2 * p + col];
+        x.r += seg[(segs + s2) * p + col];
+      }
+    const Legs later = later_lanes(x, log2c, wsum);
+    if (j == 0) base[c] = Legs{x.f + later.f, x.r + later.r};
+    __syncthreads();
+    const int64_t i_end = (s + 1) * segt < nt ? (s + 1) * segt : nt;
+    const int64_t t0 = s * segt + j * chunk;
+    const int64_t t1 = t0 + chunk < i_end ? t0 + chunk : i_end;
+    // this row lane's tiles: rows [t0 g, t1 g)
+    const Legs mine =
+        in ? total_rows(tot, t0 * g, t1 * g < nb ? t1 * g : nb, 1, nb, p, col)
+           : Legs{0.0, 0.0};
+    Legs run = base[c];  // read before later_lanes' barriers
+    const Legs after = later_lanes(mine, log2c, wsum);
+    run.f += after.f;
+    run.r += after.r;
+    if (in) {
+#pragma unroll 4
+      for (int64_t i = t1 - 1; i >= t0; --i) {
+        off[i * p + col] = run.f;
+        off[(nt + i) * p + col] = run.r;
+        const int64_t b1 = (i + 1) * g < nb ? (i + 1) * g : nb;
+        const Legs a = total_rows(tot, i * g, b1, 1, nb, p, col);
+        run.f += a.f;
+        run.r += a.r;
+      }
+    }
+  }
+}
+
+// K6b. block (x: column tile, y: tiles of (kThreads / cols) kRun lags, in
+// mirror order, strided): row lane j takes the kRun consecutive lags from
+// l0 = tile tile_rows + j kRun, loads its forward rows and the reversed
+// rows N-1-lag of them in one go, and walks them from the last down,
+// adding to the sums past its own rows: the tile's offsets (off, from the
+// scan) plus the later row lanes' sums (later_lanes). Neighbouring y take
+// a tile and its mirror, whose forward rows are the first one's reversed
+// rows (shifted by N mod tile_rows), so the two run side by side and the
+// second read of those rows can come from L2.
+__global__ void __launch_bounds__(kThreads, 2)
+    kneller_windows_kernel(const double* __restrict__ sq,
+                           const double* __restrict__ corr,
+                           const double* __restrict__ off,
+                           double* __restrict__ out, int64_t n, int64_t p,
+                           int log2c, int64_t nt, double dfac) {
+  __shared__ Legs wsum[kWarps * 32];
+  const int c = threadIdx.x & ((1 << log2c) - 1);
+  const int j = threadIdx.x >> log2c;
+  const int64_t col = ((int64_t)blockIdx.x << log2c) + c;
+  const bool in = col < p;
+  const int64_t tile_rows = (int64_t)(kThreads >> log2c) * kRun;
+  for (int64_t y = blockIdx.y; y < nt; y += gridDim.y) {
+    // mirror order: y = 2k takes tile k, y = 2k + 1 tile nt - 1 - k
+    const int64_t tile = y & 1 ? nt - 1 - (y >> 1) : y >> 1;
+    const int64_t l0 = tile * tile_rows + (int64_t)j * kRun;
+    // every load of the tile issued at once; corr too, as a load inside
+    // the conditional store below would wait for each in turn
+    double fw[kRun], rv[kRun], cr[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const int64_t lag = l0 + k;
+      const bool ok = in && lag < n;
+      fw[k] = ok ? sq[lag * p + col] : 0.0;
+      rv[k] = ok ? sq[(n - 1 - lag) * p + col] : 0.0;
+      cr[k] = ok ? corr[lag * p + col] : 0.0;
+    }
+    Legs own = {0.0, 0.0};
+#pragma unroll
+    for (int k = kRun - 1; k >= 0; --k) {
+      own.f += fw[k];
+      own.r += rv[k];
+    }
+    Legs run = later_lanes(own, log2c, wsum);
+    if (in) {
+      run.f += off[tile * p + col];
+      run.r += off[(nt + tile) * p + col];
+    }
+#pragma unroll
+    for (int k = kRun - 1; k >= 0; --k) {
+      const int64_t lag = l0 + k;
+      run.f += fw[k];
+      run.r += rv[k];
+      if (in && lag < n)
+        out[lag * p + col] = lag == 0 ? 0.0
+                                      : (run.r + run.f - 2.0 * cr[k]) /
+                                            ((double)(n - lag) * dfac);
     }
   }
 }
@@ -162,16 +352,37 @@ int ta_kneller_totals(const void* sq, void* tot, int64_t n, int64_t p,
   return (int)cudaGetLastError();
 }
 
-// sq, corr (n, p) and tot from ta_kneller_totals -> out (n, p) float64;
-// the launch as for ta_kneller_totals.
+// sq, corr (n, p) and tot from ta_kneller_totals -> out (n, p) float64,
+// through the scratch seg (2, segs, p) and off (2, nt, p): three launches
+// on a grid of (grid_x column tiles, grid_segs segments) for the scan's
+// two and (grid_x, grid_tiles) for the windows; the split from
+// cuda_kneller.py windows_split.
 int ta_kneller_windows(const void* sq, const void* corr, const void* tot,
-                       void* out, int64_t n, int64_t p, int64_t rows,
-                       int64_t nb, double dfac, int64_t cols, int64_t grid_x,
-                       int64_t grid_y, void* stream) {
-  kneller_windows_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y),
-                           (unsigned)cols, 0, (cudaStream_t)stream>>>(
-      (const double*)sq, (const double*)corr, (const double*)tot,
-      (double*)out, n, p, (int)rows, nb, dfac);
+                       void* seg, void* off, void* out, int64_t n, int64_t p,
+                       int64_t rows, int64_t nb, double dfac, int64_t log2c,
+                       int64_t g, int64_t nt, int64_t segt, int64_t segs,
+                       int64_t chunk, int64_t grid_x, int64_t grid_segs,
+                       int64_t grid_tiles, void* stream) {
+  if (log2c < 0 || log2c > 5 || (kThreads >> log2c) * kRun != g * rows ||
+      nt * g < nb || (nt - 1) * g >= nb || segs * segt < nt ||
+      (segs - 1) * segt >= nt || chunk * (kThreads >> log2c) < segt)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  kneller_scan_segments_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_segs),
+                                 kThreads, 0, st>>>(
+      (const double*)tot, (double*)seg, nb, p, (int)log2c, segt * g, segs);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kneller_scan_offsets_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_segs),
+                                kThreads, 0, st>>>(
+      (const double*)tot, (const double*)seg, (double*)off, nb, p,
+      (int)log2c, g, nt, segt, segs, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  kneller_windows_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_tiles),
+                           kThreads, 0, st>>>(
+      (const double*)sq, (const double*)corr, (const double*)off,
+      (double*)out, n, p, (int)log2c, nt, dfac);
   return (int)cudaGetLastError();
 }
 

@@ -9,34 +9,34 @@ component-summed autocorrelation ``corr`` (N, P),
 with css the inclusive prefix sum of sq over frames, denom =
 (N - lag)·(d if reduce_mode == "mean" else 1), and out[0] = 0.
 
-Two kernels (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1
+K6a and K6b (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1
 (the row blocks fold over the grid, so N is not bounded by its y limit):
 K6a :func:`kneller_totals` sums each block of ``KNELLER_ROWS`` frames,
 forwards and in reverse frame order, from one read of ``sq`` (its work
 split is :func:`totals_split` and :func:`totals_run`); K6b
-:func:`kneller_windows` turns those totals and in-block suffix sums into
-the window sums and applies
-the combine above (the TPU module's ``_finish``) in the same pass. On CPU
-tensors both run their plain PyTorch versions.
+:func:`kneller_windows` scans those totals once into each tile's suffix
+offsets, adds in-tile suffix sums of ``sq`` to form the window sums and
+applies the combine above (the TPU module's ``_finish``) in the same pass
+(its work split is :func:`windows_split`, :func:`windows_tile`,
+:func:`windows_lags` and :func:`scan_tiles`). On CPU tensors both run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 
 KNELLER_ROWS = 128       # frames per block of both kernels
-KNELLER_COLS = 128       # K6b: threads per block, one column each
 TOTALS_TILE = 32         # K6a: columns of a block, one a lane
 TOTALS_MIN_RUN = 8       # K6a's row blocks a run where it reads a halo
-
-
-def _grid(n: int, p: int) -> tuple[int, int]:
-    """K6b's grid: column tiles of ``KNELLER_COLS`` along x (the block
-    size the C entries launch with), the row blocks along y (strided past
-    CUDA's y limit, ``csrc/kneller.cu``)."""
-    return _build.launch_grid(-(-p // KNELLER_COLS), -(-n // KNELLER_ROWS))
+WINDOWS_THREADS = 256    # K6b and its scan: threads a block (kThreads)
+WINDOWS_RUN = 16         # K6b: consecutive lags of a thread (kRun)
+WINDOWS_SEGMENT = 64     # K6b's scan: tiles a segment, at least
 
 
 def totals_split(n: int) -> tuple[int, int, int]:
@@ -73,6 +73,63 @@ def totals_run(n: int, j: int, run: int):
         hi = range(split, min((k + 1) * rows, n))
         blocks.append((k, lo, hi, q - 1 - k if r == 0 else q - k))
     return halo, blocks
+
+
+class WindowsSplit(NamedTuple):
+    """K6b's work split (``csrc/kneller.cu``). A block is ``cols``
+    columns (32, or P rounded up to a power of two where P < 32) by
+    ``lanes`` = WINDOWS_THREADS / cols row lanes; it takes a tile of
+    ``tile_rows`` = lanes · WINDOWS_RUN lags, ``g`` of K6a's row blocks;
+    ``tiles`` tiles cover the N lags and ``col_tiles`` the P columns. The
+    scan of the totals takes ``segs`` segments of ``segt`` tiles, a row
+    lane ``chunk`` consecutive tiles of its segment."""
+    cols: int
+    log2c: int
+    lanes: int
+    tile_rows: int
+    g: int
+    tiles: int
+    col_tiles: int
+    segt: int
+    segs: int
+    chunk: int
+
+
+def windows_split(n: int, p: int) -> WindowsSplit:
+    """K6b's split for ``sq`` of (n, p). Segments are WINDOWS_SEGMENT
+    tiles, or ceil(sqrt(tiles)) where that is more, so that no segment
+    sums more than ``segt`` later segments' totals."""
+    cols = min(32, 1 << (p - 1).bit_length())
+    log2c = cols.bit_length() - 1
+    lanes = WINDOWS_THREADS // cols
+    tile_rows = lanes * WINDOWS_RUN
+    tiles = -(-n // tile_rows)
+    segt = max(WINDOWS_SEGMENT, math.isqrt(tiles - 1) + 1)
+    return WindowsSplit(cols, log2c, lanes, tile_rows,
+                        tile_rows // KNELLER_ROWS, tiles, -(-p // cols), segt,
+                        -(-tiles // segt), -(-segt // lanes))
+
+
+def windows_lags(n: int, sp: WindowsSplit, tile: int, j: int) -> range:
+    """The lags that row lane ``j`` of ``tile`` writes (and whose forward
+    rows and reversed rows N − 1 − lag it reads), as in K6b."""
+    l0 = tile * sp.tile_rows + j * WINDOWS_RUN
+    return range(min(l0, n), min(l0 + WINDOWS_RUN, n))
+
+
+def windows_tile(sp: WindowsSplit, y: int) -> int:
+    """The tile that K6b's ``y``-th block row takes: tiles in mirror
+    order, tile k then tile tiles − 1 − k, so a tile's reversed rows are
+    read beside the tile that reads them forwards."""
+    return sp.tiles - 1 - y // 2 if y % 2 else y // 2
+
+
+def scan_tiles(sp: WindowsSplit, s: int, j: int) -> range:
+    """The tiles whose offsets row lane ``j`` of the scan's segment ``s``
+    writes, the last first (each the sum of the totals past it)."""
+    end = min((s + 1) * sp.segt, sp.tiles)
+    t0 = s * sp.segt + j * sp.chunk
+    return range(min(t0, end), min(t0 + sp.chunk, end))
 
 
 def _check_operand(t: torch.Tensor, name: str) -> None:
@@ -138,26 +195,35 @@ def kneller_windows_plain(sq: torch.Tensor, corr: torch.Tensor,
 def kneller_windows(sq: torch.Tensor, corr: torch.Tensor, tot: torch.Tensor,
                     dfac: float) -> torch.Tensor:
     """K6b: the window sums from :func:`kneller_totals`' ``tot`` and
-    in-block suffix sums of ``sq``, combined with ``corr``:
-    out[lag] = (w[lag] - 2·corr[lag]) / ((N - lag)·dfac), out[0] = 0."""
+    in-tile suffix sums of ``sq``, combined with ``corr``:
+    out[lag] = (w[lag] - 2·corr[lag]) / ((N - lag)·dfac), out[0] = 0.
+    Three launches (the scan's two, then the windows), each counted."""
     _check_operand(sq, "kneller_windows")
     _check_operand(corr, "kneller_windows")
     n, p = sq.shape
+    nb = -(-n // KNELLER_ROWS)
     if (corr.shape != sq.shape or tot.dtype != torch.float64
-            or tot.shape != (2, -(-n // KNELLER_ROWS), p)):
+            or tot.shape != (2, nb, p)):
         raise ValueError("kneller_windows: sq, corr and tot disagree")
     if sq.device.type == "cpu":
         return kneller_windows_plain(sq, corr, dfac)
     for t, name in ((sq, "sq"), (corr, "corr"), (tot, "tot")):
         _build.kernel_operand(t, f"kneller_windows {name}")
+    sp = windows_split(n, p)
+    grid_x, grid_segs = _build.launch_grid(sp.col_tiles, sp.segs)
+    grid_tiles = _build.launch_grid(sp.col_tiles, sp.tiles)[1]
+    seg = torch.empty((2, sp.segs, p), dtype=torch.float64, device=sq.device)
+    off = torch.empty((2, sp.tiles, p), dtype=torch.float64,
+                      device=sq.device)
     out = torch.empty((n, p), dtype=torch.float64, device=sq.device)
     with torch.cuda.device(sq.device):
         err = _build.library().ta_kneller_windows(
-            sq.data_ptr(), corr.data_ptr(), tot.data_ptr(), out.data_ptr(),
-            n, p, KNELLER_ROWS, tot.shape[1], float(dfac), KNELLER_COLS,
-            *_grid(n, p), _build.stream(sq))
+            sq.data_ptr(), corr.data_ptr(), tot.data_ptr(), seg.data_ptr(),
+            off.data_ptr(), out.data_ptr(), n, p, KNELLER_ROWS, nb,
+            float(dfac), sp.log2c, sp.g, sp.tiles, sp.segt, sp.segs,
+            sp.chunk, grid_x, grid_segs, grid_tiles, _build.stream(sq))
     _build.check(err, "kneller_windows")
-    kneller_windows.launches += 1
+    kneller_windows.launches += 3
     return out
 
 

@@ -19,8 +19,10 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    its past/top time ratio): M = 2^14 and 2^17 over the EC width (5,520
    packed columns), M = 2^21 over 80 atoms (120 packed columns); the same
    kernels on narrow, very long series, 4 particles of 2 components at
-   M = 2^24 and at M = 2^25 (past the plan's old cap), with K2's share
-   of its bound and its work split at every shape; K8 at each windowed
+   M = 2^24 and at M = 2^25 (past the plan's old cap), with the share of
+   its bound and the work split of each K1 level, of K2 and of K5 at
+   every shape (K1's and K5's ``LevelTiles``: column tiles, or at narrow
+   widths ra rows of A a block at a slab pitch); K8 at each windowed
    run's shapes (the kernel over every atom, its plain version over
    every 21st atom's series) and at d = 5 (8,192 frames x 64 atoms, 512
    lags, both modes and operand types; one launch per group of at most
@@ -339,6 +341,17 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                               8 * nl * a * nl * c, PEAK_FP64_MMA)
         return t_bytes, t_dft + (6 * a * nl * c if tw else 0) / PEAK_FP64
 
+    def level_split(label, times, k_ms, tl):
+        """The share of its bound and K1's or K5's split of one launch."""
+        b_ms = bound(*times)[0]
+        split = (f"wide, {tl.tiles} column tiles of {tl.tc} x {tl.groups} "
+                 f"rows" if tl.wide else
+                 f"narrow, ra = {tl.ra} rows of {tl.tc} columns a block, "
+                 f"pitch {tl.pitch}, {tl.groups} groups")
+        phase("kernels", f"{label}: {100 * b_ms / k_ms:.1f} % of its "
+              f"{b_ms:.3f} ms bound; split: {split}, grid {tl.grid}, "
+              f"{tl.smem} bytes of shared memory")
+
     lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
     k6b_ms = {}
     shapes = [(name, n, n_molecules * len(EC_ATOMS), 3)
@@ -352,12 +365,15 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         for i, (a, nl, c, order, tw) in enumerate(
                 cuda_fft.level_shapes(plan, w)):
             x = crandn(a, nl, c)
-            compare(shape_key, "fft_level",
-                    lambda: lv(x, order, -1, twiddle_cols=tw),
-                    lambda: lvp(x, order, -1, twiddle_cols=tw),
-                    f"K1 forward level {i} ({a}, {nl}, {c})",
-                    level_work(a, nl, c, order, tw),
-                    library=lambda: torch.fft.fft(x, dim=1))
+            label = f"K1 forward level {i} ({a}, {nl}, {c})"
+            times = level_work(a, nl, c, order, tw)
+            k_ms = compare(shape_key, "fft_level",
+                           lambda: lv(x, order, -1, twiddle_cols=tw),
+                           lambda: lvp(x, order, -1, twiddle_cols=tw),
+                           label, times,
+                           library=lambda: torch.fft.fft(x, dim=1))
+            level_split(f"{shape_key} {label}", times, k_ms,
+                        cuda_fft.LevelTiles(a, nl, c))
             del x
         z = crandn(m, w)
         k2_work = (16 * m * (w + ph + 1) / PEAK_BYTES,
@@ -379,23 +395,30 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
         for i, (a, nl, c, order, tw) in enumerate(levels):
             x = crandn(a, nl, c)
-            compare(shape_key, "fft_level",
-                    lambda: lv(x, order, +1, twiddle_cols=tw),
-                    lambda: lvp(x, order, +1, twiddle_cols=tw),
-                    f"K1 inverse level {i} ({a}, {nl}, {c})",
-                    level_work(a, nl, c, order, tw),
-                    library=lambda: torch.fft.ifft(x, dim=1, norm="forward"))
+            label = f"K1 inverse level {i} ({a}, {nl}, {c})"
+            times = level_work(a, nl, c, order, tw)
+            k_ms = compare(shape_key, "fft_level",
+                           lambda: lv(x, order, +1, twiddle_cols=tw),
+                           lambda: lvp(x, order, +1, twiddle_cols=tw),
+                           label, times,
+                           library=lambda: torch.fft.ifft(x, dim=1,
+                                                          norm="forward"))
+            level_split(f"{shape_key} {label}", times, k_ms,
+                        cuda_fft.LevelTiles(a, nl, c))
             del x
         a, nl, c, _, _ = last
         n_out = min(nl, -(-n // a))
         t = crandn(a, nl, c)
-        compare(shape_key, "inverse_last_level",
-                lambda: cuda_fft.inverse_last_level(t, n, p, True),
-                lambda: cuda_fft.inverse_last_level_plain(t, n, p, True),
-                f"K5 inverse_last_level ({a}, {nl}, {c}) -> ({n}, {p}) "
-                "normalized",
-                ((16 * a * nl * c + 16 * nl + 8 * n * p) / PEAK_BYTES,
-                 8 * nl * a * n_out * c / PEAK_FP64_MMA + n * p / PEAK_FP64))
+        times = ((16 * a * nl * c + 16 * nl + 8 * n * p) / PEAK_BYTES,
+                 8 * nl * a * n_out * c / PEAK_FP64_MMA + n * p / PEAK_FP64)
+        k_ms = compare(shape_key, "inverse_last_level",
+                       lambda: cuda_fft.inverse_last_level(t, n, p, True),
+                       lambda: cuda_fft.inverse_last_level_plain(t, n, p,
+                                                                 True),
+                       f"K5 inverse_last_level ({a}, {nl}, {c}) -> ({n}, "
+                       f"{p}) normalized", times)
+        level_split(f"{shape_key} K5", times, k_ms,
+                    cuda_fft.LevelTiles(a, nl, c, epilogue=True))
         del t
         # the library's whole autocorrelation, beside K1 + K2 + K5's
         x = torch.randn((n, p * d), dtype=torch.float64, device=dev,
@@ -654,9 +677,9 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("Memcpy DtoH", "copy device->host"),
     ("Memcpy", "copy on device"),
     ("Memset", "memset"),
-    ("fft_level_kernel", "K1 fft_level"),
+    ("fft_level", "K1 fft_level"),      # fft_level_kernel, _rows_kernel
     ("unpack_power_inva_kernel", "K2 unpack_power_inva"),
-    ("inverse_last_level_kernel", "K5 inverse_last_level"),
+    ("inverse_last_level", "K5 inverse_last_level"),
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
     ("kneller_scan", "K6b kneller_windows scan"),

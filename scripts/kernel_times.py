@@ -5,8 +5,16 @@ FFT path also on narrow, very long series, on one CUDA Hopper card, K2,
 K6a and K8 against their plain versions and beside their bounds; a quick
 loop for tuning these kernels without the whole of chip_smoke.py.
 
-    python3 scripts/kernel_times.py [--only k6a|k6b|k8|vacf|fft|k2]
+    python3 scripts/kernel_times.py [--only k6a|k6b|k8|vacf|fft|k2|k1]
                                     [--reps 5] [--package DIR]
+
+``--only fft`` times each K1 level beside its bound and its ``torch.fft``
+call, K2, K5, K1 + K2 + K5 against the library's autocorrelation, and
+K6b, at the EC model, deep and depth shapes and the narrow top and past
+ones.
+``--only k1`` times K1's narrow levels and K5 (those of ``LevelTiles``
+whose block takes whole rows of A) under each ``LEVEL_SLAB`` of
+``LEVEL_SLABS``, the default first.
 
 ``--only k6b`` times K6b (kneller_windows, its scan's launches included)
 at the EC model, deep and depth shapes and the narrow top and past ones,
@@ -136,10 +144,12 @@ def k8(cuda_lag, g, reps, acf_only=False):
         del x, sub, got
 
 
-FFT_SHAPES = [  # (label, N, P, d): the EC model and deep widths, and the
-    # narrow, very long series at the plan's old cap and past it
+FFT_SHAPES = [  # (label, N, P, d): the EC model and deep widths, 80 atoms
+    # at 2^20 frames, and the narrow, very long series at the plan's old
+    # cap and past it
     ("model", 8192, EC_ATOMS, 3), ("deep", 65536, EC_ATOMS, 3),
-    ("top", 2 ** 23, 4, 2), ("past", 2 ** 24, 4, 2)]
+    ("depth", 2 ** 20, 80, 3), ("top", 2 ** 23, 4, 2),
+    ("past", 2 ** 24, 4, 2)]
 
 
 K2_SPLITS = [  # (UNPACK_PAIRS, UNPACK_SLAB, UNPACK_STAGE)
@@ -189,12 +199,48 @@ def k2_splits(cuda_fft, g, reps):
         torch.cuda.empty_cache()
 
 
+def level_bound(a, nl, c, order, tw):
+    """A K1 level's least milliseconds, as chip_smoke.py reckons them."""
+    return 1e3 * max((32 * a * nl * c + 16 * order) / PEAK_BYTES,
+                     8 * nl * a * nl * c / PEAK_FP64_MMA
+                     + (6 * a * nl * c if tw else 0) / PEAK_FP64)
+
+
+def k5_bound(a, nl, c, n, p):
+    n_out = min(nl, -(-n // a))
+    return 1e3 * max((16 * a * nl * c + 16 * nl + 8 * n * p) / PEAK_BYTES,
+                     8 * nl * a * n_out * c / PEAK_FP64_MMA
+                     + n * p / PEAK_FP64)
+
+
+def split_of(cuda_fft, a, nl, c, epilogue=False):
+    """K1's or K5's split, where the package has LevelTiles."""
+    if not hasattr(cuda_fft, "LevelTiles"):
+        return "one row of A a block"
+    tl = cuda_fft.LevelTiles(a, nl, c, epilogue)
+    return (f"wide, tiles of {tl.tc}" if tl.wide else
+            f"ra {tl.ra}, pitch {tl.pitch}")
+
+
+def fft_launches(cuda_fft, n, p, d):
+    """The K1 launches of one autocorrelation ((shape, sign) each) and
+    K5's shape."""
+    m = 2 * n
+    plan = cuda_fft.plan_levels(m)
+    w, ph = (p * d + 1) // 2, (p + 1) // 2
+    levels = [(shape, -1) for shape in cuda_fft.level_shapes(plan, w)]
+    *inverse, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+    return levels + [(shape, +1) for shape in inverse], last
+
+
 def fft(cuda_fft, cuda_kneller, g, reps):
-    """The FFT path's kernels at FFT_SHAPES: K2 alone (beside its bound,
-    as chip_smoke.py reckons it, and against its plain version), K1
-    summed over the levels of one autocorrelation, K5, the whole
-    autocorrelation of the (N, P·d) float64 series (K1 + K2 + K5) and
-    K6b. A package whose plan does not reach a shape says so."""
+    """The FFT path's kernels at FFT_SHAPES: each K1 level beside its
+    bound and its ``torch.fft`` call, K1 summed over the levels of one
+    autocorrelation, K2 alone (beside its bound, as chip_smoke.py reckons
+    it, and against its plain version), K5 beside its bound, the whole
+    autocorrelation of the (N, P·d) float64 series (K1 + K2 + K5) beside
+    the library's (rfft, |·|², component sum, irfft), and K6b. A package
+    whose plan does not reach a shape says so."""
     for label, n, p, d in FFT_SHAPES:
         m = 2 * n
         try:
@@ -209,23 +255,42 @@ def fft(cuda_fft, cuda_kneller, g, reps):
                   cuda_fft.unpack_power_inva_plain(z, p, d))
         del z
         bound = k2_bound(m, w, ph, plan[-1])
-        k1 = 0.0
-        levels = [(shape, -1) for shape in cuda_fft.level_shapes(plan, w)]
-        *inverse, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
-        levels += [(shape, +1) for shape in inverse]
-        for (a, nl, c, order, tw), sign in levels:
+        k1 = k1_bound = k1_lib = 0.0
+        levels, last = fft_launches(cuda_fft, n, p, d)
+        for i, ((a, nl, c, order, tw), sign) in enumerate(levels):
             x = crandn(g, a, nl, c)
-            k1 += time_ms(lambda: cuda_fft.fft_level(x, order, sign,
-                                                     twiddle_cols=tw), reps)
+            ms = time_ms(lambda: cuda_fft.fft_level(x, order, sign,
+                                                    twiddle_cols=tw), reps)
+            lib = time_ms((lambda: torch.fft.fft(x, dim=1)) if sign < 0
+                          else (lambda: torch.fft.ifft(x, dim=1,
+                                                       norm="forward")),
+                          reps)
+            b = level_bound(a, nl, c, order, tw)
+            k1, k1_bound, k1_lib = k1 + ms, k1_bound + b, k1_lib + lib
+            print(f"K1 {label} level {i} ({a}, {nl}, {c}) sign {sign:+d}, "
+                  f"{split_of(cuda_fft, a, nl, c)}: {ms:.3f} ms, bound "
+                  f"{b:.3f} ms ({100 * b / ms:.1f} %), library {lib:.3f} ms",
+                  flush=True)
             del x
         a, nl, c, _, _ = last
         t = crandn(g, a, nl, c)
         k5 = time_ms(lambda: cuda_fft.inverse_last_level(t, n, p, True),
                      reps)
+        b5 = k5_bound(a, nl, c, n, p)
+        print(f"K5 {label} ({a}, {nl}, {c}) -> ({n}, {p}), "
+              f"{split_of(cuda_fft, a, nl, c, True)}: {k5:.3f} ms, bound "
+              f"{b5:.3f} ms ({100 * b5 / k5:.1f} %)", flush=True)
         del t
         x = torch.randn((n, p * d), dtype=torch.float64, device="cuda",
                         generator=g)
         k = time_ms(lambda: cuda_fft.autocorr_power_sum(x, m, p, d), reps)
+
+        def library():
+            f = torch.fft.rfft(x, n=m, dim=0)
+            power = f.abs().square().reshape(m // 2 + 1, p, d).sum(-1)
+            return torch.fft.irfft(power, n=m, dim=0)[:n]
+
+        lib_acf = time_ms(library, reps)
         del x
         sq = torch.rand((n, p), dtype=torch.float64, device="cuda",
                         generator=g)
@@ -236,11 +301,58 @@ def fft(cuda_fft, cuda_kneller, g, reps):
                       reps)
         print(f"FFT {label} ({n}, {p}, {d}), M = {m}: K2 {k2:.3f} ms, "
               f"{100 * bound / k2:.1f} % of its {bound:.3f} ms bound, err "
-              f"{err:.2e}; K1 {k1:.3f} ms over {len(levels)} levels, K5 "
-              f"{k5:.3f} ms; K1 + K2 + K5 autocorrelation {k:.3f} ms; K6b "
-              f"{k6b:.3f} ms", flush=True)
+              f"{err:.2e}; K1 {k1:.3f} ms over {len(levels)} levels "
+              f"(bound {k1_bound:.3f}, {100 * k1_bound / k1:.1f} %; library "
+              f"{k1_lib:.3f}), K5 {k5:.3f} ms ({100 * b5 / k5:.1f} % of "
+              f"{b5:.3f}); K1 + K2 + K5 {k1 + k2 + k5:.3f} ms; "
+              f"autocorrelation {k:.3f} ms against the library's "
+              f"{lib_acf:.3f}; K6b {k6b:.3f} ms", flush=True)
         del sq, corr, tot
         torch.cuda.empty_cache()
+
+
+LEVEL_SLABS = [512, 1024, 2048, 4096, 8192]  # LEVEL_SLAB values to sweep
+
+
+def k1_splits(cuda_fft, g, reps):
+    """K1's narrow levels and K5 at FFT_SHAPES under the default
+    LEVEL_SLAB and each other of LEVEL_SLABS, beside their bounds and
+    against their plain versions."""
+    default = cuda_fft.LEVEL_SLAB
+    for label, n, p, d in FFT_SHAPES:
+        levels, last = fft_launches(cuda_fft, n, p, d)
+        cases = [(shape, sign) for shape, sign in levels
+                 if not cuda_fft.LevelTiles(*shape[:3]).wide]
+        if not cuda_fft.LevelTiles(*last[:3], epilogue=True).wide:
+            cases.append((last, None))
+        for (a, nl, c, order, tw), sign in cases:
+            x = crandn(g, a, nl, c)
+            if sign is None:
+                def call():
+                    return cuda_fft.inverse_last_level(x, n, p, True)
+                ref = cuda_fft.inverse_last_level_plain(x, n, p, True)
+                b, what = k5_bound(a, nl, c, n, p), "K5"
+            else:
+                def call():
+                    return cuda_fft.fft_level(x, order, sign,
+                                              twiddle_cols=tw)
+                ref = cuda_fft.fft_level_plain(x, order, sign, tw)
+                b, what = level_bound(a, nl, c, order, tw), "K1"
+            for slab in [default] + [s for s in LEVEL_SLABS if s != default]:
+                cuda_fft.LEVEL_SLAB = slab
+                tl = cuda_fft.LevelTiles(a, nl, c, sign is None)
+                if tl.smem > cuda_fft.SMEM_LIMIT:
+                    continue
+                ms = time_ms(call, reps)
+                err = rel(call(), ref)
+                tag = " (default)" if slab == default else ""
+                print(f"{what} {label} ({a}, {nl}, {c}) LEVEL_SLAB {slab}"
+                      f"{tag}: ra {tl.ra}, {tl.smem} B: {ms:.3f} ms, "
+                      f"{100 * b / ms:.1f} % of {b:.3f} ms, err {err:.2e}",
+                      flush=True)
+            cuda_fft.LEVEL_SLAB = default
+            del x, ref
+            torch.cuda.empty_cache()
 
 
 K6B_SHAPES = [  # (label, N, P, d): the shapes chip_smoke.py gives K6b
@@ -303,10 +415,12 @@ def smi(query: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only",
-                    choices=["k6a", "k6b", "k8", "vacf", "fft", "k2"],
+                    choices=["k6a", "k6b", "k8", "vacf", "fft", "k2",
+                             "k1"],
                     help="time one group: vacf is K8's acf launches alone, "
-                    "k2 K2 under each split of K2_SPLITS, k6b K6b at the "
-                    "EC and narrow shapes")
+                    "k2 K2 under each split of K2_SPLITS, k1 K1's narrow "
+                    "levels and K5 under each LEVEL_SLAB of LEVEL_SLABS, "
+                    "k6b K6b at the EC and narrow shapes")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package", default=ROOT,
                     help="checkout whose transport_analysis_tpu_torch to "
@@ -328,6 +442,8 @@ def main() -> int:
         fft(cuda_fft, cuda_kneller, g, args.reps)
     if args.only == "k2":
         k2_splits(cuda_fft, g, args.reps)
+    if args.only == "k1":
+        k1_splits(cuda_fft, g, args.reps)
     if args.only == "k6b":
         k6b(cuda_kneller, g, args.reps)
     return 0

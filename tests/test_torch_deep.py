@@ -63,13 +63,16 @@ def plan_launches(m, w, P, d):
     them out."""
     plan = cuda_fft.plan_levels(m)
     ph = (P + 1) // 2
-    launches = [(-(-c // cuda_fft.tile_cols(n)), a)
-                for a, n, c, _, _ in cuda_fft.level_shapes(plan, w)]
+    launches = [(tl.tiles, tl.groups) for tl in (
+        cuda_fft.LevelTiles(a, n, c)
+        for a, n, c, _, _ in cuda_fft.level_shapes(plan, w))]
     k2 = cuda_fft.UnpackTiles(m, plan[-1], w, P, d)
     launches.append((k2.tiles, k2.runs))
-    launches += [(-(-c // cuda_fft.tile_cols(n)), a)
-                 for a, n, c, _, _ in cuda_fft.level_shapes(
-                     plan[:-1], ph, a0=plan[-1])]
+    *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+    launches += [(tl.tiles, tl.groups) for tl in (
+        cuda_fft.LevelTiles(a, n, c) for a, n, c, _, _ in levels)]
+    k5 = cuda_fft.LevelTiles(*last[:3], epilogue=True)
+    launches.append((k5.tiles, k5.groups))
     return plan, launches
 
 
@@ -431,7 +434,349 @@ def test_unpack_replay_matches_the_plain_version(monkeypatch, m, n_top, P,
 
 
 # ---------------------------------------------------------------------
-# (e) the epilogue
+# (e) K1's and K5's split: whole rows of A a block at narrow widths
+# ---------------------------------------------------------------------
+
+def bank_degree(addr):
+    """The most distinct slab addresses (16-byte values) that the lanes of
+    one quarter-warp send to one 16-byte bank group (address mod 8), per
+    quarter-warp: ``addr`` (quarters, 8), −1 for an idle lane. Lanes on
+    one address are one broadcast."""
+    a = np.sort(addr, axis=1)
+    fresh = np.ones(a.shape, dtype=bool)
+    fresh[:, 1:] = a[:, 1:] != a[:, :-1]
+    banks = np.where(fresh & (a >= 0), a % 8, -1 - np.arange(8))
+    b = np.sort(banks, axis=1)
+    run = np.ones(b.shape, dtype=np.int64)
+    for i in range(1, 8):
+        run[:, i] = np.where((b[:, i] == b[:, i - 1]) & (b[:, i] >= 0),
+                             run[:, i - 1] + 1, 1)
+    return run.max(axis=1)
+
+
+def quarters(values, active, threads=256):
+    """Per-item ``values`` laid out as the kernels' lanes take them (item
+    idx on thread idx mod 256, so a quarter-warp holds eight consecutive
+    items), −1 where the lane idles."""
+    v = np.where(active, values, -1)
+    pad = -len(v) % threads
+    return np.concatenate([v, np.full(pad, -1)]).reshape(-1, 8)
+
+
+def level_items(tl, rows, n_k, tile=0):
+    """The DFT items of one block pass, as csrc/fft.cu enumerates them:
+    over a group of ``rows`` rows of A (narrow) or one row and column
+    tile ``tile`` (wide), for k < ``n_k``. Per item idx: k (K1 narrow:
+    the first of k and k + n/2), its row a_l within the group, its
+    column c, the slab address it reads at j = 0 (every lane adds the
+    same j·tc at step j) and whether the lane has a column."""
+    cols = tl.tc
+    if tl.wide:
+        k, cl = np.divmod(np.arange(n_k * cols), cols)
+        c = tile * cols + cl
+        return k, np.zeros_like(k), c, cl, c < tl.c
+    width = rows * cols
+    k, r = np.divmod(np.arange(n_k * width), width)
+    al, c = np.divmod(r, cols)
+    return k, al, c, al * tl.pitch + c, np.ones(len(k), dtype=bool)
+
+
+def pair_count(tl):
+    """K1's k of an item's first output: n/2 at a narrow level (the item
+    also forms k + n/2), n at a wide one and at n = 1."""
+    return tl.n // 2 if not tl.wide and tl.n > 1 else tl.n
+
+
+def replay_level_split(a, n, c, P=None, n_rows=None, full=None):
+    """K1's (``P`` None) or K5's work split (cuda_fft.LevelTiles) as
+    csrc/fft.cu runs it: grid y strides so that every group of rows is
+    taken by one block; the groups' rows partition A; a group stages each
+    of its input elements once (narrow: its rows' contiguous run, row a_l
+    at a_l·pitch, inside the slab); each output (k, a, c), or (lag, p)
+    for K5, is written once, and K5's output lanes read only stage slots
+    its sums wrote; and a quarter-warp's lanes send at most one address
+    to a bank group, two where they straddle two values of k. The counts
+    over every block are taken element by element when A·n·C is at most
+    2^20 (``full``), else from one full and the last group, whose offsets
+    are linear in the group's first row."""
+    k5 = P is not None
+    tl = cuda_fft.LevelTiles(a, n, c, epilogue=k5)
+    n_out = min(n, -(-n_rows // a)) if k5 else n
+    gx, gy = tl.grid
+    assert 1 <= gx <= _build.MAX_GRID_X and 1 <= gy <= _build.MAX_GRID_Y
+    assert tl.smem <= cuda_fft.SMEM_LIMIT
+    assert tl.ra >= 1 and tl.ra & (tl.ra - 1) == 0
+    if tl.wide:
+        assert (tl.tc, tl.ra, tl.pitch) == (cuda_fft.tile_cols(n), 1,
+                                            n * tl.tc)
+        assert tl.tiles == -(-c // tl.tc) and tl.groups == a
+    else:
+        assert tl.tc == c and tl.tiles == 1 and c <= cuda_fft.tile_cols(n)
+        assert tl.ra * n * c <= max(cuda_fft.LEVEL_SLAB, n * c)
+        assert (tl.ra == 1 or tl.ra >= a
+                or 2 * tl.ra * n * c > cuda_fft.LEVEL_SLAB)
+        assert tl.pitch >= n * c
+        if tl.ra > 1:
+            assert tl.pitch % 8 == c % 8 and tl.pitch < n * c + 8
+    # grid y: block y takes groups y, y + gy, …
+    g = np.arange(gy)[:, None] + gy * np.arange(-(-tl.groups // gy))
+    np.testing.assert_array_equal(
+        np.bincount(g[g < tl.groups], minlength=tl.groups), 1)
+    assert tl.rows(0).start == 0 and tl.rows(tl.groups - 1).stop == a
+    assert all(len(tl.rows(i)) == tl.ra for i in range(min(tl.groups - 1, 4)))
+    every = full if full is not None else a * n * c <= 2 ** 20
+    groups = range(tl.groups) if every else sorted({0, tl.groups - 1})
+    writes = np.zeros((n * a * c if not k5 else n_rows * P) if every else 0,
+                      np.int64)
+    half = n // 2 if pair_count(tl) < n else 0
+    for grp in groups:
+        a0, rows = tl.rows(grp).start, len(tl.rows(grp))
+        for t in range(tl.tiles):
+            if tl.wide:
+                j, cl = np.divmod(np.arange(n * tl.tc), tl.tc)
+                slots = (j * tl.tc + cl)[t * tl.tc + cl < c]
+            else:
+                i = np.arange(rows * n * c)
+                slots = i + (i // (n * c)) * (tl.pitch - n * c)
+                assert slots.max() < tl.ra * tl.pitch
+            assert len(np.unique(slots)) == len(slots)
+            k, al, col, addr, active = level_items(
+                tl, rows, n_out if k5 else pair_count(tl), t)
+            assert (k < n_out).all() and (al < rows).all()
+            if k5:
+                lag = k * a + a0 + al
+                active = active & (lag < n_rows)
+            deg = bank_degree(quarters(addr, active))
+            kq = quarters(k, active)
+            lo = np.where(kq >= 0, kq, kq.max(1)[:, None]).min(1)
+            assert deg[kq.max(1) == lo].max(initial=1) == 1
+            assert deg.max(initial=1) <= 2
+            if not k5:
+                dst = [k * a * c + (a0 + al) * c + col]
+                if half:
+                    dst.append(dst[0] + half * a * c)
+            elif tl.wide:
+                im = c + col < P
+                dst = [lag * P + col, np.where(im, lag * P + c + col, -1)]
+            else:
+                # the sums' stage slots, then the output lanes
+                width = rows * P
+                staged = np.concatenate([
+                    (k * width + al * P + col)[active],
+                    (k * width + al * P + c + col)[active & (c + col < P)]])
+                assert len(np.unique(staged)) == len(staged)
+                ko, r = np.divmod(np.arange(n_out * width), width)
+                live = ko * a + a0 + r // P < n_rows
+                assert set(np.flatnonzero(live)) == set(staged)
+                dst = [np.where(live, (ko * a + a0) * P + r, -1)]
+                active = np.ones(len(r), dtype=bool)
+            for d in dst:
+                d = d[active & (d >= 0)]
+                assert len(np.unique(d)) == len(d)
+                if len(writes):
+                    np.add.at(writes, d, 1)
+                elif not k5:
+                    # one pass's outputs: every (k, row, column) of it
+                    assert len(d) * (2 if half else 1) == (
+                        n * rows * min(tl.tc, c - t * tl.tc))
+    if len(writes):
+        np.testing.assert_array_equal(writes, 1)
+    return tl
+
+
+LEVEL_COLUMNS = [1, 2, 3, 4, 5, 16, 32, 40, 63, 64, 65, 120, 5520]
+
+
+@pytest.mark.parametrize("n", [2, 8, 16, 512])
+@pytest.mark.parametrize("c", LEVEL_COLUMNS)
+def test_level_split_replay(n, c):
+    """K1 and K5 at C from 1 to the EC width, n = 2 … 512, A one row past
+    two full groups (a short last group) and, for K5, odd and even P,
+    every row formed and a ragged N."""
+    ra = cuda_fft.LevelTiles(1 << 20, n, c).ra
+    a = 2 * ra + 1
+    tl = replay_level_split(a, n, c)
+    assert tl.wide == (c > cuda_fft.tile_cols(n))
+    for P in sorted({2 * c, 2 * c - 1}):
+        for n_rows in sorted({a * n, max(1, a * n - 3)}):
+            replay_level_split(a, n, c, P, n_rows)
+
+
+LEVEL_CHIP_SHAPES = [  # (label, A, n, C): chip_smoke.py's narrow launches
+    ("top forward 4", 65536, 16, 64), ("top forward 5", 2 ** 20, 16, 4),
+    ("top inverse 3", 65536, 16, 32), ("past forward 5", 2 ** 19, 8, 32),
+    ("past forward 6", 2 ** 22, 8, 4), ("past inverse 4", 2 ** 19, 8, 16)]
+EPILOGUE_CHIP_SHAPES = [  # (label, A, n, ph, N, P)
+    ("top", 2 ** 20, 16, 2, 2 ** 23, 4), ("past", 2 ** 22, 8, 2, 2 ** 24, 4),
+    ("depth", 2 ** 18, 8, 40, 2 ** 20, 80)]
+
+
+@pytest.mark.parametrize("label,a,n,c", LEVEL_CHIP_SHAPES)
+def test_level_split_at_the_chip_shapes(label, a, n, c):
+    """The narrow levels take whole rows, ra·C ≥ 64 outputs a k: no lane
+    idles, where a 64-column tile left 60 of 64 idle at C = 4."""
+    tl = replay_level_split(a, n, c)
+    assert not tl.wide and tl.ra * c >= 64
+    assert tl.ra * n * c == cuda_fft.LEVEL_SLAB
+
+
+@pytest.mark.parametrize("label,a,n,ph,n_rows,P", EPILOGUE_CHIP_SHAPES)
+def test_epilogue_split_at_the_chip_shapes(label, a, n, ph, n_rows, P):
+    tl = replay_level_split(a, n, ph, P, n_rows)
+    assert not tl.wide and tl.ra * P >= 64
+
+
+@pytest.mark.parametrize("n,c,k5", [(16, 1, False), (8, 3, False),
+                                    (2, 63, False), (512, 8, False),
+                                    (16, 2, True), (8, 5, True)])
+def test_level_split_past_grid_y(n, c, k5):
+    """A past 65,535 groups of ra rows: grid y's blocks stride over the
+    groups, each taken once."""
+    ra = cuda_fft.LevelTiles(1 << 30, n, c, epilogue=k5).ra
+    a = 65535 * ra + 5
+    P = 2 * c - 1 if k5 else None
+    tl = replay_level_split(a, n, c, P, a * n - 1 if k5 else None)
+    assert tl.groups > tl.grid[1] == _build.MAX_GRID_Y
+
+
+@pytest.mark.parametrize("n,c,k5", [(16, 4, False), (8, 40, False),
+                                    (16, 130, False), (16, 2, True),
+                                    (8, 3, True), (8, 70, True)])
+def test_level_split_strided_element_by_element(monkeypatch, n, c, k5):
+    """With grid y cut to 3 blocks, every block takes several groups; the
+    writes and stages are counted over every block."""
+    monkeypatch.setattr(_build, "MAX_GRID_Y", 3)
+    ra = cuda_fft.LevelTiles(1 << 20, n, c, epilogue=k5).ra
+    a = 7 * ra + 3
+    P = 2 * c if k5 else None
+    tl = replay_level_split(a, n, c, P, a * n - 5 if k5 else None, full=True)
+    assert tl.grid[1] == 3 < tl.groups
+
+
+def staged_slab(tl, x, a0, rows, tile):
+    """The slab of one block pass, filled at the split's slots."""
+    n, c = tl.n, tl.c
+    slab = np.zeros(tl.ra * tl.pitch, dtype=complex)
+    if tl.wide:
+        cols = tile * tl.tc + np.arange(tl.tc)
+        live = cols < c
+        slab.reshape(n, tl.tc)[:, live] = x[a0][:, cols[live]]
+    else:
+        i = np.arange(rows * n * c)
+        slab[i + (i // (n * c)) * (tl.pitch - n * c)] = x[
+            a0:a0 + rows].reshape(-1)
+    return slab
+
+
+def dft_items(tl, slab, rts, addr, k):
+    """Each item's sum over j of the slab value it reads at step j times
+    rts[(j·k) mod n]."""
+    j = np.arange(tl.n)
+    return (slab[addr[:, None] + j[None, :] * tl.tc]
+            * rts[(j[None, :] * k[:, None]) % tl.n]).sum(1)
+
+
+def level_replay(x, m, sign, tw):
+    """K1's arithmetic replayed in numpy pass by pass from
+    cuda_fft.LevelTiles, as csrc/fft.cu runs it: the slab staged at the
+    split's slots, each item's outputs k (and, narrow, k + n/2) the sum
+    over j of the slab value it reads times the root, then the twiddle
+    W_m^(sign·k·(c // tw)) from the order-m table."""
+    a, n, c = x.shape
+    tl = cuda_fft.LevelTiles(a, n, c)
+    roots = cuda_fft.unit_roots(m)
+    rts = roots[np.arange(n) * (m // n)]
+    if sign > 0:
+        rts, roots = np.conj(rts), np.conj(roots)
+    out = np.full(n * a * c, np.nan, dtype=complex)
+    n_k = pair_count(tl)
+    for g in range(tl.groups):
+        a0, rows = tl.rows(g).start, len(tl.rows(g))
+        for t in range(tl.tiles):
+            slab = staged_slab(tl, x, a0, rows, t)
+            k, al, col, addr, active = level_items(tl, rows, n_k, t)
+            k, al, col, addr = (v[active] for v in (k, al, col, addr))
+            for kk in ([k] if n_k == n else [k, k + n_k]):
+                v = dft_items(tl, slab, rts, addr, kk)
+                if tw:
+                    f = col // tw
+                    v = np.where((f > 0) & (kk > 0), v * roots[(kk * f) % m],
+                                 v)
+                out[kk * a * c + (a0 + al) * c + col] = v
+    return out.reshape(n, a, c)
+
+
+def epilogue_replay(t, n_rows, P, normalize):
+    """K5's arithmetic replayed likewise: each (k, a_l, q)'s complex sum
+    times the reciprocal of N − lag, its real part at column q and its
+    imaginary part at ph + q (narrow: through the (k, a_l, p) stage that
+    the output lanes copy out)."""
+    a, n, ph = t.shape
+    tl = cuda_fft.LevelTiles(a, n, ph, epilogue=True)
+    n_out = min(n, -(-n_rows // a))
+    rts = np.conj(cuda_fft.unit_roots(n))
+    out = np.full(n_rows * P, np.nan)
+    for g in range(tl.groups):
+        a0, rows = tl.rows(g).start, len(tl.rows(g))
+        for tile in range(tl.tiles):
+            slab = staged_slab(tl, t, a0, rows, tile)
+            k, al, col, addr, active = level_items(tl, rows, n_out, tile)
+            lag = k * a + a0 + al
+            keep = active & (lag < n_rows)
+            k, al, col, addr, lag = (v[keep] for v in (k, al, col, addr,
+                                                       lag))
+            v = dft_items(tl, slab, rts, addr, k)
+            if normalize:
+                v = v * (1.0 / (n_rows - lag))
+            im = ph + col < P
+            if tl.wide:
+                out[lag * P + col] = v.real
+                out[(lag * P + ph + col)[im]] = v.imag[im]
+                continue
+            width = rows * P
+            stage = np.full(n_out * width, np.nan)
+            row = k * width + al * P
+            stage[row + col] = v.real
+            stage[(row + ph + col)[im]] = v.imag[im]
+            ko, r = np.divmod(np.arange(n_out * width), width)
+            live = ko * a + a0 + r // P < n_rows
+            out[((ko * a + a0) * P + r)[live]] = stage[live]
+    return out.reshape(n_rows, P)
+
+
+@pytest.mark.parametrize("a,n,c,m,tw", [
+    (33, 16, 4, 16 * 64, 1), (17, 8, 3, 8, 0), (5, 16, 63, 256, 9),
+    (9, 16, 65, 1024, 5), (3, 512, 8, 512, 0), (131, 2, 1, 64, 1),
+    (4, 16, 40, 2 ** 12, 8), (2, 8, 120, 2 ** 10, 3), (7, 1, 3, 8, 0)])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_level_replay_matches_the_plain_version(a, n, c, m, tw, sign):
+    """K1's arithmetic at narrow and wide splits, short last groups, with
+    and without the twiddle, n = 1 … 512: within 1e-12 of
+    fft_level_plain."""
+    x = crandn(np.random.RandomState(a + n + c), a, n, c)
+    got = level_replay(x, m, sign, tw)
+    ref = cuda_fft.fft_level_plain(torch.from_numpy(x), m, sign, tw).numpy()
+    assert rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("a,n,ph,n_rows", [
+    (65, 16, 2, 65 * 8), (33, 8, 3, 33 * 8 - 5), (9, 16, 5, 40),
+    (3, 8, 63, 3 * 8), (5, 16, 65, 77), (129, 2, 1, 200), (6, 8, 40, 47)])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_epilogue_replay_matches_the_plain_version(a, n, ph, n_rows,
+                                                   normalize):
+    """K5's arithmetic, odd P and even, normalize both ways, rows past N
+    skipped: within 1e-12 of inverse_last_level_plain."""
+    t = crandn(np.random.RandomState(a * ph + n), a, n, ph)
+    for P in sorted({2 * ph, max(1, 2 * ph - 1)}):
+        got = epilogue_replay(t, n_rows, P, normalize)
+        ref = cuda_fft.inverse_last_level_plain(
+            torch.from_numpy(t), n_rows, P, normalize).numpy()
+        assert rel(got, ref) <= TOL, P
+
+
+# ---------------------------------------------------------------------
+# (f) the epilogue
 # ---------------------------------------------------------------------
 
 @pytest.mark.parametrize("normalize", [False, True])
@@ -490,7 +835,7 @@ def test_in_place_einstein_matches_the_copying_form():
 
 
 # ---------------------------------------------------------------------
-# (f) the models at N = 40,000 against the JAX package
+# (g) the models at N = 40,000 against the JAX package
 # ---------------------------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -82,6 +82,107 @@ def test_fft_kernels_vs_plain(cuda_device, m, b):
         assert rel(out, want) <= TOL
 
 
+# K1's and K5's narrow launches (cuda_fft.LevelTiles: ra rows of A a
+# block) at chip_smoke.py's shapes: (A, n, C) of the top (M = 2^24) and
+# past (M = 2^25) forward and inverse levels on 8 series, and the depth
+# epilogue's (80 atoms, M = 2^21).
+NARROW_LEVELS = [(2 ** 20, 16, 4), (65536, 16, 64), (65536, 16, 32),
+                 (2 ** 22, 8, 4), (2 ** 19, 8, 32), (2 ** 19, 8, 16)]
+NARROW_EPILOGUES = [(2 ** 20, 16, 2), (2 ** 22, 8, 2), (2 ** 18, 8, 40)]
+
+
+def level_cases(n, c, sign):
+    """The level's twiddle of sub-order 64·n over columns of 1 (every
+    column its own factor) and none."""
+    return [(64 * n, 1), (n, 0)] if sign < 0 else [(64 * n, 1)]
+
+
+@pytest.mark.parametrize("a,n,c", NARROW_LEVELS)
+def test_level_kernel_at_the_narrow_launches(cuda_device, a, n, c):
+    rng = np.random.RandomState(a % 997 + c)
+    x = crandn(rng, cuda_device, a, n, c)
+    tl = cuda_fft.LevelTiles(a, n, c)
+    assert not tl.wide and tl.ra * n * c <= cuda_fft.LEVEL_SLAB
+    for sign in (-1, +1):
+        for m, tw in level_cases(n, c, sign):
+            before = cuda_fft.fft_level.launches
+            got = cuda_fft.fft_level(x, m, sign, twiddle_cols=tw)
+            assert cuda_fft.fft_level.launches == before + 1
+            ref = cuda_fft.fft_level_plain(x, m, sign, twiddle_cols=tw)
+            assert rel(got, ref) <= TOL, (sign, tw)
+
+
+@pytest.mark.parametrize("n", [2, 8, 16])
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 63, 65])
+def test_level_kernel_narrow_ragged(cuda_device, n, c):
+    """C below, at and past the tile (65 is wide at n ≤ 64), A one row
+    past a multiple of ra (a short last group), both signs, a twiddle of
+    sub-order 64·n."""
+    ra = cuda_fft.LevelTiles(1 << 20, n, c).ra
+    a = 3 * ra + 1
+    x = crandn(np.random.RandomState(n * c), cuda_device, a, n, c)
+    for sign in (-1, +1):
+        for m, tw in level_cases(n, c, sign):
+            got = cuda_fft.fft_level(x, m, sign, twiddle_cols=tw)
+            ref = cuda_fft.fft_level_plain(x, m, sign, twiddle_cols=tw)
+            assert rel(got, ref) <= TOL, (sign, tw)
+
+
+@pytest.mark.parametrize("n,c", [(16, 1), (8, 3), (2, 63)])
+def test_level_kernel_past_grid_y(cuda_device, n, c):
+    """More than 65,535 groups of ra rows: blocks stride over them."""
+    tl = cuda_fft.LevelTiles(1 << 30, n, c)
+    a = 65535 * tl.ra + 5
+    tl = cuda_fft.LevelTiles(a, n, c)
+    assert tl.groups > tl.grid[1] == 65535
+    x = crandn(np.random.RandomState(c), cuda_device, a, n, c)
+    got = cuda_fft.fft_level(x, 64 * n, +1, twiddle_cols=1)
+    assert rel(got, cuda_fft.fft_level_plain(x, 64 * n, +1, 1)) <= TOL
+
+
+def epilogue_check(t, n_rows, P):
+    for normalize in (False, True):
+        before = cuda_fft.inverse_last_level.launches
+        got = cuda_fft.inverse_last_level(t, n_rows, P, normalize)
+        assert cuda_fft.inverse_last_level.launches == before + 1
+        want = cuda_fft.inverse_last_level_plain(t, n_rows, P, normalize)
+        assert got.shape == (n_rows, P)
+        assert rel(got, want) <= TOL, normalize
+
+
+@pytest.mark.parametrize("a,n,ph", NARROW_EPILOGUES)
+def test_epilogue_kernel_at_the_narrow_launches(cuda_device, a, n, ph):
+    """N of chip_smoke.py's runs (A·n/2: half the rows formed) and one
+    row past a multiple of A, odd P and even."""
+    t = crandn(np.random.RandomState(a % 991 + ph), cuda_device, a, n, ph)
+    for P in (2 * ph, 2 * ph - 1):
+        for n_rows in (a * n // 2, 3 * a + 1):
+            epilogue_check(t, n_rows, P)
+
+
+@pytest.mark.parametrize("n", [2, 8, 16])
+@pytest.mark.parametrize("ph", [1, 2, 3, 5, 63, 65])
+def test_epilogue_kernel_narrow_ragged(cuda_device, n, ph):
+    """A one row past a multiple of ra, odd and even P, N at every row,
+    at a ragged row count and within the first k."""
+    ra = cuda_fft.LevelTiles(1 << 20, n, ph, epilogue=True).ra
+    a = 3 * ra + 1
+    t = crandn(np.random.RandomState(n + ph), cuda_device, a, n, ph)
+    for P in sorted({2 * ph, max(1, 2 * ph - 1)}):
+        for n_rows in sorted({a * n, a * n - 3, a + 2, 1}):
+            epilogue_check(t, n_rows, P)
+
+
+@pytest.mark.parametrize("n,ph", [(16, 2), (8, 5)])
+def test_epilogue_kernel_past_grid_y(cuda_device, n, ph):
+    tl = cuda_fft.LevelTiles(1 << 30, n, ph, epilogue=True)
+    a = 65535 * tl.ra + 3
+    tl = cuda_fft.LevelTiles(a, n, ph, epilogue=True)
+    assert tl.groups > tl.grid[1] == 65535
+    t = crandn(np.random.RandomState(n), cuda_device, a, n, ph)
+    epilogue_check(t, a * n - 1, 2 * ph - 1)
+
+
 @pytest.mark.parametrize("n,P,d", [(1, 1, 1), (100, 3, 3), (4097, 5, 2)])
 def test_autocorrelation_vs_host(cuda_device, n, P, d):
     x = np.random.RandomState(n).normal(0.5, 2.0, (n, P, d))
@@ -91,9 +192,11 @@ def test_autocorrelation_vs_host(cuda_device, n, P, d):
 
 
 @pytest.mark.parametrize("n,P,d", [(40000, 3, 3), (2 ** 20, 2, 3),
-                                   (2 ** 23, 1, 3)])
+                                   (2 ** 23, 1, 3), (2 ** 20 + 1, 4, 2),
+                                   (2 ** 17 + 1, 80, 3), (2 ** 23, 4, 2)])
 def test_deep_autocorrelation_vs_host(cuda_device, n, P, d):
-    """The deep range, M = 2^17, 2^21 and 2^24, on lags < N/2: past them
+    """The deep range, M = 2^17 … 2^24, 8 series and 80 atoms (narrow
+    levels and epilogues), on lags < N/2: past them
     the division by N − lag → 1 lifts both sides' absolute error floor,
     about eps·N of the maximum, into view."""
     x = np.random.RandomState(n % 1000).normal(0.5, 2.0, (n, P, d))

@@ -33,13 +33,15 @@ NVCC_FLAGS = [
 _P, _L, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # C entry point -> argument types; each returns a cudaError_t as int
 SIGNATURES = {
-    # in, out, roots, A, n, C, sign, tw_cols, m, tc, grid x, y, stream
-    "ta_fft_level": [_P, _P, _P, *[_L] * 9, _P],
+    # in, out, roots, A, n, C, sign, tw_cols, m, tc, ra, pitch, grid x, y,
+    # stream
+    "ta_fft_level": [_P, _P, _P, *[_L] * 11, _P],
     # z, out, roots, m, n_top, R, w, P, d, ph, shift, tq, nj, ktc, cols,
     # fine_bits, grid x, y, stream
     "ta_unpack_power_inva": [_P, _P, _P, *[_L] * 15, _P],
-    # in, out, roots, A, n, ph, n_out, N, P, normalize, tc, grid x, y, stream
-    "ta_inverse_last_level": [_P, _P, _P, *[_L] * 10, _P],
+    # in, out, roots, A, n, ph, n_out, N, P, normalize, tc, ra, pitch,
+    # grid x, y, stream
+    "ta_inverse_last_level": [_P, _P, _P, *[_L] * 12, _P],
     # sq, tot, n, p, rows, nb, run, runs, grid x, y, stream
     "ta_kneller_totals": [_P, _P, *[_L] * 8, _P],
     # sq, corr, tot, seg, off, out, n, p, rows, nb, dfac, log2c, g, tiles,

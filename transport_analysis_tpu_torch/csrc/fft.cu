@@ -43,9 +43,23 @@
 // unity in shared memory, so every operand of the inner loop comes from
 // shared memory and each global element is read once per level, and
 // plan_levels keeps the levels near 16 points, where the two bounds meet.
-// Next: more than one row of A per block when C is narrow (a 64-column tile
-// of a 4-column level is mostly idle), then register blocking or a radix
-// form for longer levels.
+//
+// At narrow widths (C <= 64 at n <= 64: the last levels of 8 series) a
+// 64-column tile and one row of A a block left most lanes idle (60 of 64
+// at C = 4) and spent two barriers on a 1 KB slab: K1's levels summed to
+// 17.0 ms at M = 2^24 against the library's 11.7 and K5 took 5.9 ms
+// against a 0.24 ms bound (4 %). What the design does about it
+// (cuda_fft.LevelTiles): a block takes ra whole rows of A (ra·n·C <= 1,024
+// values), one contiguous run staged by cp.async at a padded pitch, and
+// its lanes lie over (a_l, c); a K1 item forms k and k + n/2 from one read
+// of its slab column, halving the slab reads; K5 forms each complex sum
+// once into a shared stage that lanes over (a_l, p) write out as whole
+// output rows. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/kernel_times.py --only fft): K1 8.4-8.5 ms at M = 2^24 and
+// 18.9-19.0 ms at 2^25 over 4 columns (61-65 % of their bounds, against
+// the library's 11.6 and 27.6), K5 0.38 and 0.62 ms (62-77 %).
+// Next: the same pairing in the wide kernel, or a radix form for longer
+// levels.
 //
 // K2 is bounded by device memory: it reads the spectrum once and writes a
 // third of its bytes (at the EC width). A first design, one block per
@@ -63,9 +77,10 @@
 // 5.4 ms at M = 2^17 over the EC width (85 % of its bound), 0.66 ms at
 // M = 2^24 and 1.22 ms at M = 2^25 over 4 columns (84 %, 92 %).
 //
-// Launch geometry: grid x walks column tiles, grid y the A axis (the
-// frequency rows for K2); when A exceeds CUDA's y limit of 65,535 a block
-// strides over A by gridDim.y. Sizes and offsets are 64-bit.
+// Launch geometry: grid x walks column tiles, grid y the A axis (groups of
+// ra rows at narrow levels, the frequency rows for K2); when they exceed
+// CUDA's y limit of 65,535 a block strides over them by gridDim.y. Sizes
+// and offsets are 64-bit.
 //
 // Numerics: native f64 throughout; the roots come from tables built on the
 // host in float64 with the angle reduced to the first octant. No int8 bands,
@@ -81,10 +96,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
   return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-inline size_t smem_bytes(int64_t n, int64_t tc) {
-  return (size_t)(n + n * tc) * sizeof(double2);
 }
 
 // rts[t] = W_n^(sign * t) from the order-m table roots[i] = exp(-2 pi i i / m).
@@ -127,6 +138,20 @@ __device__ __forceinline__ double2 dft_point(const double2* slab,
   return make_double2(re, im);
 }
 
+// v times the twiddle W_m^(sign * k * (c / tw_cols)) when tw_cols > 0.
+__device__ __forceinline__ double2 level_twiddle(double2 v, int k, int64_t c,
+                                                 const double2* roots,
+                                                 int64_t m, int sign,
+                                                 int64_t tw_cols) {
+  const int64_t f = tw_cols > 0 ? c / tw_cols : 0;
+  if (f > 0 && k > 0) {
+    double2 t = roots[(k * f) & (m - 1)];
+    if (sign > 0) t.y = -t.y;
+    v = cmul(v, t);
+  }
+  return v;
+}
+
 // dst[k * k_stride + c] for k < n and c = c0 + cl < C: the DFT over j of
 // slab[j * tc + cl], times the twiddle W_m^(sign * k * (c / tw_cols)) when
 // tw_cols > 0.
@@ -140,18 +165,29 @@ __device__ void dft_columns(const double2* slab, const double2* rts, int n,
     const int cl = idx - k * tc;
     const int64_t c = c0 + cl;
     if (c >= C) continue;
-    double2 v = dft_point(slab, rts, n, tc, k, cl);
-    const int64_t f = tw_cols > 0 ? c / tw_cols : 0;
-    if (f > 0 && k > 0) {
-      double2 t = roots[(k * f) & (m - 1)];
-      if (sign > 0) t.y = -t.y;
-      v = cmul(v, t);
-    }
-    dst[k * k_stride + c] = v;
+    dst[k * k_stride + c] = level_twiddle(dft_point(slab, rts, n, tc, k, cl),
+                                          k, c, roots, m, sign, tw_cols);
   }
 }
 
-// K1: block (x: column tile, y: a, strided). in (A, n, C) -> out (n, A, C).
+// Rows [a0, a0 + rows) of an (A, n, C) input are one contiguous run of
+// rows * n * C values: staged by 16-byte cp.async copies, row a_l at slab +
+// a_l * pitch (LevelTiles' narrow split). The caller synchronizes after.
+__device__ void stage_rows(double2* slab, const double2* __restrict__ src,
+                           int total, int nc, int pitch) {
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int al = i / nc;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(slab + i +
+                                                        al * (pitch - nc))),
+                 "l"(src + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K1, wide (C > tc): block (x: column tile, y: a, strided).
+// in (A, n, C) -> out (n, A, C).
 __global__ void fft_level_kernel(const double2* __restrict__ in,
                                  double2* __restrict__ out,
                                  const double2* __restrict__ roots, int64_t m,
@@ -168,6 +204,81 @@ __global__ void fft_level_kernel(const double2* __restrict__ in,
     __syncthreads();
     dft_columns(slab, rts, n, tc, c0, C, out + a * C, A * C, roots, m, sign,
                 tw_cols);
+  }
+}
+
+// Two outputs k0 and k1 of one slab column from one read of each slab
+// value: each the sum of dft_point, in its order of multiply-adds.
+__device__ __forceinline__ void dft_pair(const double2* col,
+                                         const double2* rts, int n,
+                                         int stride, int k0, int k1,
+                                         double2& v0, double2& v1) {
+  const int mask = n - 1;
+  double re0 = 0.0, im0 = 0.0, re1 = 0.0, im1 = 0.0;
+  int e0 = 0, e1 = 0;
+  for (int j = 0; j < n; ++j) {
+    const double2 x = col[j * stride];
+    const double2 r0 = rts[e0], r1 = rts[e1];
+    re0 = fma(x.x, r0.x, re0);
+    re0 = fma(-x.y, r0.y, re0);
+    im0 = fma(x.x, r0.y, im0);
+    im0 = fma(x.y, r0.x, im0);
+    re1 = fma(x.x, r1.x, re1);
+    re1 = fma(-x.y, r1.y, re1);
+    im1 = fma(x.x, r1.y, im1);
+    im1 = fma(x.y, r1.x, im1);
+    e0 = (e0 + k0) & mask;
+    e1 = (e1 + k1) & mask;
+  }
+  v0 = make_double2(re0, im0);
+  v1 = make_double2(re1, im1);
+}
+
+// K1, narrow (C <= tc, LevelTiles' row groups): block (y: group of ra rows
+// of A, strided). An item (k, a_l, c), c fastest, forms outputs k and
+// k + n/2 of its slab column from one read of each slab value (at n = 1,
+// k alone), so each k writes the group's ra * C contiguous outputs. A
+// warp's lanes read consecutive (a_l, c) of one slab row j: row a_l lies
+// at a_l * pitch with pitch = C (mod 8) 16-byte values, so the eight lanes
+// of a quarter-warp fall in eight different 16-byte bank groups.
+// in (A, n, C) -> out (n, A, C).
+__global__ void fft_level_rows_kernel(const double2* __restrict__ in,
+                                      double2* __restrict__ out,
+                                      const double2* __restrict__ roots,
+                                      int64_t m, int n, int64_t C, int64_t A,
+                                      int ra, int pitch, int sign,
+                                      int64_t tw_cols) {
+  extern __shared__ double2 smem[];
+  double2* rts = smem;
+  double2* slab = smem + n;
+  const int cols = (int)C, nc = n * cols, half = n >> 1;
+  const int nk = half > 0 ? half : 1;  // the k of an item's first output
+  load_roots(rts, roots, m, n, sign);
+  for (int64_t a0 = (int64_t)blockIdx.y * ra; a0 < A;
+       a0 += (int64_t)gridDim.y * ra) {
+    const int rows = (int)(A - a0 < ra ? A - a0 : ra);
+    const int width = rows * cols;  // the outputs of one k
+    __syncthreads();  // the slab's last readers are done
+    stage_rows(slab, in + a0 * nc, rows * nc, nc, pitch);
+    __syncthreads();
+    double2* dst = out + a0 * C;
+    for (int idx = threadIdx.x; idx < nk * width; idx += blockDim.x) {
+      const int k = idx / width;
+      const int r = idx - k * width;
+      const int al = r / cols;
+      const int c = r - al * cols;
+      const double2* col = slab + al * pitch + c;
+      if (half > 0) {
+        double2 v0, v1;
+        dft_pair(col, rts, n, cols, k, k + half, v0, v1);
+        dst[k * A * C + r] =
+            level_twiddle(v0, k, c, roots, m, sign, tw_cols);
+        dst[(k + half) * A * C + r] =
+            level_twiddle(v1, k + half, c, roots, m, sign, tw_cols);
+      } else {
+        dst[r] = dft_point(col, rts, n, cols, 0, 0);  // n = 1: no twiddle
+      }
+    }
   }
 }
 
@@ -318,9 +429,9 @@ __global__ void unpack_power_inva_kernel(
   }
 }
 
-// K5: block (x: column tile, y: a, strided). in (A, n, C), C = ph, the
-// inverse DFT over n (no twiddle: the last level of its sub-transform),
-// output row lag = k * A + a < N of out (N, P) float64:
+// K5, wide (C > tc): block (x: column tile, y: a, strided). in (A, n, C),
+// C = ph, the inverse DFT over n (no twiddle: the last level of its
+// sub-transform), output row lag = k * A + a < N of out (N, P) float64:
 // out[lag, q] = re * s and, for ph + q < P, out[lag, ph + q] = im * s, with
 // s = 1 / (N - lag) when normalize, else no scaling.
 __global__ void inverse_last_level_kernel(const double2* __restrict__ in,
@@ -358,10 +469,80 @@ __global__ void inverse_last_level_kernel(const double2* __restrict__ in,
   }
 }
 
+// K5, narrow (C <= tc, LevelTiles' row groups), the same function: block
+// (y: group of ra rows of A, strided). Items (k, a_l, q), q fastest, form
+// each complex sum once (dft_point, its slab reads as K1's) and put its
+// real part at column q and its imaginary part at ph + q of a shared
+// (k, a_l, p) stage; then the output lanes, over (k, a_l, p) with p
+// fastest, write the group's ra * P contiguous doubles of each k (lags
+// k * A + a0 ...), rows past N skipped.
+__global__ void inverse_last_level_rows_kernel(
+    const double2* __restrict__ in, double* __restrict__ out,
+    const double2* __restrict__ roots, int n, int64_t C, int64_t A, int n_out,
+    int ra, int pitch, int64_t N, int64_t P, int normalize) {
+  extern __shared__ double2 smem[];
+  double2* rts = smem;
+  double2* slab = smem + n;
+  double* stage = (double*)(slab + ra * pitch);  // (k, a_l, p)
+  const int cols = (int)C, nc = n * cols, np = (int)P;
+  load_roots(rts, roots, n, n, +1);
+  for (int64_t a0 = (int64_t)blockIdx.y * ra; a0 < A;
+       a0 += (int64_t)gridDim.y * ra) {
+    const int rows = (int)(A - a0 < ra ? A - a0 : ra);
+    const int wq = rows * cols;     // the complex sums of one k
+    const int width = rows * np;    // the output doubles of one k
+    __syncthreads();  // the slab's and the stage's last readers are done
+    stage_rows(slab, in + a0 * nc, rows * nc, nc, pitch);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < n_out * wq; idx += blockDim.x) {
+      const int k = idx / wq;
+      const int r = idx - k * wq;
+      const int al = r / cols;
+      const int q = r - al * cols;
+      const int64_t lag = k * A + a0 + al;
+      if (lag >= N) continue;
+      const double2 v = dft_point(slab + al * pitch, rts, n, cols, k, q);
+      double re = v.x, im = v.y;
+      if (normalize) {
+        // the reciprocal first, then the product: ops/acf.py's order
+        const double inv = 1.0 / (double)(N - lag);
+        re *= inv;
+        im *= inv;
+      }
+      double* row = stage + k * width + al * np;
+      row[q] = re;
+      if (cols + q < np) row[cols + q] = im;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < n_out * width; idx += blockDim.x) {
+      const int k = idx / width;
+      const int r = idx - k * width;
+      if (k * A + a0 + r / np < N) out[(k * A + a0) * P + r] = stage[idx];
+    }
+  }
+}
+
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// K1's and K5's split from cuda_fft.LevelTiles, checked: wide (tc < C, one
+// row a block) or narrow (tc == C, ra rows a block at pitch); the shared
+// memory of the root table and the wide slab, or of the narrow slab and,
+// for K5, its stage.
+cudaError_t level_smem(const void* wide_fn, const void* rows_fn, int64_t n,
+                       int64_t C, int64_t tc, int64_t ra, int64_t pitch,
+                       bool epilogue, size_t* bytes) {
+  const bool wide = tc < C;
+  if (n < 1 || tc < 1 || ra < 1 || tc > C || (wide && ra != 1) ||
+      pitch < n * tc)
+    return cudaErrorInvalidValue;
+  const int64_t stage = epilogue ? n * ra * C : 0;  // K5's (k, a_l, p)
+  *bytes = (size_t)(wide ? n + n * tc : n + ra * pitch + stage) *
+           sizeof(double2);
+  return allow_smem(wide ? wide_fn : rows_fn, *bytes);
 }
 
 }  // namespace
@@ -372,19 +553,27 @@ const char* ta_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// in (A, n, C) complex128 -> out (n, A, C); roots: the order-m table; tc
-// columns per block on a (grid_x, grid_y) grid from cuda_fft.py.
+// in (A, n, C) complex128 -> out (n, A, C); roots: the order-m table; the
+// split (tc, ra, pitch) and the (grid_x, grid_y) grid from
+// cuda_fft.LevelTiles.
 int ta_fft_level(const void* in, void* out, const void* roots, int64_t A,
                  int64_t n, int64_t C, int64_t sign, int64_t tw_cols,
-                 int64_t m, int64_t tc, int64_t grid_x, int64_t grid_y,
-                 void* stream) {
-  const size_t smem = smem_bytes(n, tc);
-  cudaError_t err = allow_smem((const void*)fft_level_kernel, smem);
+                 int64_t m, int64_t tc, int64_t ra, int64_t pitch,
+                 int64_t grid_x, int64_t grid_y, void* stream) {
+  size_t smem = 0;
+  cudaError_t err = level_smem((const void*)fft_level_kernel,
+                               (const void*)fft_level_rows_kernel, n, C, tc,
+                               ra, pitch, false, &smem);
   if (err != cudaSuccess) return (int)err;
-  fft_level_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), kThreads, smem,
-                     (cudaStream_t)stream>>>(
-      (const double2*)in, (double2*)out, (const double2*)roots, m, (int)n, C,
-      A, (int)tc, (int)sign, tw_cols);
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  if (tc < C)
+    fft_level_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const double2*)in, (double2*)out, (const double2*)roots, m, (int)n,
+        C, A, (int)tc, (int)sign, tw_cols);
+  else
+    fft_level_rows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const double2*)in, (double2*)out, (const double2*)roots, m, (int)n,
+        C, A, (int)ra, (int)pitch, (int)sign, tw_cols);
   return (int)cudaGetLastError();
 }
 
@@ -414,18 +603,28 @@ int ta_unpack_power_inva(const void* z, void* out, const void* roots,
   return (int)cudaGetLastError();
 }
 
-// in (A, n, ph) complex128 -> out (N, P) float64; roots: the order-n table.
+// in (A, n, ph) complex128 -> out (N, P) float64; roots: the order-n table;
+// the split and the grid from cuda_fft.LevelTiles.
 int ta_inverse_last_level(const void* in, void* out, const void* roots,
                           int64_t A, int64_t n, int64_t ph, int64_t n_out,
                           int64_t N, int64_t P, int64_t normalize, int64_t tc,
-                          int64_t grid_x, int64_t grid_y, void* stream) {
-  const size_t smem = smem_bytes(n, tc);
-  cudaError_t err = allow_smem((const void*)inverse_last_level_kernel, smem);
+                          int64_t ra, int64_t pitch, int64_t grid_x,
+                          int64_t grid_y, void* stream) {
+  size_t smem = 0;
+  cudaError_t err = level_smem((const void*)inverse_last_level_kernel,
+                               (const void*)inverse_last_level_rows_kernel, n,
+                               ph, tc, ra, pitch, true, &smem);
   if (err != cudaSuccess) return (int)err;
-  inverse_last_level_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), kThreads, smem,
-                              (cudaStream_t)stream>>>(
-      (const double2*)in, (double*)out, (const double2*)roots, (int)n, ph, A,
-      (int)n_out, (int)tc, N, P, (int)normalize);
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  if (tc < ph)
+    inverse_last_level_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const double2*)in, (double*)out, (const double2*)roots, (int)n, ph,
+        A, (int)n_out, (int)tc, N, P, (int)normalize);
+  else
+    inverse_last_level_rows_kernel<<<grid, kThreads, smem,
+                                     (cudaStream_t)stream>>>(
+        (const double2*)in, (double*)out, (const double2*)roots, (int)n, ph,
+        A, (int)n_out, (int)ra, (int)pitch, N, P, (int)normalize);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,10 @@ last level is the epilogue K5 (:func:`inverse_last_level`) that writes the
 
 :func:`fft_level`, :func:`unpack_power_inva` and
 :func:`inverse_last_level` launch their CUDA kernels (``csrc/fft.cu``) on
-CUDA tensors and run their plain PyTorch versions on CPU tensors;
+CUDA tensors, with K1's and K5's work split from :class:`LevelTiles`
+(column tiles at wide levels, groups of whole rows of A at narrow ones)
+and K2's from :class:`UnpackTiles`, and run their plain PyTorch versions
+on CPU tensors;
 :func:`autocorr_power_sum` is the one orchestration both devices run, so
 the CPU tests exercise the same plans and index maps as the card.
 """
@@ -143,6 +146,64 @@ def tile_cols(n: int) -> int:
     return min(64, max(8, 4096 // n))
 
 
+# K1's and K5's work split (csrc/fft.cu). A level of C > tile_cols(n)
+# columns is wide: a block takes a column tile and one row of A at a time.
+# A narrower level leaves most of such a tile idle (60 of 64 lanes at
+# C = 4), so its block takes whole rows, ra of them: rows a0 … a0 + ra − 1
+# are one contiguous run of the (A, n, C) input. LEVEL_SLAB was chosen
+# from scripts/kernel_times.py --only k1 times of 512 … 8,192 at the top,
+# past and depth shapes: fastest for K5 at top and past, within 4 % of the
+# fastest (2,048) at K1's narrow levels; 4,096 and more lose occupancy.
+LEVEL_SLAB = 1024       # most complex values a narrow level's block stages
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+class LevelTiles:
+    """The work split of K1, or of K5 (``epilogue``), over an (A, n, C)
+    level.
+
+    Wide, C > tile_cols(n): column tiles of ``tc`` = tile_cols(n) (grid x),
+    one row of A at a time (``ra`` = 1), an n × tc slab zero past C; an
+    item is an output (k, c).
+    Narrow, C ≤ tile_cols(n): ``tc`` = C, one column tile, and groups of
+    ``ra`` rows of A (grid y), ra the largest power of two with
+    ra·n·C ≤ ``LEVEL_SLAB`` (at least 1, at most A rounded up to a power
+    of two); the last group may be short. Row a_l of a group lies at
+    a_l·``pitch`` in the slab, pitch ≡ C (mod 8) 16-byte values when
+    ra > 1, so that a quarter-warp's lanes, on consecutive (a_l, c) of one
+    slab row j, fall in distinct 16-byte bank groups. K1's item (k, a_l, c)
+    forms outputs k and k + n/2 (k alone at n = 1); K5's (k, a_l, q) forms
+    a complex sum into a shared (k, a_l, p) stage of n·ra·C 16-byte
+    values, which its output lanes, over (k, a_l, p), write out.
+    Grid y strides over the rows or groups past its limit. ``smem``: the
+    kernel's shared-memory bytes."""
+
+    def __init__(self, a: int, n: int, c: int, epilogue: bool = False):
+        self.a, self.n, self.c = a, n, c
+        tc = tile_cols(n)
+        self.wide = c > tc
+        if self.wide:
+            self.tc, self.ra, self.pitch = tc, 1, n * tc
+            self.smem = 16 * (n + n * tc)
+        else:
+            self.tc = c
+            self.ra = min(_pow2_floor(LEVEL_SLAB // (n * c)),
+                          1 << (a - 1).bit_length())
+            self.pitch = n * c + ((c - n * c) % 8 if self.ra > 1 else 0)
+            self.smem = 16 * (n + self.ra * self.pitch
+                              + (n * self.ra * c if epilogue else 0))
+        self.tiles = -(-c // self.tc)
+        self.groups = -(-a // self.ra)
+        self.grid = _build.launch_grid(self.tiles, self.groups)
+
+    def rows(self, g: int) -> range:
+        """The rows of A that group g takes."""
+        return range(g * self.ra, min((g + 1) * self.ra, self.a))
+
+
 # ---------------------------------------------------------------------
 # K1: one four-step level
 # ---------------------------------------------------------------------
@@ -193,14 +254,14 @@ def fft_level(x: torch.Tensor, m: int, sign: int = -1,
     if n > MAX_LEVEL:
         raise ValueError(f"fft_level: the kernel takes levels of length "
                          f"<= {MAX_LEVEL}, got {n}")
-    tc = tile_cols(n)
-    grid = _build.launch_grid(-(-c // tc), a)
+    tl = LevelTiles(a, n, c)
     out = torch.empty((n, a, c), dtype=torch.complex128, device=x.device)
     roots = roots_tensor(m, x.device)
     with torch.cuda.device(x.device):
         err = _build.library().ta_fft_level(
             x.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, c, sign,
-            twiddle_cols, m, tc, *grid, _build.stream(x))
+            twiddle_cols, m, tl.tc, tl.ra, tl.pitch, *tl.grid,
+            _build.stream(x))
     _build.check(err, "fft_level")
     fft_level.launches += 1
     return out
@@ -273,10 +334,6 @@ UNPACK_PAIRS = 32       # most particle pairs of a column tile
 UNPACK_SLAB = 1024      # most power values (k_top, k_low, q) a block holds
 UNPACK_STAGE = 1536     # most (row, column) element pairs staged a pass
 SMEM_LIMIT = 232_448    # Hopper's dynamic shared memory a block
-
-
-def _pow2_floor(x: int) -> int:
-    return 1 << (max(1, x).bit_length() - 1)
 
 
 class UnpackTiles:
@@ -433,14 +490,14 @@ def inverse_last_level(t: torch.Tensor, n_rows: int, P: int,
     if n > MAX_LEVEL:
         raise ValueError(f"inverse_last_level: the kernel takes levels of "
                          f"length <= {MAX_LEVEL}, got {n}")
-    tc = tile_cols(n)
-    grid = _build.launch_grid(-(-ph // tc), a)
+    tl = LevelTiles(a, n, ph, epilogue=True)
     out = torch.empty((n_rows, P), dtype=torch.float64, device=t.device)
     roots = roots_tensor(n, t.device)
     with torch.cuda.device(t.device):
         err = _build.library().ta_inverse_last_level(
             t.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, ph, n_out,
-            n_rows, P, int(normalize), tc, *grid, _build.stream(t))
+            n_rows, P, int(normalize), tl.tc, tl.ra, tl.pitch, *tl.grid,
+            _build.stream(t))
     _build.check(err, "inverse_last_level")
     inverse_last_level.launches += 1
     return out

@@ -61,7 +61,26 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    agree with host float64 oracles within 1e-11 of their maximum on lags
    < N/2; each windowed result is also held against the FFT result of
    the card.
-5. deep    — the same at 65,536 frames (M = 2^17, the deep range; a
+5. files   — the model phase's system (3,680 atoms x 8,192 frames)
+   through the port's writers into a temporary directory under
+   ``build/``: a TRR of positions and velocities, an XTC of the positions
+   at precision 1000, a DCD of the positions, with a PDB of the atoms
+   (bytes and write seconds of each). Each is read back through
+   ``Universe(pdb, traj)``: ``read_frames_batch`` over all frames, timed,
+   in seconds and GB/s of decoded float32 (the TRR batch must go through
+   the native decoder), and held against what was written (TRR within
+   two float32 roundings, XTC within its quantum, DCD bit-equal). Then
+   ``fft`` and ``windowed`` from the TRR, ``msd_fft`` and ``msd_windowed``
+   from the XTC, timed and profiled as in the model phase (no warm run:
+   the model phase just ran them) and printed beside the model phase's
+   in-memory walls; each result equals the same analysis on a
+   MemoryReader of the reader's own decoded arrays within 1e-15, and
+   meets host f64 oracles of the decoded arrays within 1e-11 on lags
+   < N/2. Last, the packaged regression: ``Universe(data.files.ec_top,
+   data.files.ec_traj_trr)`` (100 frames, generated by the port) on the
+   card, its viscosity within 1e-11 of the CPU's and 5e-5 of the pinned
+   0.00098984, its VACF lag 0 within 1e-4 of 328.965.
+6. deep    — the same at 65,536 frames (M = 2^17, the deep range; a
    five-level plan), all 3,680 atoms: ``fft``, and ``windowed`` with
    ``max_lag=2048``. Oracles on every 21st atom (the results are per
    particle, so the check is exact for those; the sampled series lie 63
@@ -72,7 +91,7 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    the particle means are a self-consistency check:
    ``results.timeseries`` against the mean of the program's own
    per-particle values.
-6. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
+7. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
@@ -94,6 +113,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -113,6 +133,8 @@ MODEL_PHASES = [
 # phases with a windowed (fft=False) run -> its max_lag (None: all lags)
 WINDOWED = {"model": None, "deep": 2048}
 MSD_PHASES = ("model",)  # phases that also run EinsteinMSD, both ways
+XTC_PRECISION = 1000.0   # the files phase's XTC, counts per nm
+TWIN_TOL = 1e-15         # file-backed run vs in-memory run of its arrays
 # narrow, very long series: N, particles, d (the old cap of the plan, M =
 # 2^24, and once past it)
 NARROW_SHAPES = [("top", 2 ** 23, 4, 2), ("past", 2 ** 24, 4, 2)]
@@ -742,15 +764,18 @@ def head_errors(got, ref, n: int):
             for s in (slice(0, n // 2), slice(None))]
 
 
-def drive(torch, counters, card, name, label, run, needed, lag_work):
-    """``run`` once warm, once timed with the launch counters reset just
-    before and read just after (the kernels ``needed`` must have
-    launched), once profiled. Returns the timed run's output and
-    launches."""
+def drive(torch, counters, card, name, label, run, needed, lag_work,
+          warm=True):
+    """``run`` once warm (unless ``warm`` is false: a phase right after
+    the same runs in memory), once timed with the launch counters reset
+    just before and read just after (the kernels ``needed`` must have
+    launched), once profiled. Returns the timed run's output, launches
+    and wall."""
     t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    if warm:
+        run()
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -766,45 +791,23 @@ def drive(torch, counters, card, name, label, run, needed, lag_work):
     if missing:
         raise AssertionError(f"kernels not launched by the {name} {label} "
                              f"run: {missing}")
-    phase(name, f"{label}: wall {wall:.4f} s timed (warm run {warm:.4f} "
-          f"s), {lag_work / wall:.4e} atom-frame-lags/s, peak device "
-          f"memory {peak / 2**30:.3f} GiB, on {card}")
+    before = f"warm run {warm_s:.4f} s" if warm else "no warm run"
+    phase(name, f"{label}: wall {wall:.4f} s timed ({before}), "
+          f"{lag_work / wall:.4e} atom-frame-lags/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, on {card}")
     profile_phase(torch, name, label, run, card, launches)
-    return out, launches
+    return out, launches, wall
 
 
-def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
-                stride):
-    """The EC system of ``n_molecules`` at ``n`` frames through the
-    phase's runs (module docstring); oracles on every ``stride``-th atom.
-    Returns each run's launches."""
-    t_phase = time.perf_counter()
-    pos, vel, attrs = ec_system(n, n_molecules)
-    n_atoms = pos.shape[1]
-    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
-    from transport_analysis_tpu_torch.utils.units import constants
-
-    u = ta.Universe.empty(
-        n_atoms, n_residues=n_molecules,
-        atom_resindex=np.repeat(np.arange(n_molecules), len(EC_ATOMS)))
-    for attr, values in attrs.items():
-        u.add_TopologyAttr(attr, values)
-    u.load_new(MemoryReader(pos, velocities=vel,
-                            dimensions=[BOX, BOX, BOX, 90.0, 90.0, 90.0],
-                            dt=DT))
-    m = 2 ** (int(n - 1).bit_length() + 1)
-    from transport_analysis_tpu_torch.ops.cuda_fft import plan_levels
-
-    phase(name, f"EC system: {n_atoms} atoms x {n} frames, box {BOX} Å, "
-          f"f32 feed {pos.nbytes / 2**20:.0f} MiB x 2, M = {m}, plan "
-          f"{plan_levels(m)}; generated in "
-          f"{time.perf_counter() - t_phase:.1f} s")
+def checks(name, n, n_atoms, stride):
+    """The checks of a phase's results over ``n`` frames and ``n_atoms``
+    atoms, oracles on every ``stride``-th atom: ``check`` against a host
+    oracle, ``cross`` a windowed result against the FFT one."""
     atoms = slice(None, None, stride)
     n_sampled = len(range(n_atoms)[atoms])
     head = slice(0, n // 2)
     mean_of = ("host f64 over every atom" if stride == 1 else
                "the mean of its own per-particle values")
-    pairs = n * (n + 1) // 2        # frame-lag pairs of one series
 
     def check(label, what, by_particle, timeseries, ref, n_lags):
         """Per-particle values, which must have the run's ``n_lags`` rows,
@@ -845,6 +848,21 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
             raise AssertionError(f"{label} {what}: windowed and FFT differ "
                                  f"by {err:.3e} > {HEAD_TOL}")
 
+    def scalars(label, d_gk, visc):
+        finite = bool(np.isfinite([d_gk, visc.results.viscosity]).all())
+        phase(name, f"{label}: D_gk = {d_gk:.6e} Å²/ps, viscosity slope = "
+              f"{visc.results.viscosity:.6e}, finite {finite}")
+        if not finite:
+            raise AssertionError(f"{label}: D_gk or the viscosity slope is "
+                                 "not finite")
+
+    return check, cross, scalars
+
+
+def runs(ta, u):
+    """The runs of a phase on Universe ``u``: ``analyses(fft, max_lag)``,
+    VACF of the ECA residues, its Green–Kubo D and the Helfand viscosity
+    of every atom; ``msd(fft)``, EinsteinMSD of the ECA residues."""
     def analyses(fft, max_lag=None):
         def run():
             ag = u.select_atoms("resname ECA")
@@ -859,16 +877,42 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
     def msd(fft):
         return lambda: ta.EinsteinMSD(u, select="resname ECA", fft=fft).run()
 
-    def scalars(label, d_gk, visc):
-        finite = bool(np.isfinite([d_gk, visc.results.viscosity]).all())
-        phase(name, f"{label}: D_gk = {d_gk:.6e} Å²/ps, viscosity slope = "
-              f"{visc.results.viscosity:.6e}, finite {finite}")
-        if not finite:
-            raise AssertionError(f"{label}: D_gk or the viscosity slope is "
-                                 "not finite")
+    return analyses, msd
 
-    launches = {}
-    (vacf, d_gk, visc), launches["fft"] = drive(
+
+def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
+                stride):
+    """The EC system of ``n_molecules`` at ``n`` frames through the
+    phase's runs (module docstring); oracles on every ``stride``-th atom.
+    Returns each run's launches and timed wall, and the system."""
+    t_phase = time.perf_counter()
+    pos, vel, attrs = ec_system(n, n_molecules)
+    n_atoms = pos.shape[1]
+    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
+    from transport_analysis_tpu_torch.utils.units import constants
+
+    u = ta.Universe.empty(
+        n_atoms, n_residues=n_molecules,
+        atom_resindex=np.repeat(np.arange(n_molecules), len(EC_ATOMS)))
+    for attr, values in attrs.items():
+        u.add_TopologyAttr(attr, values)
+    u.load_new(MemoryReader(pos, velocities=vel,
+                            dimensions=[BOX, BOX, BOX, 90.0, 90.0, 90.0],
+                            dt=DT))
+    m = 2 ** (int(n - 1).bit_length() + 1)
+    from transport_analysis_tpu_torch.ops.cuda_fft import plan_levels
+
+    phase(name, f"EC system: {n_atoms} atoms x {n} frames, box {BOX} Å, "
+          f"f32 feed {pos.nbytes / 2**20:.0f} MiB x 2, M = {m}, plan "
+          f"{plan_levels(m)}; generated in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    atoms = slice(None, None, stride)
+    pairs = n * (n + 1) // 2        # frame-lag pairs of one series
+    check, cross, scalars = checks(name, n, n_atoms, stride)
+    analyses, msd = runs(ta, u)
+
+    launches, walls = {}, {}
+    (vacf, d_gk, visc), launches["fft"], walls["fft"] = drive(
         torch, counters, card, name, "fft", analyses(True), FFT_KERNELS,
         2 * pairs * n_atoms)
     phase(name, f"fft: reckoned peak device memory "
@@ -889,7 +933,7 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
         fft_v = vacf.results.vacf_by_particle[keep]
         fft_h = visc.results.visc_by_particle[keep]
         del vacf, visc
-        (vacf, d_gk, visc), launches["windowed"] = drive(
+        (vacf, d_gk, visc), launches["windowed"], walls["windowed"] = drive(
             torch, counters, card, name, "windowed",
             analyses(False, max_lag), WINDOWED_KERNELS,
             2 * lag_pairs(n, n_lags) * n_atoms)
@@ -907,12 +951,12 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
     del vacf, visc, ref_v, ref_h
     if name in MSD_PHASES:
         ref_m = einstein_oracle(pos[:, atoms].astype(np.float64), 1)
-        msd_fft, launches["msd_fft"] = drive(
+        msd_fft, launches["msd_fft"], walls["msd_fft"] = drive(
             torch, counters, card, name, "msd_fft", msd(True), FFT_KERNELS,
             pairs * n_atoms)
         check("msd_fft", "MSD", msd_fft.results.msds_by_particle,
               msd_fft.results.timeseries, ref_m, n)
-        msd_win, launches["msd_windowed"] = drive(
+        msd_win, launches["msd_windowed"], walls["msd_windowed"] = drive(
             torch, counters, card, name, "msd_windowed", msd(False),
             WINDOWED_KERNELS, pairs * n_atoms)
         check("msd_windowed", "MSD", msd_win.results.msds_by_particle,
@@ -921,7 +965,211 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
               msd_fft.results.msds_by_particle)
         del msd_fft, msd_win, ref_m
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, walls, (pos, vel, attrs)
+
+
+def write_pdb(path: str, pos0, attrs) -> None:
+    """A PDB of the EC system's atoms in the standard columns: names,
+    residue ECA, resids, elements (the readers' masses follow from them),
+    frame-0 coordinates and the cubic box. (The packaged generator's PDB
+    puts the residue name one column early, so that "resname ECA" selects
+    no atom there.)"""
+    with open(path, "w") as fh:
+        fh.write(f"CRYST1{BOX:9.3f}{BOX:9.3f}{BOX:9.3f}"
+                 f"{90.0:7.2f}{90.0:7.2f}{90.0:7.2f} P 1           1\n")
+        for i, (atom, resid, (x, y, z)) in enumerate(
+                zip(attrs["names"], attrs["resids"], pos0)):
+            fh.write(f"ATOM  {i + 1:5d} {atom:<4s} ECA A{resid:4d}    "
+                     f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00          "
+                     f"{atom[0]:>2s}\n")
+        fh.write("END\n")
+
+
+def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls):
+    """The model phase's EC system through the port's writers and readers
+    (module docstring): written as TRR, XTC and DCD, read back through
+    ``Universe(pdb, traj)`` and timed, analysed on the card from the files
+    against the same analyses on MemoryReaders of the decoded arrays and
+    against host oracles; then the packaged EC regression on the card."""
+    name = "files"
+    t_phase = time.perf_counter()
+    pos, vel, attrs = system
+    n, n_atoms = pos.shape[:2]
+    from transport_analysis_tpu_torch import io
+    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
+    from transport_analysis_tpu_torch.io import _native
+    from transport_analysis_tpu_torch.utils.units import constants
+
+    box = [BOX, BOX, BOX, 90.0, 90.0, 90.0]
+    writes = {  # extension -> writer options, one frame's write
+        "trr": ({}, lambda w, f: w.write(
+            positions=pos[f], velocities=vel[f], dimensions=box,
+            time=f * DT)),
+        "xtc": ({"precision": XTC_PRECISION}, lambda w, f: w.write(
+            pos[f], dimensions=box, time=f * DT)),
+        "dcd": ({"dt": DT}, lambda w, f: w.write(pos[f], dimensions=box)),
+    }
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        pdb = os.path.join(tmp, "ec.pdb")
+        write_pdb(pdb, pos[0], attrs)
+        universes, batches = {}, {}
+        for ext, (kwargs, write) in writes.items():
+            path = os.path.join(tmp, f"ec.{ext}")
+            t0 = time.perf_counter()
+            with io.Writer(path, n_atoms, **kwargs) as w:
+                for f in range(n):
+                    write(w, f)
+            secs = time.perf_counter() - t0
+            phase(name, f"wrote {ext.upper()} of {n_atoms} atoms x {n} "
+                  f"frames: {os.path.getsize(path)} bytes in {secs:.3f} s, "
+                  f"on {card}")
+            u = ta.Universe(pdb, path)
+            calls = _native.decode_trr_batch.calls
+            t0 = time.perf_counter()
+            batch = u.trajectory.read_frames_batch(range(n))
+            secs = time.perf_counter() - t0
+            decoded = sum(batch[k].nbytes for k in ("positions", "velocities")
+                          if k in batch)
+            how = {"trr": "native batch decoder",
+                   "xtc": "native codec, one call a frame",
+                   "dcd": "numpy, one frame at a time"}[ext]
+            phase(name, f"read {ext.upper()}: read_frames_batch of {n} "
+                  f"frames in {secs:.3f} s, {decoded / secs / 1e9:.3f} GB/s "
+                  f"of decoded float32 ({decoded} bytes; {how}), on {card}")
+            if ext == "trr" and _native.decode_trr_batch.calls != calls + 1:
+                raise AssertionError("the TRR batch did not go through the "
+                                     "native decoder")
+            universes[ext], batches[ext] = u, batch
+    if "xtc" not in _native._loaded:
+        raise AssertionError("the XTC frames did not go through the codec")
+    if not np.array_equal(universes["trr"].atoms.masses, attrs["masses"]):
+        raise AssertionError("the PDB's masses differ from the system's")
+
+    # the decoded arrays against what was written: TRR's nm round trip
+    # (two float32 roundings), XTC's quantum (half of 1/precision nm) and
+    # DCD's float32 copy
+    bounds = {
+        ("trr", "positions"): (pos, 2.5e-7, 0.0),
+        ("trr", "velocities"): (vel, 2.5e-7, 0.0),
+        ("xtc", "positions"): (pos, 2.5e-7, 5.0 / XTC_PRECISION),
+        ("dcd", "positions"): (pos, 0.0, 0.0),
+    }
+    for (ext, key), (orig, rtol, atol) in bounds.items():
+        diff = np.abs(batches[ext][key] - orig)
+        excess = float((diff - rtol * np.abs(orig) - atol).max())
+        unit = "Å" if key == "positions" else "Å/ps"
+        phase(name, f"{ext.upper()} {key} decoded vs written: max |Δ| "
+              f"{float(diff.max()):.3e} {unit} (bound {rtol} relative + "
+              f"{atol} {unit})")
+        if excess > 0.0:
+            raise AssertionError(f"{ext} {key} decoded beyond its bound")
+
+    def twin(ext):
+        """A Universe on a MemoryReader of the reader's decoded arrays,
+        with the PDB's topology."""
+        b = batches[ext]
+        u = ta.Universe(universes["trr"]._topology)
+        u.load_new(MemoryReader(
+            b["positions"], velocities=b.get("velocities"),
+            dimensions=universes[ext].trajectory.ts.dimensions, dt=DT))
+        return u
+
+    def same(label, what, got, want):
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        phase(name, f"{label}: {what} from the file vs a MemoryReader of "
+              f"its decoded arrays: {err:.3e}")
+        if not err <= TWIN_TOL:
+            raise AssertionError(f"{label} {what}: file-backed and in-memory "
+                                 f"runs differ by {err:.3e} > {TWIN_TOL}")
+
+    def beside(label, wall):
+        phase(name, f"{label}: file-backed wall {wall:.4f} s against the "
+              f"model phase's in-memory {model_walls[label]:.4f} s, on "
+              f"{card}")
+
+    check, cross, scalars = checks(name, n, n_atoms, 1)
+    pairs = n * (n + 1) // 2
+    analyses, _ = runs(ta, universes["trr"])
+    twin_analyses, _ = runs(ta, twin("trr"))
+    b = batches["trr"]
+    ref_v = acf_numpy(b["velocities"])
+    scale = (2.0 * constants["Boltzmann_constant"]
+             * float(np.mean(b["volumes"])) * TEMP)
+    ref_h = helfand_oracle(attrs["masses"], b["velocities"], b["positions"],
+                           3) / scale
+    fft_keep = {}
+    for label, fft, needed in (("fft", True, FFT_KERNELS),
+                               ("windowed", False, WINDOWED_KERNELS)):
+        (vacf, d_gk, visc), _, wall = drive(
+            torch, counters, card, name, label, analyses(fft), needed,
+            2 * pairs * n_atoms, warm=False)
+        beside(label, wall)
+        t_vacf, _, t_visc = twin_analyses(fft)()
+        for what, got, want in (
+                ("VACF", vacf.results.vacf_by_particle,
+                 t_vacf.results.vacf_by_particle),
+                ("Helfand", visc.results.visc_by_particle,
+                 t_visc.results.visc_by_particle)):
+            same(label, what, got, want)
+        check(label, "VACF", vacf.results.vacf_by_particle,
+              vacf.results.timeseries, ref_v, n)
+        check(label, "Helfand", visc.results.visc_by_particle,
+              visc.results.timeseries, ref_h, n)
+        scalars(label, d_gk, visc)
+        if fft:
+            fft_keep = {"VACF": vacf.results.vacf_by_particle,
+                        "Helfand": visc.results.visc_by_particle}
+        else:
+            cross(label, "VACF", vacf.results.vacf_by_particle,
+                  fft_keep["VACF"])
+            cross(label, "Helfand", visc.results.visc_by_particle,
+                  fft_keep["Helfand"])
+        del vacf, visc, t_vacf, t_visc
+    del ref_v, ref_h, fft_keep
+
+    _, msd = runs(ta, universes["xtc"])
+    _, twin_msd = runs(ta, twin("xtc"))
+    ref_m = einstein_oracle(batches["xtc"]["positions"].astype(np.float64), 1)
+    msd_fft = None
+    for label, fft, needed in (("msd_fft", True, FFT_KERNELS),
+                               ("msd_windowed", False, WINDOWED_KERNELS)):
+        out, _, wall = drive(torch, counters, card, name, label, msd(fft),
+                             needed, pairs * n_atoms, warm=False)
+        beside(label, wall)
+        same(label, "MSD", out.results.msds_by_particle,
+             twin_msd(fft)().results.msds_by_particle)
+        check(label, "MSD", out.results.msds_by_particle,
+              out.results.timeseries, ref_m, n)
+        if fft:
+            msd_fft = out.results.msds_by_particle
+        else:
+            cross(label, "MSD", out.results.msds_by_particle, msd_fft)
+    del universes, batches, ref_m, msd_fft
+
+    # the packaged regression (the JAX package's tests/test_data.py)
+    from transport_analysis_tpu_torch.data import files
+
+    u = ta.Universe(files.ec_top, files.ec_traj_trr)
+    visc = {dev: ta.ViscosityHelfand(u.atoms, linear_fit_window=FIT_WINDOW,
+                                     device=dev).run().results.viscosity
+            for dev in ("cuda", "cpu")}
+    vacf = {dev: ta.VelocityAutocorr(u.atoms, device=dev).run()
+            .results.timeseries for dev in ("cuda", "cpu")}
+    err_visc = abs(visc["cuda"] - visc["cpu"]) / abs(visc["cpu"])
+    err_vacf = float(np.abs(vacf["cuda"] - vacf["cpu"]).max()
+                     / np.abs(vacf["cpu"]).max())
+    lag0 = float(vacf["cuda"][0])
+    phase(name, f"packaged EC ({u.trajectory.n_frames} frames, TRR): "
+          f"viscosity {visc['cuda']:.10e} on the card, {err_visc:.3e} from "
+          f"the CPU's, pinned 0.00098984 ± 5e-5; VACF lag 0 {lag0:.6f} "
+          f"(pinned 328.965, 1e-4), card vs CPU {err_vacf:.3e}; on {card}")
+    if not (err_visc <= HEAD_TOL and err_vacf <= HEAD_TOL
+            and abs(visc["cuda"] - 0.00098984) <= 5e-5
+            and abs(lag0 - 328.965) <= 1e-4 * 328.965):
+        raise AssertionError("the packaged EC regression failed on the card")
+    phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -956,9 +1204,15 @@ def main() -> int:
     }
     launches = {}
     for name, n, n_molecules, stride in MODEL_PHASES:
-        launches[name] = model_phase(torch, ta, acf_fft_numpy, counters,
-                                     smi, name, n, n_molecules, stride)
+        launches[name], walls, system = model_phase(
+            torch, ta, acf_fft_numpy, counters, smi, name, n, n_molecules,
+            stride)
         torch.cuda.empty_cache()
+        if name == "model":
+            files_phase(torch, ta, acf_fft_numpy, counters, smi, system,
+                        walls)
+            torch.cuda.empty_cache()
+        del system
     if any(mod == "jax" or mod.startswith("jax.") for mod in sys.modules):
         raise AssertionError("jax was imported")
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

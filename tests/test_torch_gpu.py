@@ -387,3 +387,103 @@ def test_lag_kernel_past_three_components(cuda_device, n, p, d, dtype):
                 assert torch.all(got[0] == 0.0)
             if n_lags > 1 or mode == "acf":
                 assert rel(got, ref) <= TOL, (n_lags, mode, reduce_mode)
+
+
+# --- file-backed runs (io/) -------------------------------------------------
+
+
+def write_trajectory(path, n_frames, n_atoms, seed):
+    """A TRR (positions and velocities) or an XTC (positions) of random
+    frames, written by the port's writers."""
+    from transport_analysis_tpu_torch import io
+
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(0, 30, (n_frames, n_atoms, 3)).astype(np.float32)
+    vel = rng.normal(0, 5, (n_frames, n_atoms, 3)).astype(np.float32)
+    with io.Writer(path, n_atoms) as w:
+        for i in range(n_frames):
+            if str(path).endswith(".trr"):
+                w.write(positions=pos[i], velocities=vel[i],
+                        dimensions=[30, 30, 30, 90, 90, 90], time=float(i))
+            else:
+                w.write(pos[i], dimensions=[30, 30, 30, 90, 90, 90],
+                        time=float(i))
+
+
+def in_memory_twin(u):
+    """A Universe on a MemoryReader that holds ``u``'s decoded arrays."""
+    from transport_analysis_tpu_torch import Universe
+    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
+
+    batch = u.trajectory.read_frames_batch(range(u.trajectory.n_frames))
+    return Universe(u._topology, MemoryReader(
+        batch["positions"], velocities=batch.get("velocities"),
+        dimensions=u.trajectory.ts.dimensions, dt=u.trajectory.ts.dt))
+
+
+@pytest.mark.parametrize("fft", [True, False])
+def test_trr_vacf_on_card_equals_in_memory(cuda_device, tmp_path, fft):
+    """A TRR-backed VelocityAutocorr on the card equals the in-memory run
+    of the same decoded arrays (1e-15), and the CPU run (1e-12); the
+    batch went through the native decoder."""
+    from transport_analysis_tpu_torch import Universe
+    from transport_analysis_tpu_torch.core.topology import Topology
+    from transport_analysis_tpu_torch.io import _native
+
+    path = tmp_path / "t.trr"
+    write_trajectory(path, 3000, 37, 3)
+    u = Universe(Topology(37), str(path))
+    calls = _native.decode_trr_batch.calls
+    got = VelocityAutocorr(u.atoms, fft=fft, device=cuda_device).run()
+    assert _native.decode_trr_batch.calls == calls + 1
+    twin = VelocityAutocorr(in_memory_twin(u).atoms, fft=fft,
+                            device=cuda_device).run()
+    cpu = VelocityAutocorr(u.atoms, fft=fft, device="cpu").run()
+    got = torch.from_numpy(got.results.vacf_by_particle)
+    assert rel(got, torch.from_numpy(twin.results.vacf_by_particle)) <= 1e-15
+    assert rel(got, torch.from_numpy(cpu.results.vacf_by_particle)) <= TOL
+
+
+@pytest.mark.parametrize("fft", [True, False])
+def test_xtc_msd_on_card_equals_in_memory(cuda_device, tmp_path, fft):
+    """An XTC-backed EinsteinMSD on the card equals the in-memory run of
+    the same decoded arrays (1e-15), and the CPU run (1e-12)."""
+    from transport_analysis_tpu_torch import EinsteinMSD, Universe
+    from transport_analysis_tpu_torch.core.topology import Topology
+
+    path = tmp_path / "t.xtc"
+    write_trajectory(path, 2000, 45, 4)
+    u = Universe(Topology(45), str(path))
+    got = EinsteinMSD(u, fft=fft, device=cuda_device).run()
+    twin = EinsteinMSD(in_memory_twin(u), fft=fft, device=cuda_device).run()
+    cpu = EinsteinMSD(u, fft=fft, device="cpu").run()
+    got = torch.from_numpy(got.results.msds_by_particle)
+    assert rel(got, torch.from_numpy(twin.results.msds_by_particle)) <= 1e-15
+    assert rel(got, torch.from_numpy(cpu.results.msds_by_particle)) <= TOL
+
+
+@pytest.mark.parametrize("how", ["missing", "broken"])
+def test_failed_native_build_raises(cuda_device, tmp_path, monkeypatch, how):
+    """On the card's machine too, a decoder that does not build raises
+    and the TRR batch never falls back to the plain decode."""
+    from transport_analysis_tpu_torch.io import _native
+    from transport_analysis_tpu_torch.io.trr import TRRReader
+
+    path = tmp_path / "t.trr"
+    write_trajectory(path, 4, 5, 6)
+    r = TRRReader(path)
+    src = tmp_path / "src"
+    src.mkdir()
+    if how == "broken":
+        for name in _native.SOURCES.values():
+            (src / name).write_text("this is not C++ {\n")
+    monkeypatch.setattr(_native, "SOURCE_DIR", src)
+    monkeypatch.setattr(_native, "_loaded", {})
+
+    def plain(*args):
+        raise AssertionError("fell back to the plain decode")
+
+    monkeypatch.setattr(r, "_read_frames_batch_py", plain)
+    with pytest.raises(FileNotFoundError if how == "missing"
+                       else RuntimeError):
+        r.read_frames_batch(range(4))

@@ -9,6 +9,8 @@ their maximum; Green–Kubo diffusivities and the fitted viscosity within
 1e-10 relative.
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -208,10 +210,7 @@ def test_use_before_run(pu, fn):
     lambda ag: ta.VelocityAutocorr(ag, atom_chunk=2),
     lambda ag: ta.ViscosityHelfand(ag, checkpoint="ck.npz"),
     lambda ag: ta.VelocityAutocorr(ag, frame_block=4),
-    lambda ag: ta.Universe("topology.pdb", "trajectory.trr"),
-    lambda ag: ag.universe.load_new("trajectory.trr"),
-    lambda ag: ta.io.open_trajectory("trajectory.trr"),
-    lambda ag: ta.data.files,
+    lambda ag: ta.io.prefetch,
     lambda ag: ta.parallel.use_mesh(),
 ])
 def test_not_ported_parts_raise(pu, call):
@@ -219,8 +218,28 @@ def test_not_ported_parts_raise(pu, call):
         call(pu.atoms)
 
 
+GOLDEN_TRR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden", "golden.trr")
+
+
+@pytest.mark.parametrize("call,n_atoms,n_frames", [
+    (lambda: ta.Universe(ta.data.files.ec_top,
+                         ta.data.files.ec_traj_trr).trajectory, 3680, 100),
+    (lambda: ta.Universe.empty(5).load_new(GOLDEN_TRR).trajectory, 5, 3),
+    (lambda: ta.io.open_trajectory(GOLDEN_TRR), 5, 3),
+    (lambda: ta.io.open_trajectory(ta.data.files.ec_traj_trr), 3680, 100),
+], ids=["Universe(file)", "load_new(file)", "io.open_trajectory",
+        "data.files"])
+def test_file_entry_points_work(call, n_atoms, n_frames):
+    """The file entry points that raised before io/ and data/ were ported
+    open the golden TRR and the EC files."""
+    traj = call()
+    assert (traj.n_atoms, traj.n_frames) == (n_atoms, n_frames)
+    assert traj.ts.has_velocities
+
+
 def test_not_ported_packages_keep_introspection():
-    for pkg in (ta.io, ta.data, ta.parallel):
+    for pkg in (ta.parallel,):
         assert not hasattr(pkg, "__wrapped__")
 
 

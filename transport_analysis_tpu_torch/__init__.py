@@ -19,9 +19,16 @@ PyTorch versions.
                lag sums (``ops/cuda_lag.py``), integration and linear
                fits.
 * ``velocityautocorr``, ``viscosity`` — the reference's import paths.
+* ``io``     — TRR, XTC, DCD, AMBER NetCDF, H5MD and PDB trajectories,
+               PDB and PSF topologies (``Universe(top, traj)``); TRR
+               batches and XTC frames decode in C++ compiled by g++ at
+               first use (``io/_native``).
+* ``data``   — the ethylene-carbonate regression files, generated on
+               first access.
 * ``convert`` — builds a Universe from plain numpy arrays.
-* ``io``, ``data``, ``parallel`` — not ported yet: each name raises
-  ``NotImplementedError`` naming its ROADMAP.md item.
+* ``parallel`` — not ported yet: each name raises
+  ``NotImplementedError`` naming its ROADMAP.md item (so does
+  ``io.prefetch``).
 
 The kernels (``csrc/*.cu``) are compiled by nvcc for sm_90a at first use
 (``_build.py``). A CUDA tensor always goes to its kernel, or raises; a CPU

@@ -60,17 +60,19 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def build_dir() -> Path:
-    """``build/torch_kernels`` of the checkout when the package lies in one
+def build_dir(kind: str = "torch_kernels") -> Path:
+    """``build/<kind>`` of the checkout when the package lies in one
     (``pyproject.toml`` beside it), else a per-user cache directory
     (``$XDG_CACHE_HOME``, default ``~/.cache``), so installed copies in a
-    shared environment do not build into ``site-packages``."""
+    shared environment do not build into ``site-packages``. The CUDA
+    kernels build into ``torch_kernels``, the host decoders of ``io/``
+    into ``torch_native``."""
     root = PACKAGE_DIR.parent
     if (root / "pyproject.toml").is_file():
-        return root / "build" / "torch_kernels"
+        return root / "build" / kind
     cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
         os.path.expanduser("~"), ".cache")
-    return Path(cache) / "transport_analysis_tpu_torch" / "torch_kernels"
+    return Path(cache) / "transport_analysis_tpu_torch" / kind
 
 
 def library_path() -> Path:

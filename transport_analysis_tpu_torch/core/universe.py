@@ -1,9 +1,9 @@
 """Universe: topology + trajectory, the user-facing entry object.
 
 Re-provides the MDAnalysis ``Universe`` contract the reference consumes
-(SURVEY.md §2b): ``Universe(topology, reader)`` construction (from
-files once ``io/`` is ported), ``Universe.empty(...)`` synthetic factory
-(reference test_velocityautocorr.py:54), ``load_new`` (test_velocityautocorr.py:71),
+(SURVEY.md §2b): ``Universe(top, traj)`` construction from files,
+``Universe.empty(...)`` synthetic factory (reference
+test_velocityautocorr.py:54), ``load_new`` (test_velocityautocorr.py:71),
 ``select_atoms`` with ``updating=`` (test_velocityautocorr.py:140), and
 ``add_TopologyAttr`` (test_viscosity.py:85).
 """
@@ -18,7 +18,6 @@ import numpy as np
 from .groups import AtomGroup, UpdatingAtomGroup
 from .topology import Topology
 from .trajectory import MemoryReader, ProtoReader
-from ..utils.errors import not_ported
 
 
 class Universe:
@@ -26,14 +25,35 @@ class Universe:
         topology = None
         trajectory: Optional[ProtoReader] = None
 
+        file_args = []
         for a in args:
             if isinstance(a, Topology):
                 topology = a
             elif isinstance(a, ProtoReader):
                 trajectory = a
             else:
-                raise not_ported(
-                    f"Universe from a file ({a!r})", "io"
+                file_args.append(a)
+
+        if file_args:
+            from ..io import load_topology, open_trajectory
+
+            if topology is None:
+                topology = load_topology(file_args[0])
+                traj_files = file_args[1:]
+                single = file_args[0]
+            else:
+                # Topology instance + trajectory path(s):
+                # Universe(Topology(n), "traj.trr")
+                traj_files = file_args
+                single = None
+            if traj_files:
+                trajectory = open_trajectory(
+                    traj_files[0], n_atoms=topology.n_atoms
+                )
+            elif trajectory is None and single is not None:
+                # single-file universe: topology file may carry coordinates
+                trajectory = open_trajectory(
+                    single, n_atoms=topology.n_atoms
                 )
 
         if topology is None:
@@ -103,28 +123,29 @@ class Universe:
 
     def load_new(self, coordinates, velocities=None, forces=None, dt=1.0):
         """Replace the trajectory with in-memory arrays
-        (``(n_frames, n_atoms, 3)`` or ``(n_atoms, 3)``) or an open
-        reader such as :class:`MemoryReader` (MDAnalysis
-        ``Universe.load_new`` parity). File paths raise
-        ``NotImplementedError`` until ``io/`` is ported.
+        (``(n_frames, n_atoms, 3)`` or ``(n_atoms, 3)``) or a
+        trajectory file path / open reader (MDAnalysis
+        ``Universe.load_new`` parity).
 
         ``velocities``/``forces``/``dt`` only apply to in-memory
-        arrays; passing them with a reader raises rather than being
-        silently dropped (readers carry their own frame data and
+        arrays; passing them with a path or reader raises rather than
+        being silently dropped (files carry their own frame data and
         times).
         """
-        if isinstance(coordinates, (str, os.PathLike)):
-            raise not_ported(
-                f"load_new from a file ({coordinates!r})", "io"
-            )
-        if isinstance(coordinates, ProtoReader):
+        if isinstance(coordinates, (ProtoReader, str, os.PathLike)):
             if velocities is not None or forces is not None or dt != 1.0:
                 raise ValueError(
                     "velocities/forces/dt apply only to in-memory "
-                    "arrays; readers carry their own per-frame data "
-                    "and times"
+                    "arrays; trajectory files and readers carry their "
+                    "own per-frame data and times"
                 )
+        if isinstance(coordinates, ProtoReader):
             self.trajectory = coordinates
+            return self
+        if isinstance(coordinates, (str, os.PathLike)):
+            from ..io import open_trajectory
+
+            self.trajectory = open_trajectory(coordinates)
             return self
         coordinates = np.asarray(coordinates, dtype=np.float32)
         if coordinates.ndim == 2:

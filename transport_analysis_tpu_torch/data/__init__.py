@@ -1,8 +1,7 @@
-"""The ethylene-carbonate sample files and their generator: not ported
-yet, they come with the file formats (ROADMAP.md queue 1 item 1). Every
-name of ``transport_analysis_tpu.data`` raises ``NotImplementedError``
-here."""
+"""Packaged data: the ethylene-carbonate regression system
+(``files.ec_top``, ``files.ec_traj_trr``), generated on first access by
+``generate.py``, and a logo text file."""
 
-from ..utils.errors import not_ported_module
+from . import files  # noqa: F401
 
-__getattr__ = not_ported_module("data", "io")
+__all__ = ["files"]

@@ -28,12 +28,11 @@ class SelectionError(TransportAnalysisError, ValueError):
 # point of those parts raises ``not_ported`` naming its item (the float32
 # work mode: ``check_work_dtype``'s ValueError).
 ROADMAP_ITEMS = {
-    "io": "ROADMAP.md queue 1 item 1 (io/ and data/: trajectory and "
-          "topology files)",
     "float32": "ROADMAP.md queue 1 item 4 (the float32 work mode, "
                "dtype=np.float32)",
     "streaming": "ROADMAP.md queue 1 item 3 (streaming, out-of-core and "
-                 "prefetch: atom_chunk, checkpoint, frame_block)",
+                 "prefetch: atom_chunk, checkpoint, frame_block, "
+                 "io.prefetch)",
     "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
 }
 

@@ -91,7 +91,34 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    the particle means are a self-consistency check:
    ``results.timeseries`` against the mean of the program's own
    per-particle values.
-7. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
+7. stream  — the streaming layer. At the deep shape: the frame-blocked
+   feed (``frame_block=4096``: 16 blocks through ``io.prefetch`` into
+   device buffers) for ``fft``, timed and profiled, each result within
+   1e-15 of the deep phase's batch run (bit-equal or not, said); atom
+   chunks (``atom_chunk`` from ``ops.acf.auto_atom_chunk(65536, d=3,
+   hbm_budget_gb=8.0)`` for the VACF and the MSD, one atom less for
+   Helfand, so one of them has an odd d·chunk) for ``fft`` and
+   ``windowed`` (``max_lag=2048``), each within 1e-12 of the unchunked
+   run (the deep phase's, and an unchunked MSD run here, the MSD on
+   lags < N/2) and 1e-11 of the host oracles (every 21st atom, lags <
+   N/2), each chunk launching its
+   kernels (the launch
+   counters equal the unchunked run's per analysis times the chunks), its
+   peak device memory (``max_memory_allocated``, the roots and FFT plan
+   caches cleared first) past what was held before within its reckoned
+   chunk peak (``ops.acf.chunk_peak_bytes``), which is within the budget;
+   a chunked VACF interrupted after two chunks and resumed from its
+   checkpoint under ``build/`` (only the other chunks run), equal to the
+   uninterrupted run. From the files phase's TRR: the frame-blocked feed
+   (8 blocks of 1,024 frames through the native decoder) beside the files
+   phase's batch wall and equal to its results; ``vacf_out_of_core`` and
+   ``msd_out_of_core`` (spools of 1,024 atoms under ``build/``, deleted
+   after) within 1e-13 of the in-memory analyses of the file;
+   ``helfand_out_of_core`` within 1e-11 of a host oracle of its float32
+   m·v·x spools (lags < N/2), with its float32-grade distance from the
+   in-memory ``ViscosityHelfand``; ``correlate_spools``' per-chunk
+   read, stall and kernel seconds and the overlap 1 − Σstall/Σread.
+8. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
@@ -142,6 +169,15 @@ NARROW_SHAPES = [("top", 2 ** 23, 4, 2), ("past", 2 ** 24, 4, 2)]
 # and its lags
 GROUPED_SHAPE, GROUPED_LAGS = ("d5", 8192, 64, 5), 512
 PLAIN_STRIDE = 21        # K8's plain version runs on every 21st atom
+# the stream phase: frame blocks at the deep shape (16 blocks) and from
+# the files phase's TRR (8 blocks), the atom chunks' device-memory budget
+# at the deep shape, and the atom chunk of the out-of-core runs
+STREAM_BLOCK, FILE_BLOCK = 4096, 1024
+STREAM_BUDGET_GB = 8.0
+SPOOL_CHUNK = 1024
+BLOCKED_TOL = 1e-15      # frame-blocked run vs the batch run
+CHUNKED_TOL = 1e-12      # atom-chunked run vs the unchunked run
+SPOOL_TOL = 1e-13        # out-of-core VACF and MSD vs in memory
 PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
 # the card's peaks for the bounds (H100 SXM data sheet)
 PEAK_FP64 = 34e12        # flop/s, FP64 outside the tensor cores
@@ -646,6 +682,25 @@ def ec_system(n_frames: int, n_molecules: int):
     return pos, vel, attrs
 
 
+def ec_universe(ta, pos, vel, attrs):
+    """The port's Universe of the EC system's arrays: its topology
+    attributes and a MemoryReader of positions and velocities in the
+    cubic box."""
+    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
+
+    n_atoms = pos.shape[1]
+    n_molecules = n_atoms // len(EC_ATOMS)
+    u = ta.Universe.empty(
+        n_atoms, n_residues=n_molecules,
+        atom_resindex=np.repeat(np.arange(n_molecules), len(EC_ATOMS)))
+    for attr, values in attrs.items():
+        u.add_TopologyAttr(attr, values)
+    u.load_new(MemoryReader(pos, velocities=vel,
+                            dimensions=[BOX, BOX, BOX, 90.0, 90.0, 90.0],
+                            dt=DT))
+    return u
+
+
 def einstein_oracle(a, dfac: int) -> np.ndarray:
     """Host float64 Kneller/Calandrini mean squared lag difference per
     particle of an (N, P, d) float64 array, which it centers in place:
@@ -673,17 +728,6 @@ def helfand_oracle(masses, vel, pos, d: int) -> np.ndarray:
     averaged."""
     return einstein_oracle(masses[None, :, None] * vel.astype(np.float64)
                            * pos.astype(np.float64), d)
-
-
-def reckoned_peak(n: int, n_atoms: int) -> int:
-    """Device bytes the FFT analyses hold at their peak, the first forward
-    level: VACF the float32 feed, Helfand its float64 accumulator and the
-    (N, P) squares, each beside two packed complex128 spectra of M rows
-    and the order-M roots table."""
-    s = 3 * n_atoms
-    m = 2 ** (int(n - 1).bit_length() + 1)
-    spectra = 2 * 16 * m * ((s + 1) // 2) + 16 * m
-    return max(4 * n * s, 8 * n * s + 8 * n * n_atoms) + spectra
 
 
 def reckoned_windowed_peak(n: int, n_atoms: int, n_lags: int) -> int:
@@ -764,6 +808,19 @@ def head_errors(got, ref, n: int):
             for s in (slice(0, n // 2), slice(None))]
 
 
+def counted_run(torch, counters, run):
+    """``run`` once with the launch counters reset just before and read
+    just after; returns its output, the launches and the wall."""
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {key: fn.launches for key, fn in counters.items()}, wall
+
+
 def drive(torch, counters, card, name, label, run, needed, lag_work,
           warm=True):
     """``run`` once warm (unless ``warm`` is false: a phase right after
@@ -776,15 +833,8 @@ def drive(torch, counters, card, name, label, run, needed, lag_work,
         run()
         torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    for fn in counters.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {key: fn.launches for key, fn in counters.items()}
+    out, launches, wall = counted_run(torch, counters, run)
     peak = torch.cuda.max_memory_allocated()
     phase(name, f"{label}: launches in the timed run: {launches}")
     missing = [key for key in needed if launches[key] < 1]
@@ -862,20 +912,23 @@ def checks(name, n, n_atoms, stride):
 def runs(ta, u):
     """The runs of a phase on Universe ``u``: ``analyses(fft, max_lag)``,
     VACF of the ECA residues, its Green–Kubo D and the Helfand viscosity
-    of every atom; ``msd(fft)``, EinsteinMSD of the ECA residues."""
-    def analyses(fft, max_lag=None):
+    of every atom; ``msd(fft, max_lag)``, EinsteinMSD of the ECA
+    residues."""
+    def analyses(fft, max_lag=None, **stream):
         def run():
             ag = u.select_atoms("resname ECA")
-            vacf = ta.VelocityAutocorr(ag, fft=fft, max_lag=max_lag).run()
+            vacf = ta.VelocityAutocorr(ag, fft=fft, max_lag=max_lag,
+                                       **stream).run()
             d_gk = vacf.self_diffusivity_gk()
             visc = ta.ViscosityHelfand(
                 u.atoms, temp_avg=TEMP, linear_fit_window=FIT_WINDOW,
-                fft=fft, max_lag=max_lag).run()
+                fft=fft, max_lag=max_lag, **stream).run()
             return vacf, d_gk, visc
         return run
 
-    def msd(fft):
-        return lambda: ta.EinsteinMSD(u, select="resname ECA", fft=fft).run()
+    def msd(fft, max_lag=None, **stream):
+        return lambda: ta.EinsteinMSD(u, select="resname ECA", fft=fft,
+                                      max_lag=max_lag, **stream).run()
 
     return analyses, msd
 
@@ -888,17 +941,10 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
     t_phase = time.perf_counter()
     pos, vel, attrs = ec_system(n, n_molecules)
     n_atoms = pos.shape[1]
-    from transport_analysis_tpu_torch.core.trajectory import MemoryReader
+    from transport_analysis_tpu_torch.ops.acf import chunk_peak_bytes
     from transport_analysis_tpu_torch.utils.units import constants
 
-    u = ta.Universe.empty(
-        n_atoms, n_residues=n_molecules,
-        atom_resindex=np.repeat(np.arange(n_molecules), len(EC_ATOMS)))
-    for attr, values in attrs.items():
-        u.add_TopologyAttr(attr, values)
-    u.load_new(MemoryReader(pos, velocities=vel,
-                            dimensions=[BOX, BOX, BOX, 90.0, 90.0, 90.0],
-                            dt=DT))
+    u = ec_universe(ta, pos, vel, attrs)
     m = 2 ** (int(n - 1).bit_length() + 1)
     from transport_analysis_tpu_torch.ops.cuda_fft import plan_levels
 
@@ -916,7 +962,8 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
         torch, counters, card, name, "fft", analyses(True), FFT_KERNELS,
         2 * pairs * n_atoms)
     phase(name, f"fft: reckoned peak device memory "
-          f"{reckoned_peak(n, n_atoms) / 2**30:.3f} GiB")
+          f"{chunk_peak_bytes(n, n_atoms) / 2**30:.3f} GiB "
+          "(ops.acf.chunk_peak_bytes of all atoms)")
     ref_v = acf_numpy(vel[:, atoms])
     check("fft", "VACF", vacf.results.vacf_by_particle,
           vacf.results.timeseries, ref_v, n)
@@ -926,6 +973,8 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
     check("fft", "Helfand", visc.results.visc_by_particle,
           visc.results.timeseries, ref_h, n)
     scalars("fft", d_gk, visc)
+    kept = {"fft": (vacf.results, visc.results), "ref_v": ref_v,
+            "ref_h": ref_h}
     if name in WINDOWED:
         max_lag = WINDOWED[name]
         n_lags = n if max_lag is None else max_lag
@@ -947,6 +996,7 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
         cross("windowed", "VACF", vacf.results.vacf_by_particle, fft_v)
         cross("windowed", "Helfand", visc.results.visc_by_particle, fft_h)
         scalars("windowed", d_gk, visc)
+        kept["windowed"] = (vacf.results, visc.results)
         del fft_v, fft_h
     del vacf, visc, ref_v, ref_h
     if name in MSD_PHASES:
@@ -965,7 +1015,8 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
               msd_fft.results.msds_by_particle)
         del msd_fft, msd_win, ref_m
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
-    return launches, walls, (pos, vel, attrs)
+    kept["launches"], kept["walls"] = launches, walls
+    return launches, walls, (pos, vel, attrs), kept
 
 
 def write_pdb(path: str, pos0, attrs) -> None:
@@ -985,12 +1036,15 @@ def write_pdb(path: str, pos0, attrs) -> None:
         fh.write("END\n")
 
 
-def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls):
+def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls,
+                tmp):
     """The model phase's EC system through the port's writers and readers
-    (module docstring): written as TRR, XTC and DCD, read back through
-    ``Universe(pdb, traj)`` and timed, analysed on the card from the files
-    against the same analyses on MemoryReaders of the decoded arrays and
-    against host oracles; then the packaged EC regression on the card."""
+    (module docstring): written as TRR, XTC and DCD into the directory
+    ``tmp``, read back through ``Universe(pdb, traj)`` and timed, analysed
+    on the card from the files against the same analyses on MemoryReaders
+    of the decoded arrays and against host oracles; then the packaged EC
+    regression on the card. Returns the PDB's and the TRR's paths, the
+    TRR ``fft`` run's wall and its results, for the stream phase."""
     name = "files"
     t_phase = time.perf_counter()
     pos, vel, attrs = system
@@ -1009,39 +1063,36 @@ def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls):
             pos[f], dimensions=box, time=f * DT)),
         "dcd": ({"dt": DT}, lambda w, f: w.write(pos[f], dimensions=box)),
     }
-    scratch = os.path.join(ROOT, "build")
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        pdb = os.path.join(tmp, "ec.pdb")
-        write_pdb(pdb, pos[0], attrs)
-        universes, batches = {}, {}
-        for ext, (kwargs, write) in writes.items():
-            path = os.path.join(tmp, f"ec.{ext}")
-            t0 = time.perf_counter()
-            with io.Writer(path, n_atoms, **kwargs) as w:
-                for f in range(n):
-                    write(w, f)
-            secs = time.perf_counter() - t0
-            phase(name, f"wrote {ext.upper()} of {n_atoms} atoms x {n} "
-                  f"frames: {os.path.getsize(path)} bytes in {secs:.3f} s, "
-                  f"on {card}")
-            u = ta.Universe(pdb, path)
-            calls = _native.decode_trr_batch.calls
-            t0 = time.perf_counter()
-            batch = u.trajectory.read_frames_batch(range(n))
-            secs = time.perf_counter() - t0
-            decoded = sum(batch[k].nbytes for k in ("positions", "velocities")
-                          if k in batch)
-            how = {"trr": "native batch decoder",
-                   "xtc": "native codec, one call a frame",
-                   "dcd": "numpy, one frame at a time"}[ext]
-            phase(name, f"read {ext.upper()}: read_frames_batch of {n} "
-                  f"frames in {secs:.3f} s, {decoded / secs / 1e9:.3f} GB/s "
-                  f"of decoded float32 ({decoded} bytes; {how}), on {card}")
-            if ext == "trr" and _native.decode_trr_batch.calls != calls + 1:
-                raise AssertionError("the TRR batch did not go through the "
-                                     "native decoder")
-            universes[ext], batches[ext] = u, batch
+    pdb = os.path.join(tmp, "ec.pdb")
+    write_pdb(pdb, pos[0], attrs)
+    universes, batches = {}, {}
+    for ext, (kwargs, write) in writes.items():
+        path = os.path.join(tmp, f"ec.{ext}")
+        t0 = time.perf_counter()
+        with io.Writer(path, n_atoms, **kwargs) as w:
+            for f in range(n):
+                write(w, f)
+        secs = time.perf_counter() - t0
+        phase(name, f"wrote {ext.upper()} of {n_atoms} atoms x {n} "
+              f"frames: {os.path.getsize(path)} bytes in {secs:.3f} s, "
+              f"on {card}")
+        u = ta.Universe(pdb, path)
+        calls = _native.decode_trr_batch.calls
+        t0 = time.perf_counter()
+        batch = u.trajectory.read_frames_batch(range(n))
+        secs = time.perf_counter() - t0
+        decoded = sum(batch[k].nbytes for k in ("positions", "velocities")
+                      if k in batch)
+        how = {"trr": "native batch decoder",
+               "xtc": "native codec, one call a frame",
+               "dcd": "numpy, one frame at a time"}[ext]
+        phase(name, f"read {ext.upper()}: read_frames_batch of {n} "
+              f"frames in {secs:.3f} s, {decoded / secs / 1e9:.3f} GB/s "
+              f"of decoded float32 ({decoded} bytes; {how}), on {card}")
+        if ext == "trr" and _native.decode_trr_batch.calls != calls + 1:
+            raise AssertionError("the TRR batch did not go through the "
+                                 "native decoder")
+        universes[ext], batches[ext] = u, batch
     if "xtc" not in _native._loaded:
         raise AssertionError("the XTC frames did not go through the codec")
     if not np.array_equal(universes["trr"].atoms.masses, attrs["masses"]):
@@ -1121,6 +1172,8 @@ def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls):
         if fft:
             fft_keep = {"VACF": vacf.results.vacf_by_particle,
                         "Helfand": visc.results.visc_by_particle}
+            kept = {"pdb": pdb, "trr": os.path.join(tmp, "ec.trr"),
+                    "wall": wall, "results": (vacf.results, visc.results)}
         else:
             cross(label, "VACF", vacf.results.vacf_by_particle,
                   fft_keep["VACF"])
@@ -1170,6 +1223,280 @@ def files_phase(torch, ta, acf_numpy, counters, card, system, model_walls):
             and abs(lag0 - 328.965) <= 1e-4 * 328.965):
         raise AssertionError("the packaged EC regression failed on the card")
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return kept
+
+
+def stream_phase(torch, ta, acf_numpy, counters, card, deep, files, tmp):
+    """The streaming layer on the card (module docstring): the frame-
+    blocked feed and atom chunks at the deep shape, held against the deep
+    phase's batch runs ``deep``; a checkpointed, interrupted and resumed
+    chunk run; the frame-blocked feed and the out-of-core spools from the
+    files phase's TRR (``files``), spools in the directory ``tmp``."""
+    import shutil
+
+    from transport_analysis_tpu_torch.io import _native
+    from transport_analysis_tpu_torch.ops import acf_fft_from_f32, cuda_fft
+    from transport_analysis_tpu_torch.ops.acf import (auto_atom_chunk,
+                                                      chunk_peak_bytes)
+    from transport_analysis_tpu_torch.parallel import out_of_core, streaming
+    from transport_analysis_tpu_torch.utils.units import constants
+
+    name = "stream"
+    t_phase = time.perf_counter()
+    pos, vel, attrs = deep["system"]
+    n, n_atoms = pos.shape[:2]
+    stride = next(s for key, _, _, s in MODEL_PHASES if key == "deep")
+    u = ec_universe(ta, pos, vel, attrs)
+    analyses, msd = runs(ta, u)
+    check, _, _ = checks(name, n, n_atoms, stride)
+    pairs = n * (n + 1) // 2
+    keys = {"VACF": "vacf_by_particle", "Helfand": "visc_by_particle",
+            "MSD": "msds_by_particle"}
+
+    def differ(label, what, got, want, tol, against, head=False):
+        """max|got − want| / max|want| within ``tol``, over all lags or,
+        with ``head``, on lags < N/2 (the error over all lags printed
+        beside it); says whether the two are bit-equal."""
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        equal = "bit-equal" if np.array_equal(got, want) else "not bit-equal"
+        if head:
+            err, every = head_errors(got, want, n)[0], err
+            equal = f"{every:.3e} over all lags, {equal}"
+        phase(name, f"{label}: {what} vs {against}: {err:.3e}"
+              f"{' (lags < N/2)' if head else ''} ({equal})")
+        if not err <= tol:
+            raise AssertionError(f"{label} {what}: {err:.3e} from {against}, "
+                                 f"past {tol}")
+
+    # -- the frame-blocked feed at the deep shape: 16 blocks of 4,096
+    # frames through BatchPrefetcher into the device buffers
+    reader = u.trajectory
+    decode = reader.read_frames_batch
+    blocks = []
+
+    def counted_blocks(indices):
+        blocks.append(len(indices))
+        return decode(indices)
+
+    reader.read_frames_batch = counted_blocks
+    (vacf, _, visc), _, wall = drive(
+        torch, counters, card, name, "deep frame-blocked fft",
+        analyses(True, frame_block=STREAM_BLOCK), FFT_KERNELS,
+        2 * pairs * n_atoms, warm=False)
+    reader.read_frames_batch = decode
+    per_run = 2 * (-(-n // STREAM_BLOCK))
+    if set(blocks) != {STREAM_BLOCK} or len(blocks) % per_run:
+        raise AssertionError(f"the frame-blocked runs read blocks {blocks}")
+    phase(name, f"deep frame-blocked fft: {per_run // 2} blocks of "
+          f"{STREAM_BLOCK} frames an analysis through BatchPrefetcher; wall "
+          f"{wall:.4f} s against the deep phase's batch "
+          f"{deep['walls']['fft']:.4f} s, on {card}")
+    for what, res, want in (("VACF", vacf.results, deep["fft"][0]),
+                            ("Helfand", visc.results, deep["fft"][1])):
+        for field in (keys[what], "timeseries"):
+            differ("deep frame-blocked fft", f"{what} {field}", res[field],
+                   want[field], BLOCKED_TOL, "the deep phase's batch run")
+    del vacf, visc
+
+    # -- atom chunks at the deep shape: auto_atom_chunk for an 8 GB budget;
+    # the VACF and the MSD (the peak the model reckons) at that chunk,
+    # Helfand at one atom less (so one of them has an odd d·chunk). The
+    # deep phase runs no MSD: its unchunked runs and oracle come first.
+    msd_whole = {}
+    for fft, max_lag in ((True, None), (False, WINDOWED["deep"])):
+        out, _, wall = counted_run(torch, counters, msd(fft, max_lag))
+        msd_whole[fft] = out.results
+        phase(name, f"deep unchunked {'fft' if fft else 'windowed'} MSD: "
+              f"wall {wall:.4f} s, on {card}")
+        del out
+    ref_m = einstein_oracle(pos[:, ::stride].astype(np.float64), 1)
+    chunk = auto_atom_chunk(n, d=3, hbm_budget_gb=STREAM_BUDGET_GB)
+    budget = STREAM_BUDGET_GB * 1e9
+    phase(name, f"auto_atom_chunk({n}, d=3, hbm_budget_gb="
+          f"{STREAM_BUDGET_GB}) = {chunk} atoms; reckoned chunk peak "
+          f"{chunk_peak_bytes(n, chunk) / 1e9:.3f} GB, of all {n_atoms} "
+          f"atoms {chunk_peak_bytes(n, n_atoms) / 1e9:.3f} GB")
+    fft_launches = deep["launches"]["fft"]
+    per_vacf = {key: fft_launches[key] // 2 for key in
+                ("fft_level", "unpack_power_inva", "inverse_last_level")}
+    per_visc = dict(per_vacf, kneller_totals=fft_launches["kneller_totals"],
+                    kneller_windows=fft_launches["kneller_windows"])
+    per_run = {(True, "VACF"): per_vacf, (True, "Helfand"): per_visc,
+               (True, "MSD"): per_visc, (False, "VACF"): {"lag_sums": 1},
+               (False, "Helfand"): {"lag_sums": 1},
+               (False, "MSD"): {"lag_sums": 1}}
+    ag = u.select_atoms("resname ECA")
+    chunked_vacf = None
+    for fft, max_lag in ((True, None), (False, WINDOWED["deep"])):
+        label = "deep chunked " + ("fft" if fft else "windowed")
+        n_lags = n if max_lag is None else max_lag
+        want_runs = deep["fft" if fft else "windowed"] + (msd_whole[fft],)
+        refs = (deep["ref_v"], deep["ref_h"], ref_m)
+        for i, (what, c) in enumerate((("VACF", chunk), ("Helfand", chunk - 1),
+                                       ("MSD", chunk))):
+            def run(what=what, c=c):
+                if what == "VACF":
+                    return ta.VelocityAutocorr(ag, fft=fft, max_lag=max_lag,
+                                               atom_chunk=c).run()
+                if what == "MSD":
+                    return msd(fft, max_lag, atom_chunk=c)()
+                return ta.ViscosityHelfand(
+                    u.atoms, temp_avg=TEMP, linear_fit_window=FIT_WINDOW,
+                    fft=fft, max_lag=max_lag, atom_chunk=c).run()
+
+            cuda_fft.roots_tensor.cache_clear()
+            torch.backends.cuda.cufft_plan_cache.clear()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out, launches, wall = counted_run(torch, counters, run)
+            peak = torch.cuda.max_memory_allocated()
+            n_chunks = -(-n_atoms // c)
+            want = {key: per_run[fft, what].get(key, 0) * n_chunks
+                    for key in counters}
+            reckoned = chunk_peak_bytes(n, c)
+            phase(name, f"{label} {what}: atom_chunk {c} (d·chunk {3 * c}), "
+                  f"{n_chunks} chunks; launches {launches}; wall "
+                  f"{wall:.4f} s; peak device memory {peak / 1e9:.3f} GB "
+                  f"({(peak - before) / 1e9:.3f} GB past the "
+                  f"{before / 1e9:.3f} GB held before), reckoned chunk "
+                  f"peak {reckoned / 1e9:.3f} GB, budget {budget / 1e9:.1f}"
+                  f" GB; on {card}")
+            if launches != want:
+                raise AssertionError(f"{label} {what}: launches {launches}, "
+                                     f"expected {want} ({n_chunks} chunks)")
+            # the run's own peak against its reckoning, which the chunk
+            # was chosen to keep inside the budget
+            if not peak - before <= reckoned <= budget:
+                raise AssertionError(f"{label} {what}: peak device memory "
+                                     "past its reckoned peak or the budget")
+            res, ref = out.results, want_runs[i]
+            # the MSD of positions, whose Kneller sums at lags near N
+            # carry an absolute floor of about eps·N of the maximum in
+            # every float64 evaluation, is held on lags < N/2, as the
+            # oracle checks are
+            for field in (keys[what], "timeseries"):
+                differ(label, f"{what} {field}", res[field], ref[field],
+                       CHUNKED_TOL, "the unchunked run", head=what == "MSD")
+            check(label, what, res[keys[what]], res.timeseries, refs[i],
+                  n_lags)
+            if fft and what == "VACF":
+                chunked_vacf = res.timeseries
+            del out, res
+    del msd_whole, ref_m
+
+    # -- checkpoint: the chunked VACF interrupted after two chunks, then
+    # resumed from its checkpoint file
+    ckpt = os.path.join(tmp, "vacf_checkpoint.npz")
+    calls = []
+
+    class Interrupted(Exception):
+        pass
+
+    def kernel(v):
+        if interrupt and len(calls) == 2:
+            raise Interrupted
+        calls.append(v.shape[1])
+        return acf_fft_from_f32(v)
+
+    interrupt, interrupted = True, False
+    try:
+        streaming.chunked_per_particle(kernel, vel, chunk,
+                                       want_by_particle=False,
+                                       checkpoint=ckpt)
+    except Interrupted:
+        interrupted = True
+    if not interrupted or len(calls) != 2:
+        raise AssertionError("the chunked run was not interrupted after "
+                             "two chunks")
+    interrupt = False
+    ts, _ = streaming.chunked_per_particle(kernel, vel, chunk,
+                                           want_by_particle=False,
+                                           checkpoint=ckpt)
+    phase(name, f"checkpoint: interrupted after chunks of {calls[:2]} "
+          f"atoms, resumed from {os.path.relpath(ckpt, ROOT)} with "
+          f"{calls[2:]}")
+    if len(calls) != -(-n_atoms // chunk):
+        raise AssertionError(f"the resumed run ran chunks {calls[2:]}")
+    differ("checkpoint", "resumed VACF timeseries", ts, chunked_vacf, 0.0,
+           "the uninterrupted chunked run")
+    os.remove(ckpt)
+    del ts
+
+    # -- the files phase's TRR: the frame-blocked feed, 8 blocks of 1,024
+    # frames through the native decoder
+    ut = ta.Universe(files["pdb"], files["trr"])
+    analyses_t, msd_t = runs(ta, ut)
+    decodes = _native.decode_trr_batch.calls
+    (vacf, _, visc), launches, wall = counted_run(
+        torch, counters, analyses_t(True, frame_block=FILE_BLOCK))
+    nt = ut.trajectory.n_frames
+    decodes = _native.decode_trr_batch.calls - decodes
+    phase(name, f"TRR frame-blocked fft: {decodes} native batch decodes "
+          f"(blocks of {FILE_BLOCK} frames, two analyses); launches "
+          f"{launches}; wall {wall:.4f} s against the files phase's batch "
+          f"{files['wall']:.4f} s, on {card}")
+    if decodes != 2 * (-(-nt // FILE_BLOCK)) or min(
+            launches[key] for key in FFT_KERNELS) < 1:
+        raise AssertionError("the TRR frame-blocked runs did not decode "
+                             "natively in blocks or launch the kernels")
+    for what, res, want in (("VACF", vacf.results, files["results"][0]),
+                            ("Helfand", visc.results, files["results"][1])):
+        differ("TRR frame-blocked fft", f"{what} {keys[what]}",
+               res[keys[what]], want[keys[what]], BLOCKED_TOL,
+               "the files phase's batch run")
+    del vacf, visc
+
+    # -- out of core from the TRR: spools of 1,024 atoms under tmp
+    at = ut.select_atoms("resname ECA")
+    msd_mem = msd_t(True)().results.timeseries
+
+    def spooled(label, fn, **kwargs):
+        spool = os.path.join(tmp, f"spool_{label}")
+        stats = {}
+        out, launches, wall = counted_run(torch, counters, lambda: fn(
+            at, spool, atom_chunk=SPOOL_CHUNK, stats=stats, **kwargs))
+        read, stall = sum(stats["read_s"]), sum(stats["stall_s"])
+        phase(name, f"out of core {label}: wall {wall:.4f} s (spools and "
+              f"correlation); per chunk read_s "
+              f"{[round(x, 4) for x in stats['read_s']]}, stall_s "
+              f"{[round(x, 4) for x in stats['stall_s']]}, kernel_s "
+              f"{[round(x, 4) for x in stats['kernel_s']]}; overlap "
+              f"1 − Σstall/Σread = {1 - stall / read:.3f}; launches "
+              f"{launches}; on {card}")
+        if min(launches[key] for key in ("fft_level", "unpack_power_inva",
+                                         "inverse_last_level")) < 1:
+            raise AssertionError(f"out of core {label}: kernels not launched")
+        return out, spool
+
+    for label, fn, want in (
+            ("VACF", out_of_core.vacf_out_of_core,
+             files["results"][0].timeseries),
+            ("MSD", out_of_core.msd_out_of_core, msd_mem)):
+        got, spool = spooled(label, fn)
+        differ(f"out of core {label}", "timeseries", got, want, SPOOL_TOL,
+               "the in-memory analysis of the file")
+        shutil.rmtree(spool)
+    (got, _), spool = spooled("Helfand", out_of_core.helfand_out_of_core,
+                              temp_avg=TEMP)
+    mvx = np.concatenate(
+        [np.load(os.path.join(spool, f"mvx_chunk{c:05d}.f32"))
+         for c in range(-(-len(at) // SPOOL_CHUNK))], axis=1)
+    volume = float(np.mean(out_of_core.load_aux(spool, "mvx")["volumes"]))
+    shutil.rmtree(spool)
+    oracle = einstein_oracle(mvx.astype(np.float64), 3).mean(axis=1) / (
+        2.0 * constants["Boltzmann_constant"] * volume * TEMP)
+    del mvx
+    err = head_errors(got, oracle, nt)
+    drift = head_errors(got, files["results"][1].timeseries, nt)
+    phase(name, f"out of core Helfand: vs the host f64 oracle of its float32 "
+          f"m·v·x spools {err[0]:.3e} (lags < N/2), {err[1]:.3e} (all); vs "
+          f"the in-memory ViscosityHelfand (float64 m·v·x) {drift[0]:.3e}, "
+          f"{drift[1]:.3e}: the spools' float32 grade")
+    if not err[0] <= HEAD_TOL:
+        raise AssertionError("out of core Helfand disagrees with the oracle "
+                             f"of its spools beyond {HEAD_TOL}")
+    phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1203,16 +1530,25 @@ def main() -> int:
         "lag_sums": cuda_lag.lag_sums,
     }
     launches = {}
-    for name, n, n_molecules, stride in MODEL_PHASES:
-        launches[name], walls, system = model_phase(
-            torch, ta, acf_fft_numpy, counters, smi, name, n, n_molecules,
-            stride)
-        torch.cuda.empty_cache()
-        if name == "model":
-            files_phase(torch, ta, acf_fft_numpy, counters, smi, system,
-                        walls)
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        for name, n, n_molecules, stride in MODEL_PHASES:
+            launches[name], walls, system, kept = model_phase(
+                torch, ta, acf_fft_numpy, counters, smi, name, n,
+                n_molecules, stride)
             torch.cuda.empty_cache()
-        del system
+            if name == "model":
+                files = files_phase(torch, ta, acf_fft_numpy, counters, smi,
+                                    system, walls, tmp)
+                torch.cuda.empty_cache()
+            elif name == "deep":
+                kept["system"] = system
+                stream_phase(torch, ta, acf_fft_numpy, counters, smi, kept,
+                             files, tmp)
+                torch.cuda.empty_cache()
+                del files
+            del system, kept
     if any(mod == "jax" or mod.startswith("jax.") for mod in sys.modules):
         raise AssertionError("jax was imported")
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -487,3 +487,86 @@ def test_failed_native_build_raises(cuda_device, tmp_path, monkeypatch, how):
     with pytest.raises(FileNotFoundError if how == "missing"
                        else RuntimeError):
         r.read_frames_batch(range(4))
+
+
+# --- streaming on the card -------------------------------------------------
+
+def streamed_system(n, n_atoms, seed):
+    rng = np.random.RandomState(seed)
+    pos = rng.uniform(0, 30, (n, n_atoms, 3)).astype(np.float32)
+    vel = rng.normal(0, 8, (n, n_atoms, 3)).astype(np.float32)
+    return convert.universe_from_arrays(
+        n_atoms, {"masses": np.linspace(1.0, 16.0, n_atoms)}, pos,
+        velocities=vel, dimensions=[30.0] * 3 + [90.0] * 3)
+
+
+def streamed_model(name, u, **kwargs):
+    from transport_analysis_tpu_torch import models
+
+    if name == "vacf":
+        return models.VelocityAutocorr(u.atoms, **kwargs), "vacf_by_particle"
+    if name == "helfand":
+        return models.ViscosityHelfand(u.atoms, **kwargs), "visc_by_particle"
+    return models.EinsteinMSD(u, **kwargs), "msds_by_particle"
+
+
+@pytest.mark.parametrize("name", ["vacf", "helfand", "msd"])
+@pytest.mark.parametrize("fft", [True, False])
+def test_streamed_runs_on_card_equal_the_batch_run(cuda_device, name, fft):
+    """On the card: the frame-blocked feed (blocks of 64 into the device
+    buffer) is bit-equal to the batch run of the same bytes; atom chunks
+    of 7 (odd d·chunk), alone and on the frame-blocked feed, agree with it
+    within 1e-12."""
+    u = streamed_system(500, 40, 3)
+    runs = {}
+    for label, kwargs in (("batch", {}), ("blocked", {"frame_block": 64}),
+                          ("chunked", {"atom_chunk": 7}),
+                          ("both", {"frame_block": 64, "atom_chunk": 7})):
+        analysis, key = streamed_model(name, u, fft=fft, max_lag=300,
+                                       device=cuda_device, **kwargs)
+        runs[label] = torch.from_numpy(analysis.run().results[key])
+    assert torch.equal(runs["blocked"], runs["batch"])
+    for label in ("chunked", "both"):
+        assert rel(runs[label], runs["batch"]) <= TOL, label
+
+
+@pytest.mark.parametrize("name", ["vacf", "helfand", "msd"])
+def test_chunked_peak_under_its_budget(cuda_device, name):
+    """A chunked run at 16,384 frames holds at most ``chunk_peak_bytes``
+    of device memory beyond what was allocated before it, and so stays
+    inside the budget its ``auto_atom_chunk`` was chosen for (the MSD's
+    peak is the one the model reckons)."""
+    n, budget = 16384, 0.3
+    chunk = acf.auto_atom_chunk(n, d=3, hbm_budget_gb=budget)
+    u = streamed_system(n, 4 * chunk + 5, 4)
+    cuda_fft.roots_tensor.cache_clear()
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    analysis, _ = streamed_model(name, u, atom_chunk=chunk,
+                                 device=cuda_device)
+    analysis.run()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= acf.chunk_peak_bytes(n, chunk, 3) <= budget * 1e9
+
+
+@pytest.mark.parametrize("fn", ["vacf_out_of_core", "helfand_out_of_core",
+                                "msd_out_of_core"])
+def test_spools_on_card_equal_the_cpu(cuda_device, tmp_path, fn):
+    """``correlate_spools`` feeding the card equals the same spools
+    correlated on the CPU, within 1e-12, with a read, stall and kernel
+    wall per spool."""
+    from transport_analysis_tpu_torch.parallel import out_of_core
+
+    u = streamed_system(700, 50, 5)
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        stats = {}
+        got = getattr(out_of_core, fn)(u, str(tmp_path / "spool"),
+                                       atom_chunk=16, device=dev,
+                                       stats=stats)
+        out[str(dev)] = torch.from_numpy(np.asarray(
+            got[0] if isinstance(got, tuple) else got))
+        assert [len(stats[k]) for k in ("read_s", "kernel_s")] == [4, 4]
+    assert rel(out["cuda"], out["cpu"]) <= TOL

@@ -506,12 +506,78 @@ def test_unsupported_formats_raise(call, tmp_path):
         call(tmp_path)
 
 
-def test_prefetch_is_not_ported():
-    for name in ("prefetch", "prefetch_batches", "BatchPrefetcher",
-                 "iter_frame_blocks"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            getattr(pio, name)
-    assert not hasattr(pio, "__wrapped__")
+# --- prefetch ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,block", [(10, 4), (10, 10), (10, 1), (0, 3)])
+def test_iter_frame_blocks_vs_jax(n, block):
+    from transport_analysis_tpu.io.prefetch import iter_frame_blocks as jifb
+    from transport_analysis_tpu_torch.io.prefetch import iter_frame_blocks
+
+    frames = np.arange(0, 2 * n, 2)
+    got, want = list(iter_frame_blocks(frames, block)), list(
+        jifb(frames, block))
+    assert len(got) == len(want) == -(-n // block)
+    assert all(same(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("source", ["memory", "golden.trr", "golden.xtc",
+                                    "golden.dcd"])
+def test_prefetch_batches_vs_jax(source):
+    """Every block the prefetcher yields is bit-equal to the JAX
+    package's, on a MemoryReader and through the file readers (the TRR
+    batch through the native decoder)."""
+    from transport_analysis_tpu.io.prefetch import prefetch_batches as jpb
+    from transport_analysis_tpu_torch.io.prefetch import prefetch_batches
+
+    if source == "memory":
+        rng = np.random.RandomState(0)
+        pos = rng.rand(20, 5, 3).astype(np.float32)
+        vel = rng.rand(20, 5, 3).astype(np.float32)
+        reader = MemoryReader(pos, velocities=vel)
+        jreader = JMemoryReader(pos, velocities=vel)
+        frames, block = np.arange(0, 20, 2), 3
+    else:
+        path = os.path.join(GOLDEN, source)
+        reader, jreader = pio.open_trajectory(path), jio.open_trajectory(path)
+        frames, block = np.arange(reader.n_frames), 2
+    got = list(prefetch_batches(reader, frames, block_size=block))
+    want = list(jpb(jreader, frames, block_size=block))
+    assert len(got) == len(want) == -(-len(frames) // block)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for key in FRAME_FIELDS + ("times", "frames"):
+            if key in w:
+                assert same(g[key], w[key]), key
+        assert np.allclose(g["volumes"], w["volumes"], rtol=VOLUME_TOL,
+                           atol=0)
+
+
+def test_prefetch_producer_error_reaches_the_consumer():
+    """The blocks decoded before the failure arrive, then the producer's
+    exception is raised on the consuming thread."""
+    from transport_analysis_tpu_torch.io.prefetch import BatchPrefetcher
+
+    reader = MemoryReader(np.zeros((6, 1, 3), np.float32))
+    direct = reader.read_frames_batch
+
+    class Boom(RuntimeError):
+        pass
+
+    def read_frames_batch(indices):
+        if indices[0] >= 4:
+            raise Boom("decode failed")
+        return direct(indices)
+
+    reader.read_frames_batch = read_frames_batch
+    pf = BatchPrefetcher(reader, [np.arange(0, 2), np.arange(2, 4),
+                                  np.arange(4, 6)])
+    assert len(pf) == 3
+    seen = []
+    with pytest.raises(Boom, match="decode failed"):
+        for batch in pf:
+            seen.append(batch["frames"].tolist())
+    assert seen == [[0, 1], [2, 3]]
 
 
 # --- topologies ----------------------------------------------------------------
@@ -649,6 +715,7 @@ def test_io_modules_import_numpy_not_torch_or_jax(module):
             names.add(node.module.split(".")[0])
     assert not names & {"torch", "jax", "jaxlib", "transport_analysis_tpu"}
     assert names <= {"__future__", "ast", "ctypes", "hashlib", "mmap",
-                     "numpy", "os", "pathlib", "struct", "subprocess",
+                     "numpy", "os", "pathlib", "queue", "struct",
+                     "subprocess",
                      "tempfile", "threading", "typing", "warnings", "h5py",
                      "scipy"}, names

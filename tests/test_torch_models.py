@@ -207,10 +207,6 @@ def test_use_before_run(pu, fn):
 
 
 @pytest.mark.parametrize("call", [
-    lambda ag: ta.VelocityAutocorr(ag, atom_chunk=2),
-    lambda ag: ta.ViscosityHelfand(ag, checkpoint="ck.npz"),
-    lambda ag: ta.VelocityAutocorr(ag, frame_block=4),
-    lambda ag: ta.io.prefetch,
     lambda ag: ta.parallel.use_mesh(),
 ])
 def test_not_ported_parts_raise(pu, call):

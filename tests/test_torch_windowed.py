@@ -601,8 +601,6 @@ def test_msd_requires_positions(engine):
 
 def test_msd_not_ported_options(systems):
     _, pu = systems["random"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ta.EinsteinMSD(pu, atom_chunk=3)
     with pytest.raises(ValueError, match="float64"):
         ta.EinsteinMSD(pu, dtype=np.float32)
     with pytest.raises(ValueError, match="invalid dim_type"):

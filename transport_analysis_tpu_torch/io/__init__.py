@@ -3,25 +3,12 @@
 Format dispatch by file extension. Readers implement the ProtoReader
 batch contract (core/trajectory.py); TRR batches and XTC frames decode in
 C++ (io/_native, compiled with g++ at first use; a failed build raises).
-The background prefetch of ``transport_analysis_tpu.io.prefetch`` is not
-ported yet: its names raise ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 3.
+``io.prefetch`` decodes frame blocks on a background thread.
 """
 
 from __future__ import annotations
 
 import os
-
-from ..utils.errors import not_ported
-
-_PREFETCH = ("prefetch", "prefetch_batches", "BatchPrefetcher",
-             "iter_frame_blocks")
-
-
-def __getattr__(name: str):
-    if name in _PREFETCH:
-        raise not_ported(f"io.{name} (background prefetch)", "streaming")
-    raise AttributeError(name)
 
 
 def _ext(path) -> str:

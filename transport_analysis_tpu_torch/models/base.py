@@ -11,7 +11,10 @@ Subclasses that implement ``_process_batch`` receive the entire strided
 frame selection as stacked arrays in one ``read_frames_batch`` call; the
 per-frame ``_single_frame`` hook remains, for subclasses written against
 the MDAnalysis API and as the explicit ``engine="frame"`` parity mode.
-The frame-blocked feed (``frame_block=``) is not ported yet.
+With ``frame_block=`` the selection arrives in blocks of that many frames,
+decoded on a background thread (``io.prefetch``), and each block is
+copied into a :class:`DeviceSeriesBuffer` on the analysis's device, so the
+host holds one decoded block at a time.
 """
 
 from __future__ import annotations
@@ -20,10 +23,10 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .._device import resolve_device
 from ..core.trajectory import take_axis
-from ..utils.errors import not_ported
 
 NO_F32_SOURCE_ENV = "TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE"
 
@@ -47,6 +50,29 @@ def select_series(block, indices, dim) -> np.ndarray:
     universe in xyz)."""
     return np.ascontiguousarray(
         take_axis(take_axis(block, indices, 1), dim, 2))
+
+
+TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.float64): torch.float64}
+
+
+class DeviceSeriesBuffer:
+    """Assembles an (n_frames, …) series on ``device`` from host frame
+    blocks: the host holds one decoded block at a time while the whole
+    selection accumulates on the device. One ``torch.empty`` of ``shape``
+    whose dtype is the first block's (float32 samples stay float32 under
+    the f32-source mode); each block is copied into its rows."""
+
+    def __init__(self, shape, dtype, device):
+        self._buf = torch.empty(shape, dtype=TORCH_DTYPES[np.dtype(dtype)],
+                                device=device)
+
+    def write(self, block: np.ndarray, offset: int) -> None:
+        nb = block.shape[0]
+        self._buf[offset:offset + nb].copy_(torch.from_numpy(block))
+
+    def array(self) -> torch.Tensor:
+        return self._buf
 
 
 class Results(dict):
@@ -87,9 +113,9 @@ class AnalysisBase:
         if engine not in (None, "batch", "frame"):
             raise ValueError("engine must be 'batch' or 'frame'")
         self._engine = engine
-        if frame_block is not None:
-            raise not_ported("frame_block (the frame-blocked feed)",
-                             "streaming")
+        if frame_block is not None and frame_block < 1:
+            raise ValueError("frame_block must be a positive int")
+        self._frame_block = frame_block
         self.device = resolve_device(device)
         self.results = Results()
 
@@ -125,6 +151,22 @@ class AnalysisBase:
         ``TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE`` is set, which upcasts
         them on the host; the results are identical either way."""
         self._keep_f32 = not os.environ.get(NO_F32_SOURCE_ENV)
+        self._buffers = {}
+
+    def _feed_block(self, key, batch, indices, offset) -> None:
+        """Frame-blocked feed: the block ``batch[key]`` of the atoms
+        ``indices`` in the analysis's components (``self._dim``), copied
+        into the device buffer ``self._<key>`` at row ``offset``; the
+        buffer is made at the first block, with that block's dtype, and
+        released when the run has concluded."""
+        block = source_cast(select_series(batch[key], indices, self._dim),
+                            self._work_dtype, self._keep_f32)
+        if offset == 0:
+            self._buffers[key] = DeviceSeriesBuffer(
+                (self.n_frames, len(indices), len(self._dim)), block.dtype,
+                self.device)
+        self._buffers[key].write(block, offset)
+        setattr(self, "_" + key, self._buffers[key].array())
 
     def _single_frame(self):  # pragma: no cover - overridden
         raise NotImplementedError(
@@ -193,7 +235,33 @@ class AnalysisBase:
         )
         self._prepare()
         show_progress = verbose if verbose is not None else self._verbose
-        if hasattr(self, "_process_batch") and self._engine != "frame":
+        use_batch = (
+            hasattr(self, "_process_batch") and self._engine != "frame"
+        )
+        if (use_batch and self._frame_block is not None
+                and hasattr(self, "_process_block")):
+            self._validate_trajectory()
+            from ..io.prefetch import prefetch_batches
+            from ..utils.progress import progress_bar
+
+            times = []
+            offset = 0
+            blocks = prefetch_batches(
+                self._trajectory, self.frames, block_size=self._frame_block,
+            )
+            bar = progress_bar(
+                total=len(self.frames),
+                desc=type(self).__name__,
+                disable=not show_progress,
+            )
+            for block in blocks:
+                times.append(np.asarray(block["times"]))
+                self._process_block(block, offset)
+                offset += len(block["times"])
+                bar.update(len(block["times"]))
+            bar.close()
+            self.times = np.concatenate(times).astype(np.float64)
+        elif use_batch:
             self._validate_trajectory()
             batch = self._trajectory.read_frames_batch(self.frames)
             self.times = np.asarray(batch["times"], dtype=np.float64)
@@ -215,4 +283,8 @@ class AnalysisBase:
                 bar.update(1)
             bar.close()
         self._conclude()
+        # a finished run keeps its results, not its feed on the device
+        for key in getattr(self, "_buffers", {}):
+            setattr(self, "_" + key, None)
+        self._buffers = {}
         return self

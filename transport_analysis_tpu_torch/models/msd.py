@@ -11,8 +11,9 @@ with the components summed, either by the Kneller/Calandrini FFT
 algorithm (``fft=True``: K1, K2, K5, K6a, K6b on the card) or by the
 exact windowed sums (``fft=False``: K8), batched over every particle in
 one device call. Float32 positions cross to the device at 4 bytes a
-value and are upcast there, exactly. Not ported yet: ``atom_chunk``,
-``checkpoint`` and the float32 work mode.
+value and are upcast there, exactly. ``frame_block=``, ``atom_chunk=``
+and ``checkpoint=`` stream as in ``VelocityAutocorr``. Not ported yet:
+the float32 work mode.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import numpy as np
 import torch
 
 from ..core.groups import AtomGroup
-from ..utils.errors import NoDataError, check_work_dtype, not_ported
+from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
+from .._device import as_tensor
+from ..parallel.streaming import chunked_per_particle, shares_memory
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
 
@@ -45,6 +48,9 @@ class EinsteinMSD(AnalysisBase):
         L lags; give ``max_lag`` to bound L on long trajectories.
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
+    atom_chunk, checkpoint, frame_block :
+        Atom chunks, their resume file and the frame-blocked feed, as in
+        ``VelocityAutocorr``.
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -57,8 +63,6 @@ class EinsteinMSD(AnalysisBase):
             ag = u if select in ("all", None) else u.select_atoms(select)
         else:
             ag = u.select_atoms(select)
-        if atom_chunk is not None or checkpoint is not None:
-            raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
         self.msd_type = msd_type.lower()
         self._dim, self.dim_fac = parse_dim_type(self.msd_type)
@@ -67,6 +71,8 @@ class EinsteinMSD(AnalysisBase):
         self.atomgroup = ag
         self.fft = fft
         self.max_lag = max_lag
+        self.atom_chunk = atom_chunk
+        self.checkpoint = checkpoint
         self._work_dtype = np.dtype(np.float64)
         self.n_particles = len(ag)
 
@@ -95,6 +101,12 @@ class EinsteinMSD(AnalysisBase):
             select_series(batch["positions"], self.ag.indices, self._dim),
             self._work_dtype, self._keep_f32)
 
+    def _process_block(self, batch, offset):
+        """Frame-blocked feed (models/base.py ``DeviceSeriesBuffer``)."""
+        if "positions" not in batch:
+            raise NoDataError(self._NO_DATA_MSG)
+        self._feed_block("positions", batch, self.ag.indices, offset)
+
     def _single_frame(self):
         if not self._ts.has_positions:
             raise NoDataError(self._NO_DATA_MSG)
@@ -106,17 +118,24 @@ class EinsteinMSD(AnalysisBase):
             if self.max_lag is None
             else min(self.max_lag, self.n_frames)
         )
-        feed = torch.from_numpy(np.ascontiguousarray(self._positions))
-        r = feed.to(self.device)
-        if self.fft:
+        feed = self._positions
+
+        def kernel(r):
+            if not self.fft:
+                return ops.einstein_difference_windowed(
+                    r, "sum", max_lag=self.n_lags)
             # the FFT path centers its float64 operand in place: hand it
-            # one of its own, a copy only where ``r`` is still the feed
-            owned = r.to(torch.float64,
-                         copy=r.data_ptr() == feed.data_ptr())
-            by_particle = einstein_difference_fft_(owned, "sum")[
-                : self.n_lags]
+            # one of its own, a copy only where ``r`` may still be the feed
+            owned = r.to(torch.float64, copy=shares_memory(r, feed))
+            return einstein_difference_fft_(owned, "sum")[: self.n_lags]
+
+        if self.atom_chunk:
+            _, by_particle = chunked_per_particle(
+                kernel, feed, self.atom_chunk,
+                checkpoint=self.checkpoint, device=self.device)
+            self.results.msds_by_particle = by_particle
+            self.results.timeseries = by_particle.mean(axis=1)
         else:
-            by_particle = ops.einstein_difference_windowed(
-                r, "sum", max_lag=self.n_lags)
-        self.results.msds_by_particle = by_particle.cpu().numpy()
-        self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+            by_particle = kernel(as_tensor(feed, self.device).contiguous())
+            self.results.msds_by_particle = by_particle.cpu().numpy()
+            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()

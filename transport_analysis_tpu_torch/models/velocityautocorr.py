@@ -12,8 +12,10 @@ averaged over all atoms in the group. Same public surface — ctor
 ``plot_running_integral`` — plus ``device=``. The frame selection crosses
 to the device in one transfer and the FFT path runs batched over every
 particle at once; ``fft=False`` runs the exact windowed sums (K8) on
-the same feed, O(N·n_lags) per atom. Not ported yet: ``atom_chunk``,
-``checkpoint`` and the float32 work mode.
+the same feed, O(N·n_lags) per atom. ``frame_block=`` feeds the card in
+frame blocks; ``atom_chunk=`` correlates that many atoms at a time
+(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume
+from. Not ported yet: the float32 work mode.
 
 Results are in MDAnalysis standard units: (Å/ps)² against ps.
 """
@@ -24,8 +26,10 @@ import numpy as np
 import torch
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, check_work_dtype, not_ported
+from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
+from .._device import as_tensor
+from ..parallel.streaming import chunked_per_particle
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
 
@@ -46,6 +50,15 @@ class VelocityAutocorr(AnalysisBase):
         for L lags; give ``max_lag`` to bound L on long trajectories.
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
+    atom_chunk : int, optional
+        Correlate this many atoms at a time on the device (bounds device
+        memory; ``ops.acf.auto_atom_chunk`` picks one for a budget).
+    checkpoint : str, optional
+        With ``atom_chunk``: an ``.npz`` written after every chunk, from
+        which an interrupted run resumes (ignored without ``atom_chunk``).
+    frame_block : int, optional
+        Feed the device in blocks of this many frames, decoded on a
+        background thread (the host holds one block at a time).
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -60,12 +73,12 @@ class VelocityAutocorr(AnalysisBase):
             )
         self.dim_type = dim_type.lower()
         self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        if atom_chunk is not None or checkpoint is not None:
-            raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
         super().__init__(atomgroup.universe.trajectory, **kwargs)
         self.fft = fft
         self.max_lag = max_lag
+        self.atom_chunk = atom_chunk
+        self.checkpoint = checkpoint
         self._work_dtype = np.dtype(np.float64)
         self.atomgroup = atomgroup
         self.n_particles = len(atomgroup)
@@ -99,6 +112,14 @@ class VelocityAutocorr(AnalysisBase):
         # upcasts them exactly (ops.acf_fft_from_f32)
         self._velocities = source_cast(v, self._work_dtype, self._keep_f32)
 
+    def _process_block(self, batch, offset):
+        """Frame-blocked feed (models/base.py ``DeviceSeriesBuffer``)."""
+        if "velocities" not in batch:
+            raise NoDataError(
+                "VACF computation requires velocities in the trajectory"
+            )
+        self._feed_block("velocities", batch, self.atomgroup.indices, offset)
+
     def _single_frame(self):
         if not self._ts.has_velocities:
             raise NoDataError(
@@ -114,17 +135,26 @@ class VelocityAutocorr(AnalysisBase):
             if self.max_lag is None
             else min(self.max_lag, self.n_frames)
         )
-        v = torch.from_numpy(np.ascontiguousarray(self._velocities)).to(
-            self.device)
-        if not self.fft:
-            # float32 samples are upcast inside the kernel, exactly
-            by_particle = ops.acf_windowed(v, max_lag=self.n_lags)
-        elif v.dtype == torch.float32:
-            by_particle = ops.acf_fft_from_f32(v)[: self.n_lags]
+
+        def kernel(v):
+            if not self.fft:
+                # float32 samples are upcast inside the kernel, exactly
+                return ops.acf_windowed(v, max_lag=self.n_lags)
+            if v.dtype == torch.float32:
+                return ops.acf_fft_from_f32(v)[: self.n_lags]
+            return ops.acf_fft(v)[: self.n_lags]
+
+        if self.atom_chunk:
+            timeseries, by_particle = chunked_per_particle(
+                kernel, self._velocities, self.atom_chunk,
+                checkpoint=self.checkpoint, device=self.device)
+            self.results.vacf_by_particle = by_particle
+            self.results.timeseries = timeseries
         else:
-            by_particle = ops.acf_fft(v)[: self.n_lags]
-        self.results.vacf_by_particle = by_particle.cpu().numpy()
-        self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+            by_particle = kernel(
+                as_tensor(self._velocities, self.device).contiguous())
+            self.results.vacf_by_particle = by_particle.cpu().numpy()
+            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
         self._run_called = True
 
     def _on_device(self, arr) -> torch.Tensor:

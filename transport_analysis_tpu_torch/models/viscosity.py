@@ -11,8 +11,11 @@ as ``results.viscosity``.
 The Einstein differences run through the Kneller/Calandrini FFT path
 (ops/einstein.py) on the device, or with ``fft=False`` through the exact
 windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
-formed there in float64 from the float32 feed. Not ported yet:
-``atom_chunk``, ``checkpoint`` and the float32 work mode.
+formed there in float64 from the float32 feed. ``frame_block=`` feeds the
+card in frame blocks (the per-frame volumes stay on the host);
+``atom_chunk=`` forms m·v·x and correlates it a chunk of atoms at a time
+(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from.
+Not ported yet: the float32 work mode.
 """
 
 from __future__ import annotations
@@ -21,12 +24,40 @@ import numpy as np
 import torch
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, check_work_dtype, not_ported
+from ..utils.errors import NoDataError, check_work_dtype
 from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
+from .._device import as_tensor
+from ..parallel.streaming import chunked_per_particle
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
+
+
+class HelfandSeries:
+    """The Helfand accumulator m·v·x of (N, P, d) velocities and positions
+    (host arrays or device tensors) and (P,) masses, formed on ``device``
+    in float64 for the atoms a slice asks for: ``series[:, lo:hi, :]`` is
+    a new (N, hi − lo, d) tensor, (m·v)·x in the reference's multiply
+    order (viscosity.py:197), with float32 samples upcast exactly inside
+    the products. Only the sliced atoms' factors are copied to the device,
+    so an atom-chunked run never holds the whole accumulator there."""
+
+    def __init__(self, masses, velocities, positions, device):
+        self._masses = masses
+        self._velocities = velocities
+        self._positions = positions
+        self._device = device
+        self.shape = tuple(velocities.shape)
+
+    def __getitem__(self, key):
+        frames, atoms, comps = key
+        masses = torch.from_numpy(self._masses[atoms]).to(self._device)
+        accum = masses.reshape(1, -1, 1) * as_tensor(
+            self._velocities[frames, atoms, comps], self._device)
+        accum.mul_(as_tensor(self._positions[frames, atoms, comps],
+                             self._device))
+        return accum
 
 
 class ViscosityHelfand(AnalysisBase):
@@ -50,6 +81,10 @@ class ViscosityHelfand(AnalysisBase):
         for L lags; give ``max_lag`` to bound L on long trajectories.
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
+    atom_chunk, checkpoint, frame_block :
+        Atom chunks, their resume file and the frame-blocked feed, as in
+        ``VelocityAutocorr``; the timeseries and per-particle values of a
+        chunked run are divided by 2·k_B·⟨V⟩·T after the chunks.
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -76,12 +111,12 @@ class ViscosityHelfand(AnalysisBase):
         self.dim_type = dim_type.lower()
         self.linear_fit_window = linear_fit_window
         self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        if atom_chunk is not None or checkpoint is not None:
-            raise not_ported("atom_chunk / checkpoint", "streaming")
         check_work_dtype(dtype)
         super().__init__(atomgroup.universe.trajectory, **kwargs)
         self.fft = fft
         self.max_lag = max_lag
+        self.atom_chunk = atom_chunk
+        self.checkpoint = checkpoint
         self._work_dtype = np.dtype(np.float64)
         self.atomgroup = atomgroup
         self.n_particles = len(atomgroup)
@@ -137,6 +172,22 @@ class ViscosityHelfand(AnalysisBase):
             select_series(batch["positions"], idx, self._dim),
             self._work_dtype, self._keep_f32)
 
+    def _process_block(self, batch, offset):
+        """Frame-blocked feed: velocity and position blocks go to device
+        buffers (models/base.py ``DeviceSeriesBuffer``); the per-frame
+        volumes, (N,) scalars, stay on the host."""
+        if "velocities" not in batch or "positions" not in batch:
+            raise NoDataError(self._NO_DATA_MSG)
+        volumes = np.asarray(batch["volumes"], dtype=np.float64)
+        if np.any(volumes == 0.0):
+            raise NoDataError(self._NO_DATA_MSG)
+        if offset == 0:
+            self._volumes = np.zeros(self.n_frames, np.float64)
+        self._volumes[offset:offset + len(volumes)] = volumes
+        idx = self.atomgroup.indices
+        self._feed_block("velocities", batch, idx, offset)
+        self._feed_block("positions", batch, idx, offset)
+
     def _single_frame(self):
         if not (
             self._ts.has_velocities
@@ -155,35 +206,38 @@ class ViscosityHelfand(AnalysisBase):
     def _conclude(self):
         self._vol_avg = float(np.average(self._volumes))
         dev = self.device
-
-        def on_device(arr):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-
-        # Helfand accumulator A = (m·v)·x in float64 on the device, the
-        # multiply order of the reference (viscosity.py:197). A float32
-        # feed is upcast inside the products (exactly), so the
-        # accumulator is the one full-size float64 tensor; it is handed
-        # to the FFT path, which centers it in place (the windowed path
-        # differences it as it is).
-        masses = on_device(self._masses).reshape(1, -1, 1)
-        accum = masses * on_device(self._velocities)
-        accum.mul_(on_device(self._positions))
+        # the accumulator m·v·x, formed in float64 on the device for the
+        # atoms asked for (all of them, or one chunk at a time)
+        series = HelfandSeries(self._masses, self._velocities,
+                               self._positions, dev)
         self.n_lags = (
             self.n_frames
             if self.max_lag is None
             else min(self.max_lag, self.n_frames)
         )
-        denom = 2.0 * self.boltzmann * self._vol_avg * self.temp_avg
-        if self.fft:
-            by_particle = einstein_difference_fft_(accum, "mean")[
-                : self.n_lags]
-        else:
-            by_particle = ops.einstein_difference_windowed(
+
+        def kernel(accum):
+            # ``accum`` is a new tensor of ``series``: the FFT path
+            # centers it in place (the windowed path differences it as it
+            # is), so it is the one full-size float64 tensor
+            if self.fft:
+                return einstein_difference_fft_(accum, "mean")[
+                    : self.n_lags]
+            return ops.einstein_difference_windowed(
                 accum, "mean", max_lag=self.n_lags)
-        del accum
-        by_particle /= denom
-        self.results.visc_by_particle = by_particle.cpu().numpy()
-        self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+
+        denom = 2.0 * self.boltzmann * self._vol_avg * self.temp_avg
+        if self.atom_chunk:
+            timeseries, by_particle = chunked_per_particle(
+                kernel, series, self.atom_chunk,
+                checkpoint=self.checkpoint, device=dev)
+            self.results.visc_by_particle = by_particle / denom
+            self.results.timeseries = timeseries / denom
+        else:
+            by_particle = kernel(series[:, :, :])
+            by_particle /= denom
+            self.results.visc_by_particle = by_particle.cpu().numpy()
+            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
 
         if self.linear_fit_window is not None:
             fit_start, fit_end = (

@@ -14,15 +14,19 @@ a run long before), so the JAX dispatch's routes, the Pallas engine for
 M ≤ 65,536 (``acf.py:307-349``, ``:533-577``), the deep composition up to
 2^24 (``deep_acf.py``) and native ``jnp.fft`` past it, are one route
 here. The exact windowed :func:`acf_windowed` (``fft=False``) runs
-the lag-sum kernel of ``cuda_lag``.
+the lag-sum kernel of ``cuda_lag``. :func:`auto_atom_chunk` sizes the
+atom chunks of a streamed run (``parallel.streaming``) from the port's
+own device-memory model, :func:`chunk_peak_bytes`.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from .._device import as_tensor
+from .._device import as_tensor, resolve_device
 from . import cuda_fft
 from .cuda_lag import windowed_lag
 
@@ -33,6 +37,86 @@ def next_pow_2(n: int) -> int:
     while m < n:
         m *= 2
     return m
+
+
+HBM_BUDGET_ENV = "TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB"
+# share of the card's memory a chunk may reckon with: the rest is left to
+# the CUDA context, the caching allocator's cached and split blocks, a
+# frame-blocked feed held on the card and the caller's own tensors
+CARD_HEADROOM = 0.8
+# the budget on a CPU device: a constant, so the chunk chosen there (the
+# tests) does not depend on the machine
+CPU_BUDGET_GB = 16.0
+# PyTorch's caching allocator splits a cached block only when more than
+# 1 MiB would be left over, so each tensor may hold up to 1 MiB more than
+# it asks for: 8 MiB for the eight or fewer alive at a chunk's peak
+ALLOCATOR_SLACK = 8 * 2 ** 20
+
+
+def chunk_peak_bytes(n_frames: int, chunk: int, d: int = 3) -> int:
+    """Device bytes the FFT analyses of one chunk of ``chunk`` atoms over
+    ``n_frames`` frames (``d`` components) hold at their peak: the MSD's,
+    the largest of the three (s = d·chunk series, M = 2·next_pow_2(N),
+    w = ceil(s/2) packed columns). Its kernel is handed the float32 chunk
+    of the feed, which the caller holds through the call (4·N·s), and
+    centers a float64 copy of it in place (8·N·s); beside these two:
+
+    * its squares: the elementwise square and the (N, chunk) component
+      sums, 8·N·s + 8·N·chunk;
+    * the first forward FFT level: the sums beside two packed complex128
+      spectra of M rows, 8·N·chunk + 2·16·M·w;
+
+    plus the cached roots tables, 16·M bytes of order M and under a
+    fifteenth of that for the plan's sub-orders (counted as 32·M), plus
+    :data:`ALLOCATOR_SLACK`. Helfand holds the same stages without the
+    float32 chunk (its m·v·x is formed from float32 factors it frees,
+    16·N·s at most), the VACF a float32 chunk beside the same spectra,
+    and the windowed runs less."""
+    s = d * chunk
+    m = 2 * next_pow_2(n_frames)
+    spectra = 2 * 16 * m * ((s + 1) // 2)
+    operands = 12 * n_frames * s
+    stages = max(8 * n_frames * s + 8 * n_frames * chunk,
+                 8 * n_frames * chunk + spectra)
+    return operands + stages + 32 * m + ALLOCATOR_SLACK
+
+
+def auto_atom_chunk(n_frames: int, d: int = 3, hbm_budget_gb=None,
+                    device=None) -> int:
+    """The largest atom chunk whose :func:`chunk_peak_bytes` fits the
+    device-memory budget, in GB (1e9 bytes): ``hbm_budget_gb``, else the
+    ``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB`` environment variable, else
+    :data:`CARD_HEADROOM` of the card's total memory
+    (``torch.cuda.mem_get_info``) on a CUDA ``device`` (the default), else
+    :data:`CPU_BUDGET_GB` on the CPU. Raises ``ValueError`` when not even
+    one atom fits."""
+    if hbm_budget_gb is None:
+        env = os.environ.get(HBM_BUDGET_ENV)
+        if env is not None:
+            hbm_budget_gb = float(env)
+        else:
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                hbm_budget_gb = (torch.cuda.mem_get_info(dev)[1]
+                                 * CARD_HEADROOM / 1e9)
+            else:
+                hbm_budget_gb = CPU_BUDGET_GB
+    budget = float(hbm_budget_gb) * 1e9
+    if chunk_peak_bytes(n_frames, 1, d) > budget:
+        raise ValueError(
+            f"one atom of {n_frames} frames needs "
+            f"{chunk_peak_bytes(n_frames, 1, d) / 1e9:.3f} GB of device "
+            f"memory, past the budget of {hbm_budget_gb} GB")
+    lo, hi = 1, 2
+    while chunk_peak_bytes(n_frames, hi, d) <= budget:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:  # peak(lo) fits, peak(hi) does not
+        mid = (lo + hi) // 2
+        if chunk_peak_bytes(n_frames, mid, d) <= budget:
+            lo = mid
+        else:
+            hi = mid
+    return lo
 
 
 def raw_autocorr_sumlast_flat(x: torch.Tensor, P: int, d: int

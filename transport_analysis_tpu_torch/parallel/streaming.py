@@ -1,0 +1,118 @@
+"""Atom-chunked streaming with checkpoint/resume.
+
+Counterpart of ``transport_analysis_tpu/parallel/streaming.py``. The
+particle axis streams through the device in chunks: the full (N, P, d)
+series stays where it is (host memory, or the card when the frame-blocked
+feed put it there), one chunk at a time is copied to the device and
+correlated there, and the running particle sum accumulates in float64 on
+the host. Device memory is then bounded by the chunk (``ops.acf``
+``auto_atom_chunk``), whatever the number of atoms.
+
+Each chunk boundary is a checkpoint: with ``checkpoint=path`` the
+accumulators land in an ``.npz`` after every chunk (written to
+``path + ".tmp"``, then ``os.replace``d) and an interrupted run resumes
+after the last finished chunk. The file has the JAX package's keys, so a
+checkpoint written by either package resumes in the other.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .._device import as_tensor
+
+
+def to_host(result) -> np.ndarray:
+    """A kernel's result as a numpy array (tensors are copied back)."""
+    if isinstance(result, torch.Tensor):
+        return result.cpu().numpy()
+    return np.asarray(result)
+
+
+def shares_memory(t: torch.Tensor, series) -> bool:
+    """Whether the tensor ``t`` may share memory with ``series``, a tensor
+    or a numpy array: a kernel that writes to its operand copies it
+    first when this holds."""
+    if isinstance(series, torch.Tensor):
+        return (t.untyped_storage().data_ptr()
+                == series.untyped_storage().data_ptr())
+    return t.device.type == "cpu" and np.may_share_memory(t.numpy(), series)
+
+
+def chunked_per_particle(
+    kernel: Callable,
+    series,
+    chunk_particles: int,
+    want_by_particle: bool = True,
+    checkpoint: Optional[str] = None,
+    device=None,
+):
+    """Run ``kernel((N, p, d) tensor) → (L, p)`` over particle chunks.
+
+    ``series`` is an (N, P, d) numpy array or tensor, or any object with
+    a ``shape`` whose ``[:, lo:hi, :]`` gives one; each chunk reaches the
+    kernel as a contiguous tensor on ``device`` (default: a tensor's own
+    device, the CUDA card for an array). The operand may share memory
+    with ``series``: a kernel that writes to it copies it first where
+    :func:`shares_memory` says so.
+
+    Returns (timeseries_mean (L,), by_particle (L, P) or None), numpy
+    float64: the mean is the sum over chunks of each chunk's particle sum,
+    divided by P, as in the JAX package.
+    """
+    n_frames, n_particles, _ = series.shape
+    n_chunks = -(-n_particles // chunk_particles)
+
+    # accumulators are sized from the kernel output (kernels may return
+    # fewer rows than n_frames, e.g. with max_lag capping)
+    acc = None
+    by_particle = None
+    start_chunk = 0
+
+    if checkpoint and os.path.exists(checkpoint):
+        with np.load(checkpoint) as state:
+            if (
+                int(state["n_frames"]) == n_frames
+                and int(state["n_particles"]) == n_particles
+                and int(state["chunk_particles"]) == chunk_particles
+            ):
+                start_chunk = int(state["next_chunk"])
+                acc = state["acc"]
+                if want_by_particle and "by_particle" in state:
+                    by_particle = state["by_particle"]
+
+    for c in range(start_chunk, n_chunks):
+        lo = c * chunk_particles
+        hi = min(lo + chunk_particles, n_particles)
+        result = to_host(kernel(
+            as_tensor(series[:, lo:hi, :], device).contiguous()))
+        if acc is None:
+            acc = np.zeros(result.shape[0], dtype=np.float64)
+        if by_particle is None and want_by_particle:
+            by_particle = np.zeros((result.shape[0], n_particles))
+        acc += result.sum(axis=1)
+        if by_particle is not None:
+            by_particle[:, lo:hi] = result
+        if checkpoint:
+            payload = {
+                "n_frames": n_frames,
+                "n_particles": n_particles,
+                "chunk_particles": chunk_particles,
+                "next_chunk": c + 1,
+                "acc": acc,
+            }
+            if by_particle is not None:
+                payload["by_particle"] = by_particle
+            tmp = checkpoint + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **payload)
+            os.replace(tmp, checkpoint)
+
+    if acc is None:  # zero particles / zero chunks
+        acc = np.zeros(n_frames, dtype=np.float64)
+    timeseries = acc / max(n_particles, 1)
+    return timeseries, by_particle

@@ -30,9 +30,6 @@ class SelectionError(TransportAnalysisError, ValueError):
 ROADMAP_ITEMS = {
     "float32": "ROADMAP.md queue 1 item 4 (the float32 work mode, "
                "dtype=np.float32)",
-    "streaming": "ROADMAP.md queue 1 item 3 (streaming, out-of-core and "
-                 "prefetch: atom_chunk, checkpoint, frame_block, "
-                 "io.prefetch)",
     "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
 }
 

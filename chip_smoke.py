@@ -44,6 +44,20 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    forms both from one read of sq); for K8 it is a grouped ``F.conv1d``
    of the float64 series, for its acf launches only (no one call forms
    the einstein sums).
+   Then the float32 work mode's instantiations (``dtype=np.float32``):
+   complex64 K1 (every level), K2 and K5, float32 K6a and K6b, and K8's
+   float32 acf and einstein launches, at the shapes the f32 phase below
+   gives them: 8,192 and 65,536 frames over the EC width (K8 at 8,192
+   lags with the MSD's launch, and at 2,048 lags; plain on every 21st
+   atom), and the FFT kernels and K6 at the deep shape over the widths of
+   the chunked float32 MSD's atom chunks (1,904 and 1,776 atoms), each
+   against its plain version in the same types within 1e-5
+   (a few float32 roundings of each output's sum); bounds of float32
+   bytes, and flop over 67 TFLOP/s (FP32 outside the tensor cores, and
+   the FP64 tensor cores for K8's acf Gram; K6's float64 sums over FP64's
+   34); library calls ``torch.fft`` in complex64 per K1 level, rfft,
+   |.|², component sum and irfft of the float32 operand beside K1 + K2 +
+   K5, and a grouped float32 ``F.conv1d`` (TF32 off) for K8's acf launch.
 4. model   — the ethylene-carbonate system (368 molecules, 3,680 atoms;
    the recipe of ``transport_analysis_tpu/data/generate.py`` re-done in
    memory) at 8,192 frames (M = 2^14). Runs, each once warm, once timed
@@ -61,6 +75,18 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    agree with host float64 oracles within 1e-11 of their maximum on lags
    < N/2; each windowed result is also held against the FFT result of
    the card.
+   After the model and the deep phases: f32 — the float32 work mode
+   (``dtype=np.float32``) on the same system: ``fft`` and ``windowed``
+   (``max_lag=2048`` at the deep shape), and at the model shape
+   ``msd_fft`` and ``msd_windowed``, each driven as above (profiled: the
+   ``fft`` runs), each launching the float32 instantiations and no
+   float64 kernel, with float32 results; its wall beside the float64
+   run's, the result bytes copied to the host, and its error against the
+   host f64 oracles, within 1e-4 of their maximum on lags < N/2 (the JAX
+   package's hardware bar) and printed over all lags. At the deep shape,
+   a float32 MSD in the atom chunks ``auto_atom_chunk(65536, d=3,
+   hbm_budget_gb=8.0, dtype=np.float32)`` chooses, its peak device memory
+   within ``chunk_peak_bytes(..., dtype=np.float32)``.
 5. files   — the model phase's system (3,680 atoms x 8,192 frames)
    through the port's writers into a temporary directory under
    ``build/``: a TRR of positions and velocities, an XTC of the positions
@@ -122,8 +148,10 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
-Then one JSON line of per-kernel results (launches from the deep phase's
-timed runs, ``fft`` for K1–K6b and ``windowed`` for K8; kernel, plain,
+Then one JSON line of per-kernel results, one entry per instantiation
+(``<wrapper>_f32`` for the float32 work mode's; launches from the deep
+phase's timed runs, and the f32 phase's at the deep shape for the
+float32 entries, ``fft`` for K1–K6b and ``windowed`` for K8; kernel, plain,
 bound and library milliseconds at its shapes: M = 2^17 over the EC width,
 K8 over 65,536 frames and 2,048 lags, summed over the VACF and Helfand
 launches, with ``plain_atoms`` beside ``atoms`` and ``library_kernel_ms``,
@@ -149,6 +177,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 20260816
 HEAD_TOL = 1e-11         # model outputs vs host f64, lags < N/2
 KERNEL_TOL = 1e-12       # kernel vs its plain version
+# the float32 work mode: its outputs vs host f64 on lags < N/2 (the JAX
+# package's hardware bar, tests/test_tpu_equivalence.py:435-447), and each
+# float32 / complex64 instantiation vs its plain version in the same type
+# (a few float32 roundings of each output's sum)
+F32_TOL = 1e-4
+F32_KERNEL_TOL = 1e-5
 TEMP = 300.0
 FIT_WINDOW = (10, 40)
 # (phase, frames, molecules, oracle atom stride)
@@ -182,6 +216,7 @@ PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
 # the card's peaks for the bounds (H100 SXM data sheet)
 PEAK_FP64 = 34e12        # flop/s, FP64 outside the tensor cores
 PEAK_FP64_MMA = 67e12    # flop/s, FP64 matrix products on the tensor cores
+PEAK_FP32 = 67e12        # flop/s, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # bytes/s, HBM3
 ISSUE_FP64 = 17e12       # FP64 instructions/s outside the tensor cores
 
@@ -219,10 +254,15 @@ KERNELS = {  # wrapper name -> (source, TPU kernels it replaces)
     "lag_sums": (CSRC + "lag.cu", f"{TPU}pallas_lag.py:111 (K8a), "
                  f"{TPU}pallas_lag.py:290 (K8b)"),
 }
+# the float32 work mode's instantiations, counted apart by each wrapper
+# (``launches_f32``): the same wrappers and sources
+KERNELS.update({f"{key}_f32": value for key, value in list(KERNELS.items())})
+KERNELS["lag_sums_f32"] = (CSRC + "lag.cu", f"{TPU}pallas_lag.py:111 (K8a)")
 # what each kind of run must launch
 FFT_KERNELS = ["fft_level", "unpack_power_inva", "inverse_last_level",
                "kneller_totals", "kneller_windows"]
 WINDOWED_KERNELS = ["lag_sums"]
+F32_PHASES = ("model", "deep")  # phases followed by the f32 phase
 
 
 def phase(name: str, msg: str) -> None:
@@ -275,12 +315,12 @@ def build_phase(build):
                 dmma[name] = 0
         elif name in dmma and "DMMA" in ln:
             dmma[name] += 1
-    if len(dmma) != 6 or min(dmma.values()) == 0:
+    if len(dmma) != 9 or min(dmma.values()) == 0:
         raise RuntimeError(f"build: acf_gram_kernel's SASS, DMMA instructions "
                            f"by instantiation: {dmma}")
     phase("build", f"acf_gram_kernel: DMMA instructions in the SASS of its "
-          f"6 instantiations (float, double x d = 1, 2, 3): "
-          f"{sorted(dmma.values())}")
+          f"9 instantiations (float -> double, double -> double, float -> "
+          f"float x d = 1, 2, 3): {sorted(dmma.values())}")
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -340,6 +380,61 @@ def max_abs_diff(got, ref):
     return diff, scale
 
 
+def compare_kernel(torch, results, shape_key, key, kernel, plain, label,
+                   times, library=None, pick=None, tol=KERNEL_TOL):
+    """A kernel against its plain version on the same inputs: ``times`` =
+    :func:`work` of the kernel's function; ``pick`` selects the kernel's
+    outputs that the plain version forms; the error relative to the
+    plain version's maximum must be within ``tol``. Adds the kernel's
+    numbers to ``results[shape_key][key]`` and returns its
+    milliseconds."""
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    if pick is not None:
+        got = pick(got)
+    abs_err, scale = max_abs_diff(got, ref)
+    err = abs_err / scale
+    del got, ref
+    k_ms = time_ms(torch, kernel)
+    p_ms = time_ms(torch, plain, PLAIN_REPS)
+    lib_ms = None if library is None else time_ms(torch, library)
+    b_ms, by = bound(*times)
+    lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+    phase("kernels", f"{shape_key} {label}: max rel err {err:.3e} (abs "
+          f"{abs_err:.3e}), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({by}), library {lib}")
+    if not err <= tol:
+        raise AssertionError(f"{label}: kernel vs plain {err:.3e} > {tol}")
+    r = results.setdefault(shape_key, {}).setdefault(key, {
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0,
+        "t_ops": 0.0, "library_ms": None, "library_kernel_ms": None})
+    r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+    r["ms"] += k_ms
+    r["plain_ms"] += p_ms
+    r["t_bytes"] += times[0]
+    r["t_ops"] += times[1]
+    if lib_ms is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
+        r["library_kernel_ms"] = (r["library_kernel_ms"] or 0.0) + k_ms
+    return k_ms
+
+
+def finish_results(results) -> None:
+    """Each kernel's summed work as its bound, printed beside its
+    times."""
+    for shape_key, by_kernel in results.items():
+        for key, r in by_kernel.items():
+            r["bound_ms"], r["bound_by"] = bound(r.pop("t_bytes"),
+                                                 r.pop("t_ops"))
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.3f} ms against the kernel's "
+                   f"{r['library_kernel_ms']:.3f} ms on the same launches")
+            phase("kernels", f"{shape_key} total {key}: kernel "
+                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library {lib}")
+
+
 def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     """Each kernel against its plain version at every model phase's
     shapes, at the narrow shapes and, for K8, at d = 5. The JSON numbers
@@ -355,42 +450,8 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         return torch.randn(shape, dtype=torch.complex128, device=dev,
                            generator=g)
 
-    def compare(shape_key, key, kernel, plain, label, times, library=None,
-                pick=None):
-        """``times`` = :func:`work` of the kernel's function; ``pick``
-        selects the kernel's outputs that the plain version forms.
-        Returns the kernel's milliseconds."""
-        got = kernel()
-        ref = plain()
-        torch.cuda.synchronize()
-        if pick is not None:
-            got = pick(got)
-        abs_err, scale = max_abs_diff(got, ref)
-        err = abs_err / scale
-        del got, ref
-        k_ms = time_ms(torch, kernel)
-        p_ms = time_ms(torch, plain, PLAIN_REPS)
-        lib_ms = None if library is None else time_ms(torch, library)
-        b_ms, by = bound(*times)
-        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-        phase("kernels", f"{shape_key} {label}: max rel err {err:.3e} (abs "
-              f"{abs_err:.3e}), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({by}), library {lib}")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"{label}: kernel vs plain {err:.3e} > "
-                                 f"{KERNEL_TOL}")
-        r = results.setdefault(shape_key, {}).setdefault(key, {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0,
-            "t_ops": 0.0, "library_ms": None, "library_kernel_ms": None})
-        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-        r["ms"] += k_ms
-        r["plain_ms"] += p_ms
-        r["t_bytes"] += times[0]
-        r["t_ops"] += times[1]
-        if lib_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + lib_ms
-            r["library_kernel_ms"] = (r["library_kernel_ms"] or 0.0) + k_ms
-        return k_ms
+    def compare(*args, **kwargs):
+        return compare_kernel(torch, results, *args, **kwargs)
 
     def level_work(a, nl, c, order, tw):
         """One level: DFTs of order nl as a matrix product, the twiddle
@@ -580,16 +641,20 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
                 diff, scale = max_abs_diff(
                     library()[0].view(p, d, n_lags).sum(1).T / (n - lags)[
                         :, None],
-                    cuda_lag.lag_sums(x, n_lags, mode, reduce_mode))
+                    cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
+                                      out_dtype=torch.float64))
                 phase("kernels", f"{shape_key} library lag sums of {what} "
                       f"(grouped conv1d of the float64 series) agree with "
                       f"K8 to {diff / scale:.3e}")
                 del lags
+            # float64 sums, of float32 samples too: the float64 work mode
             k_ms = compare(
                 shape_key, "lag_sums",
-                lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
+                lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
+                                          out_dtype=torch.float64),
                 lambda: cuda_lag.lag_sums_plain(sub, n_lags, mode,
-                                                reduce_mode),
+                                                reduce_mode,
+                                                out_dtype=torch.float64),
                 f"K8 lag_sums {what}: {str(dtype)[6:]} ({n}, {p}, {d}) "
                 f"{mode}/{reduce_mode}, {n_lags} lags (plain on every "
                 f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
@@ -613,16 +678,7 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
             if mode == "acf":
                 del series, padded, weight
         torch.cuda.empty_cache()
-    for shape_key, by_kernel in results.items():
-        for key, r in by_kernel.items():
-            r["bound_ms"], r["bound_by"] = bound(r.pop("t_bytes"),
-                                                 r.pop("t_ops"))
-            lib = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:.3f} ms against the kernel's "
-                   f"{r['library_kernel_ms']:.3f} ms on the same launches")
-            phase("kernels", f"{shape_key} total {key}: kernel "
-                  f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-                  f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library {lib}")
+    finish_results(results)
     phase("kernels", "fft_level totals sum every forward and inverse "
           "level of one autocorrelation; lag_sums totals sum the windowed "
           "run's launches (VACF, Helfand and, in model, MSD), its plain "
@@ -633,6 +689,219 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     cuda_fft.roots_tensor.cache_clear()
     torch.cuda.empty_cache()
     return results["deep"]
+
+
+def kernels_f32_phase(torch, cuda_fft, cuda_kneller, cuda_lag,
+                      auto_atom_chunk):
+    """The float32 work mode's instantiations (complex64 K1, K2, K5;
+    float32 K6a, K6b and K8) against their plain versions in the same
+    types, within F32_KERNEL_TOL, at the shapes the f32 phase gives them:
+    each of F32_PHASES' shapes over the EC width (K8 at its windowed
+    run's lags: every lag at the model shape, with the MSD's launch;
+    2,048 at the deep shape; its plain version on every 21st atom), and
+    the FFT kernels and K6 also at the widths of the f32 phase's chunked
+    MSD (``auto_atom_chunk`` of the float32 memory model at the deep
+    shape). Bounds: float32 bytes over the memory rate; flop over 67
+    TFLOP/s, FP32's peak outside the tensor cores and the FP64 tensor
+    cores' (K6's sums, float64, over FP64's 34). Library calls:
+    ``torch.fft`` in complex64 per K1 level; rfft, |.|², component sum
+    and irfft of the float32 operand beside K1 + K2 + K5; a grouped
+    float32 ``F.conv1d`` (TF32 off) for K8's acf launch. Returns the deep
+    shape's per-kernel numbers, keyed ``<wrapper>_f32``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    results = {}
+    shapes = [(name, n, n_molecules * len(EC_ATOMS), 3)
+              for name, n, n_molecules, _ in MODEL_PHASES
+              if name in F32_PHASES]
+    # the f32 phase's chunked float32 MSD at the deep shape: its chunks'
+    # widths, the full chunk and the last one
+    _, n_deep, p_deep, _ = next(sh for sh in shapes if sh[0] == "deep")
+    chunk = auto_atom_chunk(n_deep, d=3, hbm_budget_gb=STREAM_BUDGET_GB,
+                            dtype=np.float32)
+    chunks = {chunk, p_deep - chunk * ((p_deep - 1) // chunk)}
+    chunk_shapes = [(f"deep chunk of {c} atoms", n_deep, c, 3)
+                    for c in sorted(chunks, reverse=True) if c < p_deep]
+
+    def crandn64(*shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev,
+                           generator=g)
+
+    def level_work(a, nl, c, order, tw):
+        """One complex64 level: DFTs of order nl, the twiddle
+        elementwise, at FP32's rate."""
+        return work(16 * a * nl * c + 8 * order,
+                    8 * nl * a * nl * c + (6 * a * nl * c if tw else 0),
+                    PEAK_FP32)
+
+    def fft_kernels(shape_key, n, p, d):
+        """K1 (every level), K2, K5 and K6a/K6b at one shape."""
+        label32 = f"{shape_key} float32"
+
+        def compare(key, *args, **kwargs):
+            return compare_kernel(torch, results, label32, key + "_f32",
+                                  *args, tol=F32_KERNEL_TOL, **kwargs)
+
+        m = 2 * n
+        plan = cuda_fft.plan_levels(m)
+        w, ph = (p * d + 1) // 2, (p + 1) // 2
+        phase("kernels", f"{label32}: N = {n}, M = {m}, plan {plan}, "
+              f"w = {w}, P = {p}, d = {d}; complex64 / float32 "
+              "instantiations")
+        lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
+        for i, (a, nl, c, order, tw) in enumerate(
+                cuda_fft.level_shapes(plan, w)):
+            x = crandn64(a, nl, c)
+            compare("fft_level", lambda: lv(x, order, -1, twiddle_cols=tw),
+                    lambda: lvp(x, order, -1, twiddle_cols=tw),
+                    f"K1 forward level {i} ({a}, {nl}, {c}) complex64",
+                    level_work(a, nl, c, order, tw),
+                    library=lambda: torch.fft.fft(x, dim=1))
+            del x
+        z = crandn64(m, w)
+        compare("unpack_power_inva",
+                lambda: cuda_fft.unpack_power_inva(z, p, d),
+                lambda: cuda_fft.unpack_power_inva_plain(z, p, d),
+                f"K2 unpack_power_inva ({m}, {w}) complex64",
+                work(8 * m * (w + ph + 1),
+                     8 * m * w + 6 * m * ph + 8 * plan[-1] * m * ph,
+                     PEAK_FP32))
+        del z
+        *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+        for i, (a, nl, c, order, tw) in enumerate(levels):
+            x = crandn64(a, nl, c)
+            compare("fft_level", lambda: lv(x, order, +1, twiddle_cols=tw),
+                    lambda: lvp(x, order, +1, twiddle_cols=tw),
+                    f"K1 inverse level {i} ({a}, {nl}, {c}) complex64",
+                    level_work(a, nl, c, order, tw),
+                    library=lambda: torch.fft.ifft(x, dim=1,
+                                                   norm="forward"))
+            del x
+        a, nl, c, _, _ = last
+        n_out = min(nl, -(-n // a))
+        t = crandn64(a, nl, c)
+        compare("inverse_last_level",
+                lambda: cuda_fft.inverse_last_level(t, n, p, True),
+                lambda: cuda_fft.inverse_last_level_plain(t, n, p, True),
+                f"K5 inverse_last_level ({a}, {nl}, {c}) -> ({n}, {p}) "
+                "float32",
+                work(8 * a * nl * c + 8 * nl + 4 * n * p,
+                     8 * nl * a * n_out * c + n * p, PEAK_FP32))
+        del t
+        x = torch.randn((n, p * d), dtype=torch.float32, device=dev,
+                        generator=g)
+
+        def library():
+            f = torch.fft.rfft(x, n=m, dim=0)
+            power = f.abs().square().reshape(m // 2 + 1, p, d).sum(-1)
+            return torch.fft.irfft(power, n=m, dim=0)[:n]
+
+        diff, scale = max_abs_diff(library(), cuda_fft.autocorr_power_sum(
+            x, m, p, d, work_dtype=torch.float32))
+        lib_ms = time_ms(torch, library)
+        kernels_ms = sum(results[label32][key + "_f32"]["ms"] for key in (
+            "fft_level", "unpack_power_inva", "inverse_last_level"))
+        phase("kernels", f"{label32} library autocorrelation (rfft, |.|^2, "
+              f"component sum, irfft) of the float32 ({n}, {p * d}): "
+              f"{lib_ms:.3f} ms against K1 + K2 + K5 {kernels_ms:.3f} ms; "
+              f"they agree to {diff / scale:.3e}")
+        del x
+        v = torch.randn((n, p, d), dtype=torch.float32, device=dev,
+                        generator=g)
+        sq = (v * v).sum(-1)
+        del v
+        corr = torch.randn((n, p), dtype=torch.float32, device=dev,
+                           generator=g)
+        rows = cuda_kneller.KNELLER_ROWS
+        nb = -(-n // rows)
+        compare("kneller_totals", lambda: cuda_kneller.kneller_totals(sq),
+                lambda: cuda_kneller.kneller_totals_plain(sq),
+                f"K6a kneller_totals ({n}, {p}) float32 sq, float64 totals",
+                work(4 * n * p + 16 * nb * p, 2 * n * p),
+                library=(lambda: sq.view(nb, rows, p).sum(
+                    1, dtype=torch.float64)) if n % rows == 0 else None)
+        tot = cuda_kneller.kneller_totals(sq)
+        compare("kneller_windows",
+                lambda: cuda_kneller.kneller_windows(sq, corr, tot, d),
+                lambda: cuda_kneller.kneller_windows_plain(sq, corr, d),
+                f"K6b kneller_windows ({n}, {p}) float32, mean d={d}",
+                work(4 * 3 * n * p + 16 * nb * p, 6 * n * p))
+        del sq, corr, tot
+        torch.cuda.empty_cache()
+
+    def lag_kernels(shape_key, n, p, d):
+        """K8's float32 launches of the windowed runs at one shape."""
+        label32 = f"{shape_key} float32"
+        n_lags = n if WINDOWED[shape_key] is None else WINDOWED[shape_key]
+        runs = [("acf", "sum", "VACF"), ("einstein", "mean", "Helfand")]
+        if shape_key in MSD_PHASES:
+            runs.append(("einstein", "sum", "MSD"))
+        for mode, reduce_mode, what in runs:
+            x = torch.randn((n, p, d), dtype=torch.float32, device=dev,
+                            generator=g)
+            sub = x[:, ::PLAIN_STRIDE].contiguous()
+            pairs = p * d * lag_pairs(n, n_lags,
+                                      1 if mode == "einstein" else 0)
+            # acf: the float64 Gram on the FP64 tensor cores (67 TFLOP/s);
+            # einstein: a float32 subtract and multiply-add at FP32's 67
+            times = work(4 * n * p * d + 4 * n_lags * p,
+                         (2 if mode == "acf" else 3) * pairs,
+                         PEAK_FP64_MMA if mode == "acf" else PEAK_FP32)
+            library = None
+            if mode == "acf":
+                series = x.reshape(n, p * d).T.contiguous()
+                padded = torch.nn.functional.pad(series, (0, n_lags - 1))[
+                    None]
+                weight = series[:, None]
+
+                def library():
+                    return torch.nn.functional.conv1d(padded, weight,
+                                                      groups=p * d)
+
+                lags = torch.arange(n_lags, device=dev, dtype=torch.float32)
+                diff, scale = max_abs_diff(
+                    library()[0].view(p, d, n_lags).sum(1).T
+                    / (n - lags)[:, None],
+                    cuda_lag.lag_sums(x, n_lags, mode, reduce_mode))
+                phase("kernels", f"{label32} library lag sums of {what} "
+                      f"(grouped float32 conv1d) agree with K8 to "
+                      f"{diff / scale:.3e}")
+                del lags
+            k_ms = compare_kernel(
+                torch, results, label32, "lag_sums_f32",
+                lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
+                lambda: cuda_lag.lag_sums_plain(sub, n_lags, mode,
+                                                reduce_mode),
+                f"K8 lag_sums {what}: float32 ({n}, {p}, {d}) -> float32 "
+                f"{mode}/{reduce_mode}, {n_lags} lags (plain on every "
+                f"{PLAIN_STRIDE}st atom, {sub.shape[1]} atoms)",
+                times, library=library,
+                pick=lambda out: out[:, ::PLAIN_STRIDE], tol=F32_KERNEL_TOL)
+            b_ms = bound(*times)[0]
+            phase("kernels", f"{label32} K8 lag_sums {what}: "
+                  f"{100 * b_ms / k_ms:.1f} % of its {b_ms:.3f} ms bound")
+            r = results[label32]["lag_sums_f32"]
+            r["atoms"], r["plain_atoms"] = p, sub.shape[1]
+            del x, sub, library
+            if mode == "acf":
+                del series, padded, weight
+        torch.cuda.empty_cache()
+
+    for shape in shapes + chunk_shapes:
+        fft_kernels(*shape)
+    # the float32 library convolution runs in float32, not TF32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for shape in shapes:
+        lag_kernels(*shape)
+    torch.backends.cudnn.allow_tf32 = tf32
+    finish_results(results)
+    phase("kernels", "float32 totals: fft_level sums every level of one "
+          "autocorrelation; lag_sums sums the windowed run's launches (VACF, "
+          "Helfand and, in model, MSD)")
+    cuda_fft.roots_tensor.cache_clear()
+    torch.cuda.empty_cache()
+    return results["deep float32"]
 
 
 def ec_system(n_frames: int, n_molecules: int):
@@ -797,8 +1066,11 @@ def profile_phase(torch, name, label, run, card, launches) -> None:
           f"{100 * (1 - busy_us / 1e3 / wall_ms):.2f} %, on {card}")
     seen = sum(count for cat, (_, count) in totals.items()
                if cat.startswith("K"))
-    phase(name, f"{label} profile: saw {seen} of the run's "
-          f"{sum(launches.values())} launches of the port's kernels")
+    # the ``_f32`` counters count a subset of the launches again
+    total = sum(count for key, count in launches.items()
+                if not key.endswith("_f32"))
+    phase(name, f"{label} profile: saw {seen} of the run's {total} "
+          "launches of the port's kernels")
 
 
 def head_errors(got, ref, n: int):
@@ -806,6 +1078,23 @@ def head_errors(got, ref, n: int):
     and over all lags."""
     return [float(np.abs(got[s] - ref[s]).max() / np.abs(ref[s]).max())
             for s in (slice(0, n // 2), slice(None))]
+
+
+class F32Launches:
+    """A wrapper's count of the float32 work mode's launches
+    (``launches_f32``) under the name ``launches``, so that the counters
+    of both instantiations are reset and read alike."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_f32
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_f32 = value
 
 
 def counted_run(torch, counters, run):
@@ -822,12 +1111,12 @@ def counted_run(torch, counters, run):
 
 
 def drive(torch, counters, card, name, label, run, needed, lag_work,
-          warm=True):
+          warm=True, profile=True):
     """``run`` once warm (unless ``warm`` is false: a phase right after
     the same runs in memory), once timed with the launch counters reset
     just before and read just after (the kernels ``needed`` must have
-    launched), once profiled. Returns the timed run's output, launches
-    and wall."""
+    launched), once profiled (unless ``profile`` is false). Returns the
+    timed run's output, launches and wall."""
     t0 = time.perf_counter()
     if warm:
         run()
@@ -845,14 +1134,16 @@ def drive(torch, counters, card, name, label, run, needed, lag_work,
     phase(name, f"{label}: wall {wall:.4f} s timed ({before}), "
           f"{lag_work / wall:.4e} atom-frame-lags/s, peak device memory "
           f"{peak / 2**30:.3f} GiB, on {card}")
-    profile_phase(torch, name, label, run, card, launches)
+    if profile:
+        profile_phase(torch, name, label, run, card, launches)
     return out, launches, wall
 
 
-def checks(name, n, n_atoms, stride):
+def checks(name, n, n_atoms, stride, tol=HEAD_TOL):
     """The checks of a phase's results over ``n`` frames and ``n_atoms``
-    atoms, oracles on every ``stride``-th atom: ``check`` against a host
-    oracle, ``cross`` a windowed result against the FFT one."""
+    atoms, oracles on every ``stride``-th atom, within ``tol``: ``check``
+    against a host oracle, ``cross`` a windowed result against the FFT
+    one."""
     atoms = slice(None, None, stride)
     n_sampled = len(range(n_atoms)[atoms])
     head = slice(0, n // 2)
@@ -882,9 +1173,9 @@ def checks(name, n, n_atoms, stride):
         phase(name, f"{label}: {what} vs host f64 on {n_sampled} atoms: "
               f"{err[0]:.3e} (lags < N/2), {err[1]:.3e} (all {n_lags} "
               f"lags); timeseries (lags < N/2) vs {mean_of}: {ts:.3e}")
-        if not max(err[0], ts) <= HEAD_TOL:
+        if not max(err[0], ts) <= tol:
             raise AssertionError(f"{label} {what} disagrees with host f64 "
-                                 f"beyond {HEAD_TOL} on lags < N/2")
+                                 f"beyond {tol} on lags < N/2")
 
     def cross(label, what, windowed, fft):
         """The windowed result against the FFT result of the card, over
@@ -894,9 +1185,9 @@ def checks(name, n, n_atoms, stride):
                     / np.abs(fft[h]).max())
         phase(name, f"{label}: {what} windowed vs FFT on the card over "
               f"{n_atoms} atoms: {err:.3e} (lags < N/2)")
-        if not err <= HEAD_TOL:
+        if not err <= tol:
             raise AssertionError(f"{label} {what}: windowed and FFT differ "
-                                 f"by {err:.3e} > {HEAD_TOL}")
+                                 f"by {err:.3e} > {tol}")
 
     def scalars(label, d_gk, visc):
         finite = bool(np.isfinite([d_gk, visc.results.viscosity]).all())
@@ -1013,10 +1304,143 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
               msd_win.results.timeseries, ref_m, n)
         cross("msd_windowed", "MSD", msd_win.results.msds_by_particle,
               msd_fft.results.msds_by_particle)
+        kept["ref_m"] = ref_m
         del msd_fft, msd_win, ref_m
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
     kept["launches"], kept["walls"] = launches, walls
     return launches, walls, (pos, vel, attrs), kept
+
+
+def f32_phase(torch, ta, counters, card, shape, system, kept, stride):
+    """The float32 work mode (``dtype=np.float32``) on the ``shape``
+    phase's system (module docstring): its runs, each against the float64
+    run's wall and the host f64 oracles of ``kept`` within F32_TOL on lags
+    < N/2, ``fft`` profiled; at the deep shape a chunked float32 MSD's
+    peak device memory against its reckoning. Returns each run's
+    launches."""
+    from transport_analysis_tpu_torch.ops import cuda_fft
+    from transport_analysis_tpu_torch.ops.acf import (auto_atom_chunk,
+                                                      chunk_peak_bytes)
+
+    name = "f32"
+    t_phase = time.perf_counter()
+    pos, vel, attrs = system
+    n, n_atoms = pos.shape[:2]
+    u = ec_universe(ta, pos, vel, attrs)
+    analyses, msd = runs(ta, u)
+    check, cross, scalars = checks(name, n, n_atoms, stride, tol=F32_TOL)
+    pairs = n * (n + 1) // 2
+    f32 = {"dtype": np.float32}
+    launches, walls = {}, {}
+
+    def run_f32(label, run, kernels, lag_work, results_of):
+        """``run`` driven as the model phases drive theirs; it must launch
+        the float32 instantiations of ``kernels`` and no other, and give
+        float32 results."""
+        out, launches[label], walls[label] = drive(
+            torch, counters, card, name, f"{shape} {label}", run,
+            [key + "_f32" for key in kernels], lag_work,
+            profile=label == "fft")
+        count = launches[label]
+        wrong = [key for key in counters if not key.endswith("_f32")
+                 and count[key] != count.get(key + "_f32", 0)]
+        if wrong:
+            raise AssertionError(f"{shape} {label}: float64 kernels launched "
+                                 f"in the float32 work mode: {wrong}")
+        arrays = [v for res in results_of(out) for v in res.values()
+                  if isinstance(v, np.ndarray)]
+        if {a.dtype for a in arrays} != {np.dtype(np.float32)}:
+            raise AssertionError(f"{shape} {label}: result dtypes "
+                                 f"{[a.dtype for a in arrays]}")
+        nbytes = sum(a.nbytes for a in arrays)
+        f64_wall = kept["walls"][label]
+        phase(name, f"{shape} {label}: wall {walls[label]:.4f} s against the "
+              f"float64 run's {f64_wall:.4f} s ({f64_wall / walls[label]:.3f}"
+              f"x); float32 results, {nbytes} bytes copied to the host "
+              f"(the float64 run's: {2 * nbytes}), on {card}")
+        return out
+
+    (vacf, d_gk, visc) = run_f32(
+        "fft", analyses(True, **f32), FFT_KERNELS, 2 * pairs * n_atoms,
+        lambda out: (out[0].results, out[2].results))
+    check(f"{shape} fft", "VACF", vacf.results.vacf_by_particle,
+          vacf.results.timeseries, kept["ref_v"], n)
+    check(f"{shape} fft", "Helfand", visc.results.visc_by_particle,
+          visc.results.timeseries, kept["ref_h"], n)
+    scalars(f"{shape} fft", d_gk, visc)
+    max_lag = WINDOWED[shape]
+    n_lags = n if max_lag is None else max_lag
+    keep = slice(0, min(n_lags, n // 2))
+    fft_v = vacf.results.vacf_by_particle[keep]
+    fft_h = visc.results.visc_by_particle[keep]
+    del vacf, visc
+    (vacf, d_gk, visc) = run_f32(
+        "windowed", analyses(False, max_lag, **f32), WINDOWED_KERNELS,
+        2 * lag_pairs(n, n_lags) * n_atoms,
+        lambda out: (out[0].results, out[2].results))
+    check(f"{shape} windowed", "VACF", vacf.results.vacf_by_particle,
+          vacf.results.timeseries, kept["ref_v"], n_lags)
+    check(f"{shape} windowed", "Helfand", visc.results.visc_by_particle,
+          visc.results.timeseries, kept["ref_h"], n_lags)
+    cross(f"{shape} windowed", "VACF", vacf.results.vacf_by_particle, fft_v)
+    cross(f"{shape} windowed", "Helfand", visc.results.visc_by_particle,
+          fft_h)
+    scalars(f"{shape} windowed", d_gk, visc)
+    del vacf, visc, fft_v, fft_h
+    if shape in MSD_PHASES:
+        ref_m = kept["ref_m"]
+        msd_fft = run_f32("msd_fft", msd(True, **f32), FFT_KERNELS,
+                          pairs * n_atoms, lambda out: (out.results,))
+        check(f"{shape} msd_fft", "MSD", msd_fft.results.msds_by_particle,
+              msd_fft.results.timeseries, ref_m, n)
+        msd_win = run_f32("msd_windowed", msd(False, **f32), WINDOWED_KERNELS,
+                          pairs * n_atoms, lambda out: (out.results,))
+        check(f"{shape} msd_windowed", "MSD",
+              msd_win.results.msds_by_particle, msd_win.results.timeseries,
+              ref_m, n)
+        cross(f"{shape} msd_windowed", "MSD",
+              msd_win.results.msds_by_particle,
+              msd_fft.results.msds_by_particle)
+        del msd_fft, msd_win, ref_m
+    if shape == "deep":
+        # a float32 MSD in atom chunks chosen by the float32 memory model
+        # for the stream phase's budget: its peak against its reckoning
+        chunk = auto_atom_chunk(n, d=3, hbm_budget_gb=STREAM_BUDGET_GB,
+                                dtype=np.float32)
+        budget = STREAM_BUDGET_GB * 1e9
+        cuda_fft.roots_tensor.cache_clear()
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, count, wall = counted_run(torch, counters,
+                                       msd(True, atom_chunk=chunk, **f32))
+        peak = torch.cuda.max_memory_allocated()
+        reckoned = chunk_peak_bytes(n, chunk, 3, np.float32)
+        n_chunks = -(-n_atoms // chunk)
+        chunk64 = auto_atom_chunk(n, d=3, hbm_budget_gb=STREAM_BUDGET_GB)
+        phase(name, f"{shape} chunked msd_fft: auto_atom_chunk({n}, d=3, "
+              f"hbm_budget_gb={STREAM_BUDGET_GB}, dtype=np.float32) = "
+              f"{chunk} atoms (float64: {chunk64}), {n_chunks} chunks; "
+              f"launches {count}; wall {wall:.4f} s; peak "
+              f"device memory {(peak - before) / 1e9:.3f} GB past the "
+              f"{before / 1e9:.3f} GB held before, reckoned chunk peak "
+              f"{reckoned / 1e9:.3f} GB, budget {budget / 1e9:.1f} GB; on "
+              f"{card}")
+        if not peak - before <= reckoned <= budget:
+            raise AssertionError(f"{shape} chunked float32 MSD: peak device "
+                                 "memory past its reckoned peak or the "
+                                 "budget")
+        if any(count[key + "_f32"] < n_chunks for key in FFT_KERNELS):
+            raise AssertionError(f"{shape} chunked float32 MSD: launches "
+                                 f"{count}")
+        ref_m = einstein_oracle(pos[:, ::stride].astype(np.float64), 1)
+        check(f"{shape} chunked msd_fft", "MSD", out.results.msds_by_particle,
+              out.results.timeseries, ref_m, n)
+        del out, ref_m
+    phase(name, f"{shape}: phase done in {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return launches
 
 
 def write_pdb(path: str, pos0, attrs) -> None:
@@ -1515,11 +1939,14 @@ def main() -> int:
     from transport_analysis_tpu_torch import _build
     from transport_analysis_tpu_torch.ops import (cuda_fft, cuda_kneller,
                                                   cuda_lag)
-    from transport_analysis_tpu_torch.ops.acf import acf_fft_numpy
+    from transport_analysis_tpu_torch.ops.acf import (acf_fft_numpy,
+                                                      auto_atom_chunk)
 
     build_phase(_build)
     t0 = time.perf_counter()
     kernel_results = kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag)
+    kernel_results.update(kernels_f32_phase(torch, cuda_fft, cuda_kneller,
+                                            cuda_lag, auto_atom_chunk))
     phase("kernels", f"phase done in {time.perf_counter() - t0:.1f} s")
     counters = {
         "fft_level": cuda_fft.fft_level,
@@ -1529,6 +1956,8 @@ def main() -> int:
         "kneller_windows": cuda_kneller.kneller_windows,
         "lag_sums": cuda_lag.lag_sums,
     }
+    counters.update({f"{key}_f32": F32Launches(fn)
+                     for key, fn in list(counters.items())})
     launches = {}
     scratch = os.path.join(ROOT, "build")
     os.makedirs(scratch, exist_ok=True)
@@ -1538,6 +1967,10 @@ def main() -> int:
                 torch, ta, acf_fft_numpy, counters, smi, name, n,
                 n_molecules, stride)
             torch.cuda.empty_cache()
+            if name in F32_PHASES:
+                launches[f"{name}_f32"] = f32_phase(
+                    torch, ta, counters, smi, name, system, kept, stride)
+                torch.cuda.empty_cache()
             if name == "model":
                 files = files_phase(torch, ta, acf_fft_numpy, counters, smi,
                                     system, walls, tmp)
@@ -1553,10 +1986,12 @@ def main() -> int:
         raise AssertionError("jax was imported")
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
-    deep = launches["deep"]
+    # launches from the deep phase's timed runs, those of the float32
+    # instantiations from the f32 phase's at the deep shape
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": deep["windowed" if name == "lag_sums" else "fft"][name],
+         "launches": launches["deep_f32" if name.endswith("_f32") else "deep"][
+             "windowed" if name.startswith("lag_sums") else "fft"][name],
          **kernel_results[name]}
         for name, (src, replaces) in KERNELS.items()
     ]

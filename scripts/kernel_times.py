@@ -39,6 +39,7 @@ kernel's max relative error against its plain version.
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import re
 import statistics
@@ -116,13 +117,17 @@ def k8(cuda_lag, g, reps, acf_only=False):
         p, d = EC_ATOMS, 3
         x = torch.randn((n, p, d), dtype=dtype, device="cuda", generator=g)
         sub = x[:, ::21].contiguous()
-        got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)[:, ::21]
+        # float64 sums (the float64 work mode), in a package that takes
+        # out_dtype as in one that gave them for every operand
+        f64 = ({"out_dtype": torch.float64} if "out_dtype" in
+               inspect.signature(cuda_lag.lag_sums).parameters else {})
+        got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode, **f64)[:, ::21]
         err = rel(got, cuda_lag.lag_sums_plain(sub, n_lags, mode,
-                                               reduce_mode))
-        k = time_ms(lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode),
-                    reps)
+                                               reduce_mode, **f64))
+        k = time_ms(lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
+                                              **f64), reps)
         for _ in range(3):
-            cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+            cuda_lag.lag_sums(x, n_lags, mode, reduce_mode, **f64)
         busy = smi("clocks.sm,power.draw")  # read while the card works
         torch.cuda.synchronize()
         lag0 = 1 if mode == "einstein" else 0

@@ -180,8 +180,12 @@ def test_acf_fft_from_f32_matches_f64_route():
 
 
 def test_acf_dtype_contracts():
+    """acf_fft takes float64 or float32 (the float32 work mode, float32
+    out, as the JAX op); acf_fft_from_f32 float32 samples only."""
     with pytest.raises(TypeError):
-        acf.acf_fft(np.zeros((4, 2), np.float32), device="cpu")
+        acf.acf_fft(np.zeros((4, 2), np.int32), device="cpu")
+    assert acf.acf_fft(np.ones((4, 2), np.float32),
+                       device="cpu").dtype == torch.float32
     with pytest.raises(TypeError):
         acf.acf_fft_from_f32(np.zeros((4, 2), np.float64), device="cpu")
 
@@ -189,7 +193,7 @@ def test_acf_dtype_contracts():
 def test_fft_level_input_contracts():
     x = torch.zeros((1, 8, 2), dtype=torch.complex128)
     with pytest.raises(TypeError):
-        cuda_fft.fft_level(x.to(torch.complex64), 16)
+        cuda_fft.fft_level(x.real, 16)
     with pytest.raises(ValueError):
         cuda_fft.fft_level(torch.zeros((1, 6, 2), dtype=torch.complex128),
                            12)

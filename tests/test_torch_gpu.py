@@ -269,8 +269,10 @@ def test_lag_einstein_tiles_vs_plain(cuda_device, n, p, d, dtype):
     for n_lags in sorted({1, span - 1, span, span + 1, n} & set(
             range(1, n + 1))):
         for reduce_mode in ("mean", "sum"):
-            got = cuda_lag.lag_sums(x, n_lags, "einstein", reduce_mode)
-            ref = cuda_lag.lag_sums_plain(x, n_lags, "einstein", reduce_mode)
+            got = cuda_lag.lag_sums(x, n_lags, "einstein", reduce_mode,
+                                    out_dtype=torch.float64)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, "einstein", reduce_mode,
+                                          out_dtype=torch.float64)
             assert got.shape == (n_lags, p) and torch.all(got[0] == 0.0)
             if n_lags > 1:
                 assert rel(got, ref) <= TOL, (n_lags, reduce_mode)
@@ -283,10 +285,11 @@ def test_lag_einstein_tiles_vs_plain(cuda_device, n, p, d, dtype):
                                    (2100, 7, 3)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_lag_kernel_vs_plain(cuda_device, n, p, d, dtype):
-    """K8 at ragged shapes, both modes: N below the acf mode's 16 frame
-    phases, not a multiple of them, of its 1,024-frame chunk or of the
-    einstein lag block; n_lags of 1, 17, the acf CTA's most lags and one
-    either side of it (spans of unequal work), and N."""
+    """K8 at ragged shapes, both modes, float64 sums (of float32 samples,
+    the float64 work mode's, or of float64 ones): N below the acf mode's
+    16 frame phases, not a multiple of them, of its 1,024-frame chunk or
+    of the einstein lag block; n_lags of 1, 17, the acf CTA's most lags
+    and one either side of it (spans of unequal work), and N."""
     rng = np.random.RandomState(n + p)
     x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
         cuda_device, dtype)
@@ -295,8 +298,10 @@ def test_lag_kernel_vs_plain(cuda_device, n, p, d, dtype):
                          & set(range(1, n + 1))):
         for mode, reduce_mode in (("acf", "sum"), ("einstein", "mean"),
                                   ("einstein", "sum")):
-            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
-            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode)
+            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
+                                    out_dtype=torch.float64)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode,
+                                          out_dtype=torch.float64)
             assert got.shape == (n_lags, p) and got.dtype == torch.float64
             if mode == "einstein":
                 assert torch.all(got[0] == 0.0)
@@ -368,7 +373,8 @@ def test_unpack_kernel_vs_plain(cuda_device, monkeypatch, m, n_top, P, d,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_lag_kernel_past_three_components(cuda_device, n, p, d, dtype):
     """K8 at d = 4, 6 and 7: one launch per group of at most three
-    components, both modes, against the plain version over all d."""
+    components, both modes, float64 sums, against the plain version over
+    all d."""
     rng = np.random.RandomState(n + p + d)
     x = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(
         cuda_device, dtype)
@@ -379,9 +385,11 @@ def test_lag_kernel_past_three_components(cuda_device, n, p, d, dtype):
                                   ("einstein", "mean"),
                                   ("einstein", "sum")):
             before = cuda_lag.lag_sums.launches
-            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
+                                    out_dtype=torch.float64)
             assert cuda_lag.lag_sums.launches == before + groups
-            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode,
+                                          out_dtype=torch.float64)
             assert got.shape == (n_lags, p) and got.dtype == torch.float64
             if mode == "einstein":
                 assert torch.all(got[0] == 0.0)
@@ -570,3 +578,159 @@ def test_spools_on_card_equal_the_cpu(cuda_device, tmp_path, fn):
             got[0] if isinstance(got, tuple) else got))
         assert [len(stats[k]) for k in ("read_s", "kernel_s")] == [4, 4]
     assert rel(out["cuda"], out["cpu"]) <= TOL
+
+
+# --- the float32 work mode's instantiations --------------------------------
+#
+# Each complex64 / float32 kernel against its plain version in the same
+# type on the card. Bound: 1e-5 of the maximum, a few float32 roundings of
+# each output's sum (the DFT levels' n-term sums, K8's einstein tile
+# partials; K6 and K8's acf sums are float64 and rounded once).
+
+F32_TOL = 1e-5
+
+
+def crandn64(rng, device, *shape):
+    return crandn(rng, device, *shape).to(torch.complex64)
+
+
+@pytest.mark.parametrize("m,P,d", [(2, 1, 1), (4096, 3, 2), (2 ** 14, 37, 3),
+                                   (2 ** 17, 5, 3), (2 ** 17, 200, 3),
+                                   (2 ** 21, 2, 5), (2 ** 24, 4, 2)])
+def test_f32_fft_kernels_vs_plain(cuda_device, m, P, d):
+    """K1's forward and inverse levels, K2 and the K5 epilogue on
+    complex64 at narrow (a few columns) and wide (hundreds) widths, d =
+    1, 2, 3 and 5, M = 2 to 2^24: the float2 instantiations, their
+    outputs complex64 and the epilogue's float32."""
+    rng = np.random.RandomState(m % 997 + P)
+    w, ph = (P * d + 1) // 2, (P + 1) // 2
+    plan = cuda_fft.plan_levels(m)
+    z = crandn64(rng, cuda_device, m, w)
+    for a, n, c, order, tw in cuda_fft.level_shapes(plan, w):
+        x = z.reshape(a, n, c)
+        got = cuda_fft.fft_level(x, order, -1, twiddle_cols=tw)
+        ref = cuda_fft.fft_level_plain(x, order, -1, twiddle_cols=tw)
+        assert got.dtype == torch.complex64
+        assert rel(got, ref) <= F32_TOL
+        z = ref
+    got = cuda_fft.unpack_power_inva(z.reshape(m, w), P, d)
+    ref = cuda_fft.unpack_power_inva_plain(z.reshape(m, w), P, d)
+    assert got.dtype == torch.complex64 and rel(got, ref) <= F32_TOL
+    *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
+    for a, n, c, order, tw in levels:
+        got = cuda_fft.fft_level(ref.reshape(a, n, c), order, +1,
+                                 twiddle_cols=tw)
+        ref = cuda_fft.fft_level_plain(ref.reshape(a, n, c), order, +1,
+                                       twiddle_cols=tw)
+        assert rel(got, ref) <= F32_TOL
+    a, n, c, _, _ = last
+    n_rows = max(1, m // 2 - 3)
+    t = ref.reshape(a, n, c)
+    got = cuda_fft.inverse_last_level(t, n_rows, P, True)
+    ref = cuda_fft.inverse_last_level_plain(t, n_rows, P, True)
+    assert got.dtype == torch.float32 and got.shape == (n_rows, P)
+    assert rel(got, ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("n,P,d", [(1, 1, 1), (100, 3, 3), (4097, 5, 2),
+                                   (40000, 3, 5), (8192, 130, 3)])
+def test_f32_autocorrelation_vs_host(cuda_device, n, P, d):
+    """The float32 work mode's whole autocorrelation (acf_fft of a float32
+    operand: K1, K2, K5 on complex64) against host float64 within 1e-5 of
+    the maximum on lags < N/2, float32 out."""
+    x = np.random.RandomState(n + P).normal(0, 2.0, (n, P, d)).astype(
+        np.float32)
+    got = acf.acf_fft(torch.from_numpy(x).to(cuda_device))
+    assert got.dtype == torch.float32
+    ref = torch.from_numpy(acf.acf_fft_numpy(x))
+    head = slice(0, max(1, n // 2))
+    assert rel(got[head].double(), ref[head]) <= F32_TOL
+
+
+@pytest.mark.parametrize("n,p", [(1024, 37), (7, 2), (8193, 33),
+                                 (2 ** 20 + 1, 4), (65536, 300)])
+def test_f32_kneller_kernels_vs_plain(cuda_device, n, p):
+    """K6a and K6b on float32 sq and corr: float64 totals, float32
+    windows, against their plain versions (which also sum in float64)."""
+    rng = np.random.RandomState(n + p)
+    sq = torch.from_numpy(rng.uniform(0, 2, (n, p))).to(cuda_device,
+                                                        torch.float32)
+    corr = torch.from_numpy(rng.normal(size=(n, p))).to(cuda_device,
+                                                        torch.float32)
+    tot = cuda_kneller.kneller_totals(sq)
+    assert tot.dtype == torch.float64
+    assert rel(tot, cuda_kneller.kneller_totals_plain(sq)) <= TOL
+    got = cuda_kneller.kneller_windows(sq, corr, tot, 3)
+    assert got.dtype == torch.float32 and torch.all(got[0] == 0.0)
+    assert rel(got, cuda_kneller.kneller_windows_plain(sq, corr, 3)) <= \
+        F32_TOL
+
+
+@pytest.mark.parametrize("n,p,d", [(37, 5, 1), (1100, 3, 2), (2100, 7, 3),
+                                   (300, 130, 3), (1100, 33, 5)])
+def test_f32_lag_kernel_vs_plain(cuda_device, n, p, d):
+    """K8's float32 instantiations at d = 1, 2, 3 and 5 (two launches),
+    narrow and wide: the acf mode's float64 Gram rounded to float32, the
+    einstein mode's float32 differences and squares."""
+    x = torch.from_numpy(np.random.RandomState(n + p + d).normal(
+        0.5, 2.0, (n, p, d))).to(cuda_device, torch.float32)
+    for n_lags in sorted({1, 17, cuda_lag.SPAN + 1, n}
+                         & set(range(1, n + 1))):
+        for mode, reduce_mode in (("acf", "sum"), ("einstein", "mean"),
+                                  ("einstein", "sum")):
+            got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode)
+            ref = cuda_lag.lag_sums_plain(x, n_lags, mode, reduce_mode)
+            assert got.shape == (n_lags, p) and got.dtype == torch.float32
+            if mode == "einstein":
+                assert torch.all(got[0] == 0.0)
+            if n_lags > 1 or mode == "acf":
+                assert rel(got, ref) <= F32_TOL, (n_lags, mode, reduce_mode)
+
+
+@pytest.mark.parametrize("name", ["vacf", "helfand", "msd"])
+@pytest.mark.parametrize("fft", [True, False])
+def test_f32_models_on_card_vs_cpu(cuda_device, name, fft):
+    """dtype=np.float32 on the card: float32 results within 1e-5 of the
+    CPU's float32 run (the plain versions) and 1e-4 of the card's float64
+    run; an atom-chunked run's float64 accumulators within 1e-5 of the
+    batch run."""
+    u = streamed_system(700, 20, 6)
+    out = {}
+    for label, kwargs in (("card", {"device": cuda_device}),
+                          ("cpu", {"device": "cpu"}),
+                          ("chunked", {"device": cuda_device,
+                                       "atom_chunk": 7}),
+                          ("f64", {"device": cuda_device,
+                                   "dtype": np.float64})):
+        kwargs.setdefault("dtype", np.float32)
+        analysis, key = streamed_model(name, u, fft=fft, max_lag=400,
+                                       **kwargs)
+        out[label] = analysis.run().results[key]
+    assert out["card"].dtype == np.float32
+    assert out["chunked"].dtype == np.float64
+    got = torch.from_numpy(out["card"]).double()
+    assert rel(got, torch.from_numpy(out["cpu"]).double()) <= F32_TOL
+    assert rel(got, torch.from_numpy(out["f64"])) <= 1e-4
+    assert rel(torch.from_numpy(out["chunked"]), got) <= F32_TOL
+
+
+def test_f32_chunked_peak_under_its_budget(cuda_device):
+    """A float32 MSD chunked for a budget by ``auto_atom_chunk(...,
+    dtype=np.float32)`` holds at most its ``chunk_peak_bytes(...,
+    dtype=np.float32)``, which fits more atoms than the float64 model."""
+    n, budget = 16384, 0.3
+    chunk = acf.auto_atom_chunk(n, d=3, hbm_budget_gb=budget,
+                                dtype=np.float32)
+    assert chunk > acf.auto_atom_chunk(n, d=3, hbm_budget_gb=budget)
+    u = streamed_system(n, 4 * chunk + 5, 4)
+    cuda_fft.roots_tensor.cache_clear()
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    analysis, _ = streamed_model("msd", u, atom_chunk=chunk,
+                                 dtype=np.float32, device=cuda_device)
+    analysis.run()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= acf.chunk_peak_bytes(n, chunk, 3, np.float32) <= \
+        budget * 1e9

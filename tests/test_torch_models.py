@@ -239,11 +239,6 @@ def test_not_ported_packages_keep_introspection():
         assert not hasattr(pkg, "__wrapped__")
 
 
-def test_float32_work_dtype_rejected(pu):
-    with pytest.raises(ValueError, match="float64"):
-        ta.VelocityAutocorr(pu.atoms, dtype=np.float32, device="cpu")
-
-
 # --- the f32-source opt-out (ROADMAP R2) ----------------------------------
 
 

@@ -6,8 +6,10 @@ package's, on the same inputs.
   interpret mode (lag block 8, as ``tests/test_pallas_lag.py`` runs it):
   the float64 pair kernel (K8b) within 1e-12 of the maximum (it is
   ~2^-45 of row scale), the float32 kernel (K8a) within 1e-5 (its f32
-  arithmetic; the port upcasts f32 samples exactly, so it also meets the
-  JAX float64 windowed op on the upcast within 1e-12).
+  arithmetic; a float32 operand gives float32 results, as the JAX op's;
+  the float64 work mode's entry, ``lag_sums(..., out_dtype=float64)``,
+  upcasts f32 samples exactly, so it meets the JAX float64 windowed op on
+  the upcast within 1e-12).
 * ``acf_windowed`` / ``einstein_difference_windowed`` against the JAX
   XLA windowed kernels, within 1e-12 of the maximum.
 * The models with ``fft=False`` against JAX ``fft=False`` on the systems
@@ -77,15 +79,21 @@ def test_windowed_lag_vs_pair_kernel(shape, max_lag, mode, reduce_mode):
 @pytest.mark.parametrize("shape,max_lag,mode,reduce_mode", [
     LAG_CASES[0], LAG_CASES[4], LAG_CASES[5], LAG_CASES[7]])
 def test_windowed_lag_vs_f32_kernel(shape, max_lag, mode, reduce_mode):
-    """float32 operand: K8a's function within its f32 grade, and the JAX
+    """float32 operand: float32 results, as K8a's, within its f32 grade;
+    the float64 work mode's entry on the same samples meets the JAX
     float64 windowed op on the exact upcast within 1e-12."""
     x32 = np.random.RandomState(7 + sum(shape)).normal(
         0.3, 1.5, shape).astype(np.float32)
-    got = port(x32, max_lag, mode, reduce_mode)
-    assert got.dtype == np.float64
+    got32 = port(x32, max_lag, mode, reduce_mode)
+    assert got32.dtype == np.float32
     ref32 = np.asarray(windowed_lag_pallas(x32, max_lag=max_lag, mode=mode,
                                            reduce_mode=reduce_mode))
     assert ref32.dtype == np.float32
+    assert rel(got32, ref32) <= F32_TOL
+    x3 = torch.from_numpy(x32 if x32.ndim == 3 else x32[:, :, None])
+    got = cuda_lag.lag_sums(x3, ref32.shape[0], mode, reduce_mode,
+                            out_dtype=torch.float64).numpy()
+    assert got.dtype == np.float64
     assert rel(got, ref32) <= F32_TOL
     x64 = x32.astype(np.float64)
     if mode == "acf":
@@ -600,9 +608,11 @@ def test_msd_requires_positions(engine):
 
 
 def test_msd_not_ported_options(systems):
+    """Work dtypes other than float64 and float32 raise, as a bad
+    msd_type does."""
     _, pu = systems["random"]
-    with pytest.raises(ValueError, match="float64"):
-        ta.EinsteinMSD(pu, dtype=np.float32)
+    with pytest.raises(ValueError, match="float64 or float32"):
+        ta.EinsteinMSD(pu, dtype=np.float16)
     with pytest.raises(ValueError, match="invalid dim_type"):
         ta.EinsteinMSD(pu, msd_type="xyzt")
 

@@ -51,6 +51,9 @@ SIGNATURES = {
     # grid x, y, stream
     "ta_lag_sums": [_P, _P, *[_L] * 6, _D, *[_L] * 4, _P],
 }
+# the float32 work mode's instantiations (complex64 / float32 operands
+# and results), each entry's ``_f32`` twin: the same arguments
+SIGNATURES.update({f"{name}_f32": args for name, args in SIGNATURES.items()})
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -175,3 +178,28 @@ def stream(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _float32_mode(dtype) -> bool:
+    """Whether operands of ``dtype`` belong to the float32 work mode."""
+    from ._device import work_types
+
+    return work_types(dtype) == work_types("float32")
+
+
+def entry(name: str, dtype):
+    """The C entry of kernel ``name`` for operands of ``dtype``: the
+    float64 one, or its ``_f32`` twin for the float32 work mode's
+    float32 / complex64 operands."""
+    return getattr(library(), f"{name}_f32" if _float32_mode(dtype)
+                   else name)
+
+
+def count_launch(wrapper, dtype, n: int = 1) -> None:
+    """Add the ``n`` kernel launches a wrapper just made to its count,
+    ``wrapper.launches``, and those of the float32 work mode's
+    instantiations (float32 or complex64 operands) also to
+    ``wrapper.launches_f32``."""
+    wrapper.launches += n
+    if _float32_mode(dtype):
+        wrapper.launches_f32 += n

@@ -15,6 +15,24 @@ import torch
 
 HOPPER = (9, 0)
 
+# The analyses' two work types, by numpy dtype: (real, complex) torch
+# types of the float64 mode and of the float32 work mode (dtype=np.float32)
+WORK_TYPES = {np.dtype(np.float64): (torch.float64, torch.complex128),
+              np.dtype(np.float32): (torch.float32, torch.complex64)}
+REAL_TYPES = tuple(real for real, _ in WORK_TYPES.values())
+COMPLEX_TYPES = tuple(cplx for _, cplx in WORK_TYPES.values())
+
+
+def work_types(dtype) -> tuple[torch.dtype, torch.dtype]:
+    """The (real, complex) torch types of the work type ``dtype`` belongs
+    to: a numpy dtype, or a torch real or complex type, of float64 or
+    float32. Any other raises ``TypeError``."""
+    for key, types in WORK_TYPES.items():
+        if dtype in types or (not isinstance(dtype, torch.dtype)
+                              and np.dtype(dtype) == key):
+            return types
+    raise TypeError(f"no work type of {dtype}: float64 or float32 only")
+
 
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``. ``None`` means the CUDA card, and

@@ -1,7 +1,8 @@
-// Four-step FFT kernels of the Wiener–Khinchin autocorrelation, complex128,
-// for Hopper (sm_90a). Built by transport_analysis_tpu_torch/_build.py and
-// called through ctypes from transport_analysis_tpu_torch/ops/cuda_fft.py,
-// which plans the levels (plan_levels) and computes every launch's grid.
+// Four-step FFT kernels of the Wiener–Khinchin autocorrelation, complex128
+// and complex64, for Hopper (sm_90a). Built by
+// transport_analysis_tpu_torch/_build.py and called through ctypes from
+// transport_analysis_tpu_torch/ops/cuda_fft.py, which plans the levels
+// (plan_levels) and computes every launch's grid.
 //
 // K1  ta_fft_level
 //     Replaces transport_analysis_tpu/ops/pallas_fft.py::_banded_level3 (and
@@ -24,7 +25,7 @@
 //     symmetry).
 // K5  ta_inverse_last_level
 //     Replaces ops/deep_acf.py::_epilogue_transpose_pallas: the last inverse
-//     level, writing the (N, P) float64 result itself (the real parts of the
+//     level, writing the (N, P) real result itself (the real parts of the
 //     particle-pair columns to columns q < ph, the imaginary parts to
 //     ph + q), times 1 / (N - lag) when asked; the rows past N are not formed.
 //
@@ -82,10 +83,17 @@
 // CUDA's y limit of 65,535 a block strides over them by gridDim.y. Sizes
 // and offsets are 64-bit.
 //
-// Numerics: native f64 throughout; the roots come from tables built on the
-// host in float64 with the angle reduced to the first octant. No int8 bands,
-// no double-float pairs and no power-of-two column scales: those existed only
-// because the TPU has no f64.
+// Numerics: each kernel is a template over the real type R. R = double
+// (complex128 in, float64 out) is the float64 work mode: native f64
+// throughout. R = float (complex64 in, float32 out) is the float32 work mode
+// (dtype=np.float32), the JAX package's 4-band "fast" profile of the same
+// kernels (pallas_fft.py:294-299, deep_acf.py:1176): every multiply-add, sum
+// and stored value in float32, the bytes of every slab, stage and tensor
+// halved, on the same plan and the same work split (cuda_fft.LevelTiles,
+// UnpackTiles). The roots come from tables built on the host in float64 with
+// the angle reduced to the first octant, rounded once to float32 for R =
+// float. No int8 bands, no double-float pairs and no power-of-two column
+// scales: those existed only because the TPU has no f64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,58 +102,84 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+// Every kernel is a template over its complex type V: double2 (complex128,
+// the float64 work mode) or float2 (complex64, the float32 work mode); its
+// real type is decltype(V::x).
+__device__ __forceinline__ double2 cplx(double x, double y) {
+  return make_double2(x, y);
+}
+__device__ __forceinline__ float2 cplx(float x, float y) {
+  return make_float2(x, y);
+}
+__device__ __forceinline__ double fmar(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fmar(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
+template <typename V>
+__device__ __forceinline__ V cmul(V a, V b) {
+  return cplx(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// the dynamic shared memory of a block, as complex values of type V
+template <typename V>
+__device__ __forceinline__ V* shared_values() {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  return reinterpret_cast<V*>(smem_bytes);
 }
 
 // rts[t] = W_n^(sign * t) from the order-m table roots[i] = exp(-2 pi i i / m).
-__device__ void load_roots(double2* rts, const double2* __restrict__ roots,
-                           int64_t m, int n, int sign) {
+template <typename V>
+__device__ void load_roots(V* rts, const V* __restrict__ roots, int64_t m,
+                           int n, int sign) {
   const int64_t stride = m / n;
   for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    double2 r = roots[t * stride];
+    V r = roots[t * stride];
     if (sign > 0) r.y = -r.y;
     rts[t] = r;
   }
 }
 
 // slab[j * tc + cl] = src[j * C + c0 + cl] for j < n, zero past column C.
-__device__ void load_slab(double2* slab, const double2* __restrict__ src,
-                          int n, int tc, int64_t c0, int64_t C) {
+template <typename V>
+__device__ void load_slab(V* slab, const V* __restrict__ src, int n, int tc,
+                          int64_t c0, int64_t C) {
   for (int idx = threadIdx.x; idx < n * tc; idx += blockDim.x) {
     const int j = idx / tc;
     const int64_t c = c0 + (idx - j * tc);
-    slab[idx] = c < C ? src[j * C + c] : make_double2(0.0, 0.0);
+    slab[idx] = c < C ? src[j * C + c] : V{};
   }
 }
 
 // sum over j < n of slab[j * tc + cl] * rts[(j * k) mod n].
-__device__ __forceinline__ double2 dft_point(const double2* slab,
-                                             const double2* rts, int n,
-                                             int tc, int k, int cl) {
+template <typename V>
+__device__ __forceinline__ V dft_point(const V* slab, const V* rts, int n,
+                                       int tc, int k, int cl) {
   const int mask = n - 1;
-  double re = 0.0, im = 0.0;
+  decltype(V::x) re = 0, im = 0;
   int e = 0;
   for (int j = 0; j < n; ++j) {
-    const double2 x = slab[j * tc + cl];
-    const double2 r = rts[e];
-    re = fma(x.x, r.x, re);
-    re = fma(-x.y, r.y, re);
-    im = fma(x.x, r.y, im);
-    im = fma(x.y, r.x, im);
+    const V x = slab[j * tc + cl];
+    const V r = rts[e];
+    re = fmar(x.x, r.x, re);
+    re = fmar(-x.y, r.y, re);
+    im = fmar(x.x, r.y, im);
+    im = fmar(x.y, r.x, im);
     e = (e + k) & mask;
   }
-  return make_double2(re, im);
+  return cplx(re, im);
 }
 
 // v times the twiddle W_m^(sign * k * (c / tw_cols)) when tw_cols > 0.
-__device__ __forceinline__ double2 level_twiddle(double2 v, int k, int64_t c,
-                                                 const double2* roots,
-                                                 int64_t m, int sign,
-                                                 int64_t tw_cols) {
+template <typename V>
+__device__ __forceinline__ V level_twiddle(V v, int k, int64_t c,
+                                           const V* roots, int64_t m,
+                                           int sign, int64_t tw_cols) {
   const int64_t f = tw_cols > 0 ? c / tw_cols : 0;
   if (f > 0 && k > 0) {
-    double2 t = roots[(k * f) & (m - 1)];
+    V t = roots[(k * f) & (m - 1)];
     if (sign > 0) t.y = -t.y;
     v = cmul(v, t);
   }
@@ -155,11 +189,11 @@ __device__ __forceinline__ double2 level_twiddle(double2 v, int k, int64_t c,
 // dst[k * k_stride + c] for k < n and c = c0 + cl < C: the DFT over j of
 // slab[j * tc + cl], times the twiddle W_m^(sign * k * (c / tw_cols)) when
 // tw_cols > 0.
-__device__ void dft_columns(const double2* slab, const double2* rts, int n,
-                            int tc, int64_t c0, int64_t C, double2* dst,
-                            int64_t k_stride,
-                            const double2* __restrict__ roots, int64_t m,
-                            int sign, int64_t tw_cols) {
+template <typename V>
+__device__ void dft_columns(const V* slab, const V* rts, int n, int tc,
+                            int64_t c0, int64_t C, V* dst, int64_t k_stride,
+                            const V* __restrict__ roots, int64_t m, int sign,
+                            int64_t tw_cols) {
   for (int idx = threadIdx.x; idx < n * tc; idx += blockDim.x) {
     const int k = idx / tc;
     const int cl = idx - k * tc;
@@ -170,32 +204,47 @@ __device__ void dft_columns(const double2* slab, const double2* rts, int n,
   }
 }
 
+// one asynchronous copy of a complex value into shared memory: 16 bytes
+// (cp.async.cg) for complex128, 8 bytes (cp.async.ca) for complex64
+__device__ __forceinline__ void cp_async_value(double2* dst,
+                                               const double2* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_value(float2* dst,
+                                               const float2* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
 // Rows [a0, a0 + rows) of an (A, n, C) input are one contiguous run of
-// rows * n * C values: staged by 16-byte cp.async copies, row a_l at slab +
-// a_l * pitch (LevelTiles' narrow split). The caller synchronizes after.
-__device__ void stage_rows(double2* slab, const double2* __restrict__ src,
-                           int total, int nc, int pitch) {
+// rows * n * C values: staged by one cp.async copy a value, row a_l at
+// slab + a_l * pitch (LevelTiles' narrow split). The caller synchronizes
+// after.
+template <typename V>
+__device__ void stage_rows(V* slab, const V* __restrict__ src, int total,
+                           int nc, int pitch) {
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int al = i / nc;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(slab + i +
-                                                        al * (pitch - nc))),
-                 "l"(src + i)
-                 : "memory");
+    cp_async_value(slab + i + al * (pitch - nc), src + i);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // K1, wide (C > tc): block (x: column tile, y: a, strided).
 // in (A, n, C) -> out (n, A, C).
-__global__ void fft_level_kernel(const double2* __restrict__ in,
-                                 double2* __restrict__ out,
-                                 const double2* __restrict__ roots, int64_t m,
+template <typename V>
+__global__ void fft_level_kernel(const V* __restrict__ in,
+                                 V* __restrict__ out,
+                                 const V* __restrict__ roots, int64_t m,
                                  int n, int64_t C, int64_t A, int tc, int sign,
                                  int64_t tw_cols) {
-  extern __shared__ double2 smem[];
-  double2* rts = smem;
-  double2* slab = smem + n;
+  V* rts = shared_values<V>();
+  V* slab = rts + n;
   const int64_t c0 = (int64_t)blockIdx.x * tc;
   load_roots(rts, roots, m, n, sign);
   for (int64_t a = blockIdx.y; a < A; a += gridDim.y) {
@@ -209,29 +258,29 @@ __global__ void fft_level_kernel(const double2* __restrict__ in,
 
 // Two outputs k0 and k1 of one slab column from one read of each slab
 // value: each the sum of dft_point, in its order of multiply-adds.
-__device__ __forceinline__ void dft_pair(const double2* col,
-                                         const double2* rts, int n,
-                                         int stride, int k0, int k1,
-                                         double2& v0, double2& v1) {
+template <typename V>
+__device__ __forceinline__ void dft_pair(const V* col, const V* rts, int n,
+                                         int stride, int k0, int k1, V& v0,
+                                         V& v1) {
   const int mask = n - 1;
-  double re0 = 0.0, im0 = 0.0, re1 = 0.0, im1 = 0.0;
+  decltype(V::x) re0 = 0, im0 = 0, re1 = 0, im1 = 0;
   int e0 = 0, e1 = 0;
   for (int j = 0; j < n; ++j) {
-    const double2 x = col[j * stride];
-    const double2 r0 = rts[e0], r1 = rts[e1];
-    re0 = fma(x.x, r0.x, re0);
-    re0 = fma(-x.y, r0.y, re0);
-    im0 = fma(x.x, r0.y, im0);
-    im0 = fma(x.y, r0.x, im0);
-    re1 = fma(x.x, r1.x, re1);
-    re1 = fma(-x.y, r1.y, re1);
-    im1 = fma(x.x, r1.y, im1);
-    im1 = fma(x.y, r1.x, im1);
+    const V x = col[j * stride];
+    const V r0 = rts[e0], r1 = rts[e1];
+    re0 = fmar(x.x, r0.x, re0);
+    re0 = fmar(-x.y, r0.y, re0);
+    im0 = fmar(x.x, r0.y, im0);
+    im0 = fmar(x.y, r0.x, im0);
+    re1 = fmar(x.x, r1.x, re1);
+    re1 = fmar(-x.y, r1.y, re1);
+    im1 = fmar(x.x, r1.y, im1);
+    im1 = fmar(x.y, r1.x, im1);
     e0 = (e0 + k0) & mask;
     e1 = (e1 + k1) & mask;
   }
-  v0 = make_double2(re0, im0);
-  v1 = make_double2(re1, im1);
+  v0 = cplx(re0, im0);
+  v1 = cplx(re1, im1);
 }
 
 // K1, narrow (C <= tc, LevelTiles' row groups): block (y: group of ra rows
@@ -239,18 +288,17 @@ __device__ __forceinline__ void dft_pair(const double2* col,
 // k + n/2 of its slab column from one read of each slab value (at n = 1,
 // k alone), so each k writes the group's ra * C contiguous outputs. A
 // warp's lanes read consecutive (a_l, c) of one slab row j: row a_l lies
-// at a_l * pitch with pitch = C (mod 8) 16-byte values, so the eight lanes
-// of a quarter-warp fall in eight different 16-byte bank groups.
+// at a_l * pitch with pitch = C (mod 8) values, so the eight lanes of a
+// quarter-warp fall in eight different 16-byte bank groups (complex128).
 // in (A, n, C) -> out (n, A, C).
-__global__ void fft_level_rows_kernel(const double2* __restrict__ in,
-                                      double2* __restrict__ out,
-                                      const double2* __restrict__ roots,
-                                      int64_t m, int n, int64_t C, int64_t A,
-                                      int ra, int pitch, int sign,
-                                      int64_t tw_cols) {
-  extern __shared__ double2 smem[];
-  double2* rts = smem;
-  double2* slab = smem + n;
+template <typename V>
+__global__ void fft_level_rows_kernel(const V* __restrict__ in,
+                                      V* __restrict__ out,
+                                      const V* __restrict__ roots, int64_t m,
+                                      int n, int64_t C, int64_t A, int ra,
+                                      int pitch, int sign, int64_t tw_cols) {
+  V* rts = shared_values<V>();
+  V* slab = rts + n;
   const int cols = (int)C, nc = n * cols, half = n >> 1;
   const int nk = half > 0 ? half : 1;  // the k of an item's first output
   load_roots(rts, roots, m, n, sign);
@@ -261,15 +309,15 @@ __global__ void fft_level_rows_kernel(const double2* __restrict__ in,
     __syncthreads();  // the slab's last readers are done
     stage_rows(slab, in + a0 * nc, rows * nc, nc, pitch);
     __syncthreads();
-    double2* dst = out + a0 * C;
+    V* dst = out + a0 * C;
     for (int idx = threadIdx.x; idx < nk * width; idx += blockDim.x) {
       const int k = idx / width;
       const int r = idx - k * width;
       const int al = r / cols;
       const int c = r - al * cols;
-      const double2* col = slab + al * pitch + c;
+      const V* col = slab + al * pitch + c;
       if (half > 0) {
-        double2 v0, v1;
+        V v0, v1;
         dft_pair(col, rts, n, cols, k, k + half, v0, v1);
         dst[k * A * C + r] =
             level_twiddle(v0, k, c, roots, m, sign, tw_cols);
@@ -294,12 +342,14 @@ __device__ __forceinline__ int row_lanes_log2(int n) {
 // The staged power of series s: the real (x) or imaginary (y) half of its
 // column, s < w the real part of column s, else the imaginary part of
 // column s - w; columns left of the tile's first are the wrap slots.
-__device__ __forceinline__ double staged_power(const double2* row, int64_t s,
-                                               int64_t w, int64_t c_lo,
-                                               int span) {
+template <typename V>
+__device__ __forceinline__ decltype(V::x) staged_power(const V* row,
+                                                       int64_t s, int64_t w,
+                                                       int64_t c_lo,
+                                                       int span) {
   const bool re = s < w;
   const int64_t col = re ? s : s - w;
-  const double2 v = row[col >= c_lo ? (int)(col - c_lo) : span + (int)col];
+  const V v = row[col >= c_lo ? (int)(col - c_lo) : span + (int)col];
   return re ? v.x : v.y;
 }
 
@@ -325,16 +375,16 @@ __device__ __forceinline__ double staged_power(const double2* row, int64_t s,
 // (k_low, dd) as the product of a fine and a coarse entry of the order-m
 // table (fine_bits low bits, the rest): both sets of entries are ~sqrt(m).
 // cuda_fft.UnpackTiles lists this split; the CPU tests replay it.
+template <typename V>
 __global__ void unpack_power_inva_kernel(
-    const double2* __restrict__ z, double2* __restrict__ out,
-    const double2* __restrict__ roots, int64_t m, int n_top, int64_t R,
-    int64_t w, int64_t P, int d, int64_t ph, int shift, int tq, int nj,
-    int ktc, int cols_alloc, int fine_bits) {
-  extern __shared__ double2 smem[];
-  double2* rts = smem;                                // n_top
-  double2* tws = rts + n_top;                         // (j, dd)
-  double2* slab = tws + nj * n_top;                   // (kt, j, ql): p1, p2
-  double2* stage = slab + n_top * nj * tq;            // (kt, j, col)
+    const V* __restrict__ z, V* __restrict__ out, const V* __restrict__ roots,
+    int64_t m, int n_top, int64_t R, int64_t w, int64_t P, int d, int64_t ph,
+    int shift, int tq, int nj, int ktc, int cols_alloc, int fine_bits) {
+  using Real = decltype(V::x);
+  V* rts = shared_values<V>();              // n_top
+  V* tws = rts + n_top;                     // (j, dd)
+  V* slab = tws + nj * n_top;               // (kt, j, ql): p1, p2
+  V* stage = slab + n_top * nj * tq;        // (kt, j, col)
   const int lnj = __ffs(nj) - 1, lntop = __ffs(n_top) - 1;
   const int64_t q0 = (int64_t)blockIdx.x * tq;
   const int tq_eff = (int)(ph - q0 < tq ? ph - q0 : tq);
@@ -349,7 +399,7 @@ __global__ void unpack_power_inva_kernel(
   const int warps = blockDim.x >> 5;
   const int llc = row_lanes_log2(cols), llq = row_lanes_log2(tq);
   // the halves' 1/4 and the inverse transform's 1/m: a power of two, exact
-  const double scale = 0.25 / (double)m;
+  const Real scale = (Real)(0.25 / (double)m);
   load_roots(rts, roots, m, n_top, +1);
   for (int64_t kl0 = (int64_t)blockIdx.y * nj; kl0 < pairs;
        kl0 += (int64_t)gridDim.y * nj) {
@@ -359,7 +409,7 @@ __global__ void unpack_power_inva_kernel(
       const int j = i >> lntop, dd = i & (n_top - 1);
       if (j >= nj_eff) continue;
       const int64_t e = ((kl0 + j) * dd) & (m - 1);
-      double2 t = cmul(roots[e & fine], roots[e & ~fine]);
+      V t = cmul(roots[e & fine], roots[e & ~fine]);
       t.y = -t.y;  // W_m^(+e)
       tws[i] = t;
     }
@@ -370,15 +420,15 @@ __global__ void unpack_power_inva_kernel(
         const int j = row & (nj - 1);
         if (j >= nj_eff) continue;
         const int64_t k = (int64_t)(kt0 + (row >> lnj)) * R + kl0 + j;
-        const double2* za = z + k * w;
-        const double2* zb = z + ((m - k) & (m - 1)) * w;
-        double2* dst = stage + row * cols_alloc;
+        const V* za = z + k * w;
+        const V* zb = z + ((m - k) & (m - 1)) * w;
+        V* dst = stage + row * cols_alloc;
         for (int col = lane & ((1 << llc) - 1); col < cols; col += 1 << llc) {
           const int64_t c = col < span ? c_lo + col : col - span;
-          const double2 a = za[c], b = zb[c];
-          const double sr = a.x + b.x, di = a.y - b.y;
-          const double dr = a.x - b.x, si = a.y + b.y;
-          dst[col] = make_double2(sr * sr + di * di, dr * dr + si * si);
+          const V a = za[c], b = zb[c];
+          const Real sr = a.x + b.x, di = a.y - b.y;
+          const Real dr = a.x - b.x, si = a.y + b.y;
+          dst[col] = cplx(sr * sr + di * di, dr * dr + si * si);
         }
       }
       __syncthreads();
@@ -386,17 +436,16 @@ __global__ void unpack_power_inva_kernel(
            row += warps << (5 - llq)) {
         const int j = row & (nj - 1), ql = lane & ((1 << llq) - 1);
         if (j >= nj_eff || ql >= tq_eff) continue;
-        const double2* src = stage + row * cols_alloc;
+        const V* src = stage + row * cols_alloc;
         const int64_t q = q0 + ql;
-        double p1 = 0.0, p2 = 0.0;
+        Real p1 = 0, p2 = 0;
         for (int c = 0; c < d; ++c)
           p1 += staged_power(src, q * d + c, w, c_lo, span);
         if (q + ph < P) {
           for (int c = 0; c < d; ++c)
             p2 += staged_power(src, (q + ph) * d + c, w, c_lo, span);
         }
-        slab[(((kt0 << lnj) + row) * tq) + ql] =
-            make_double2(p1 * scale, p2 * scale);
+        slab[(((kt0 << lnj) + row) * tq) + ql] = cplx(p1 * scale, p2 * scale);
       }
     }
     __syncthreads();
@@ -405,25 +454,24 @@ __global__ void unpack_power_inva_kernel(
       const int j = row & (nj - 1), dd = row >> lnj;
       const int ql = lane & ((1 << llq) - 1);
       if (j >= nj_eff || ql >= tq_eff) continue;
-      const double2* src = slab + j * tq + ql;
-      double a1r = 0.0, a1i = 0.0, a2r = 0.0, a2i = 0.0;
+      const V* src = slab + j * tq + ql;
+      Real a1r = 0, a1i = 0, a2r = 0, a2i = 0;
       int e = 0;
       for (int kt = 0; kt < n_top; ++kt) {
-        const double2 p = src[(kt << lnj) * tq];
-        const double2 r = rts[e];
-        a1r = fma(p.x, r.x, a1r);
-        a1i = fma(p.x, r.y, a1i);
-        a2r = fma(p.y, r.x, a2r);
-        a2i = fma(p.y, r.y, a2i);
+        const V p = src[(kt << lnj) * tq];
+        const V r = rts[e];
+        a1r = fmar(p.x, r.x, a1r);
+        a1i = fmar(p.x, r.y, a1i);
+        a2r = fmar(p.y, r.x, a2r);
+        a2i = fmar(p.y, r.y, a2i);
         e = (e + dd) & (n_top - 1);
       }
-      const double2 tw = tws[(j << lntop) + dd];
+      const V tw = tws[(j << lntop) + dd];
       const int64_t kl = kl0 + j, q = q0 + ql;
-      out[(dd * R + kl) * ph + q] =
-          cmul(tw, make_double2(a1r - a2i, a1i + a2r));
+      out[(dd * R + kl) * ph + q] = cmul(tw, cplx(a1r - a2i, a1i + a2r));
       if (kl != 0 && 2 * kl != R) {
         out[(dd * R + R - kl) * ph + q] =
-            cmul(make_double2(tw.x, -tw.y), make_double2(a1r + a2i, a2r - a1i));
+            cmul(cplx(tw.x, -tw.y), cplx(a1r + a2i, a2r - a1i));
       }
     }
   }
@@ -431,18 +479,19 @@ __global__ void unpack_power_inva_kernel(
 
 // K5, wide (C > tc): block (x: column tile, y: a, strided). in (A, n, C),
 // C = ph, the inverse DFT over n (no twiddle: the last level of its
-// sub-transform), output row lag = k * A + a < N of out (N, P) float64:
+// sub-transform), output row lag = k * A + a < N of out (N, P) real:
 // out[lag, q] = re * s and, for ph + q < P, out[lag, ph + q] = im * s, with
 // s = 1 / (N - lag) when normalize, else no scaling.
-__global__ void inverse_last_level_kernel(const double2* __restrict__ in,
-                                          double* __restrict__ out,
-                                          const double2* __restrict__ roots,
-                                          int n, int64_t C, int64_t A,
-                                          int n_out, int tc, int64_t N,
-                                          int64_t P, int normalize) {
-  extern __shared__ double2 smem[];
-  double2* rts = smem;
-  double2* slab = smem + n;
+template <typename V>
+__global__ void inverse_last_level_kernel(const V* __restrict__ in,
+                                          decltype(V::x)* __restrict__ out,
+                                          const V* __restrict__ roots, int n,
+                                          int64_t C, int64_t A, int n_out,
+                                          int tc, int64_t N, int64_t P,
+                                          int normalize) {
+  using Real = decltype(V::x);
+  V* rts = shared_values<V>();
+  V* slab = rts + n;
   const int64_t c0 = (int64_t)blockIdx.x * tc;
   load_roots(rts, roots, n, n, +1);
   for (int64_t a = blockIdx.y; a < A; a += gridDim.y) {
@@ -455,11 +504,11 @@ __global__ void inverse_last_level_kernel(const double2* __restrict__ in,
       const int64_t q = c0 + cl;
       const int64_t lag = k * A + a;
       if (q >= C || lag >= N) continue;
-      const double2 v = dft_point(slab, rts, n, tc, k, cl);
-      double re = v.x, im = v.y;
+      const V v = dft_point(slab, rts, n, tc, k, cl);
+      Real re = v.x, im = v.y;
       if (normalize) {
         // the reciprocal first, then the product: ops/acf.py's order
-        const double inv = 1.0 / (double)(N - lag);
+        const Real inv = (Real)1 / (Real)(N - lag);
         re *= inv;
         im *= inv;
       }
@@ -474,23 +523,24 @@ __global__ void inverse_last_level_kernel(const double2* __restrict__ in,
 // each complex sum once (dft_point, its slab reads as K1's) and put its
 // real part at column q and its imaginary part at ph + q of a shared
 // (k, a_l, p) stage; then the output lanes, over (k, a_l, p) with p
-// fastest, write the group's ra * P contiguous doubles of each k (lags
+// fastest, write the group's ra * P contiguous reals of each k (lags
 // k * A + a0 ...), rows past N skipped.
+template <typename V>
 __global__ void inverse_last_level_rows_kernel(
-    const double2* __restrict__ in, double* __restrict__ out,
-    const double2* __restrict__ roots, int n, int64_t C, int64_t A, int n_out,
+    const V* __restrict__ in, decltype(V::x)* __restrict__ out,
+    const V* __restrict__ roots, int n, int64_t C, int64_t A, int n_out,
     int ra, int pitch, int64_t N, int64_t P, int normalize) {
-  extern __shared__ double2 smem[];
-  double2* rts = smem;
-  double2* slab = smem + n;
-  double* stage = (double*)(slab + ra * pitch);  // (k, a_l, p)
+  using Real = decltype(V::x);
+  V* rts = shared_values<V>();
+  V* slab = rts + n;
+  Real* stage = (Real*)(slab + ra * pitch);  // (k, a_l, p)
   const int cols = (int)C, nc = n * cols, np = (int)P;
   load_roots(rts, roots, n, n, +1);
   for (int64_t a0 = (int64_t)blockIdx.y * ra; a0 < A;
        a0 += (int64_t)gridDim.y * ra) {
     const int rows = (int)(A - a0 < ra ? A - a0 : ra);
     const int wq = rows * cols;     // the complex sums of one k
-    const int width = rows * np;    // the output doubles of one k
+    const int width = rows * np;    // the output reals of one k
     __syncthreads();  // the slab's and the stage's last readers are done
     stage_rows(slab, in + a0 * nc, rows * nc, nc, pitch);
     __syncthreads();
@@ -501,15 +551,15 @@ __global__ void inverse_last_level_rows_kernel(
       const int q = r - al * cols;
       const int64_t lag = k * A + a0 + al;
       if (lag >= N) continue;
-      const double2 v = dft_point(slab + al * pitch, rts, n, cols, k, q);
-      double re = v.x, im = v.y;
+      const V v = dft_point(slab + al * pitch, rts, n, cols, k, q);
+      Real re = v.x, im = v.y;
       if (normalize) {
         // the reciprocal first, then the product: ops/acf.py's order
-        const double inv = 1.0 / (double)(N - lag);
+        const Real inv = (Real)1 / (Real)(N - lag);
         re *= inv;
         im *= inv;
       }
-      double* row = stage + k * width + al * np;
+      Real* row = stage + k * width + al * np;
       row[q] = re;
       if (cols + q < np) row[cols + q] = im;
     }
@@ -531,18 +581,88 @@ cudaError_t allow_smem(const void* fn, size_t bytes) {
 // K1's and K5's split from cuda_fft.LevelTiles, checked: wide (tc < C, one
 // row a block) or narrow (tc == C, ra rows a block at pitch); the shared
 // memory of the root table and the wide slab, or of the narrow slab and,
-// for K5, its stage.
+// for K5, its stage, in complex values of `value_bytes` bytes.
 cudaError_t level_smem(const void* wide_fn, const void* rows_fn, int64_t n,
                        int64_t C, int64_t tc, int64_t ra, int64_t pitch,
-                       bool epilogue, size_t* bytes) {
+                       bool epilogue, size_t value_bytes, size_t* bytes) {
   const bool wide = tc < C;
   if (n < 1 || tc < 1 || ra < 1 || tc > C || (wide && ra != 1) ||
       pitch < n * tc)
     return cudaErrorInvalidValue;
   const int64_t stage = epilogue ? n * ra * C : 0;  // K5's (k, a_l, p)
-  *bytes = (size_t)(wide ? n + n * tc : n + ra * pitch + stage) *
-           sizeof(double2);
+  *bytes = (size_t)(wide ? n + n * tc : n + ra * pitch + stage) * value_bytes;
   return allow_smem(wide ? wide_fn : rows_fn, *bytes);
+}
+
+template <typename V>
+int fft_level(const void* in, void* out, const void* roots, int64_t A,
+              int64_t n, int64_t C, int64_t sign, int64_t tw_cols, int64_t m,
+              int64_t tc, int64_t ra, int64_t pitch, int64_t grid_x,
+              int64_t grid_y, void* stream) {
+  size_t smem = 0;
+  cudaError_t err = level_smem((const void*)fft_level_kernel<V>,
+                               (const void*)fft_level_rows_kernel<V>, n, C,
+                               tc, ra, pitch, false, sizeof(V), &smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  if (tc < C)
+    fft_level_kernel<V><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const V*)in, (V*)out, (const V*)roots, m, (int)n, C, A, (int)tc,
+        (int)sign, tw_cols);
+  else
+    fft_level_rows_kernel<V><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const V*)in, (V*)out, (const V*)roots, m, (int)n, C, A, (int)ra,
+        (int)pitch, (int)sign, tw_cols);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int unpack_power_inva(const void* z, void* out, const void* roots, int64_t m,
+                      int64_t n_top, int64_t R, int64_t w, int64_t P,
+                      int64_t d, int64_t ph, int64_t shift, int64_t tq,
+                      int64_t nj, int64_t ktc, int64_t cols,
+                      int64_t fine_bits, int64_t grid_x, int64_t grid_y,
+                      void* stream) {
+  const bool pow2 = !(n_top & (n_top - 1)) && !(nj & (nj - 1)) &&
+                    !(ktc & (ktc - 1));
+  if (!pow2 || n_top < 1 || nj < 1 || ktc < 1 || ktc > n_top || tq < 1 ||
+      tq > 32 || shift < 0 || cols < tq * d + 2 * shift)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(n_top * (1 + nj * (1 + tq)) + ktc * nj * cols) * sizeof(V);
+  cudaError_t err = allow_smem((const void*)unpack_power_inva_kernel<V>, smem);
+  if (err != cudaSuccess) return (int)err;
+  unpack_power_inva_kernel<V><<<dim3((unsigned)grid_x, (unsigned)grid_y),
+                                kThreads, smem, (cudaStream_t)stream>>>(
+      (const V*)z, (V*)out, (const V*)roots, m, (int)n_top, R, w, P, (int)d,
+      ph, (int)shift, (int)tq, (int)nj, (int)ktc, (int)cols, (int)fine_bits);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int inverse_last_level(const void* in, void* out, const void* roots,
+                       int64_t A, int64_t n, int64_t ph, int64_t n_out,
+                       int64_t N, int64_t P, int64_t normalize, int64_t tc,
+                       int64_t ra, int64_t pitch, int64_t grid_x,
+                       int64_t grid_y, void* stream) {
+  using Real = decltype(V::x);
+  size_t smem = 0;
+  cudaError_t err = level_smem((const void*)inverse_last_level_kernel<V>,
+                               (const void*)inverse_last_level_rows_kernel<V>,
+                               n, ph, tc, ra, pitch, true, sizeof(V), &smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
+  if (tc < ph)
+    inverse_last_level_kernel<V><<<grid, kThreads, smem,
+                                   (cudaStream_t)stream>>>(
+        (const V*)in, (Real*)out, (const V*)roots, (int)n, ph, A, (int)n_out,
+        (int)tc, N, P, (int)normalize);
+  else
+    inverse_last_level_rows_kernel<V><<<grid, kThreads, smem,
+                                        (cudaStream_t)stream>>>(
+        (const V*)in, (Real*)out, (const V*)roots, (int)n, ph, A, (int)n_out,
+        (int)ra, (int)pitch, N, P, (int)normalize);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -555,77 +675,67 @@ const char* ta_error_string(int err) {
 
 // in (A, n, C) complex128 -> out (n, A, C); roots: the order-m table; the
 // split (tc, ra, pitch) and the (grid_x, grid_y) grid from
-// cuda_fft.LevelTiles.
+// cuda_fft.LevelTiles. ta_fft_level_f32: the same for complex64.
 int ta_fft_level(const void* in, void* out, const void* roots, int64_t A,
                  int64_t n, int64_t C, int64_t sign, int64_t tw_cols,
                  int64_t m, int64_t tc, int64_t ra, int64_t pitch,
                  int64_t grid_x, int64_t grid_y, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = level_smem((const void*)fft_level_kernel,
-                               (const void*)fft_level_rows_kernel, n, C, tc,
-                               ra, pitch, false, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  if (tc < C)
-    fft_level_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const double2*)in, (double2*)out, (const double2*)roots, m, (int)n,
-        C, A, (int)tc, (int)sign, tw_cols);
-  else
-    fft_level_rows_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const double2*)in, (double2*)out, (const double2*)roots, m, (int)n,
-        C, A, (int)ra, (int)pitch, (int)sign, tw_cols);
-  return (int)cudaGetLastError();
+  return fft_level<double2>(in, out, roots, A, n, C, sign, tw_cols, m, tc, ra,
+                            pitch, grid_x, grid_y, stream);
+}
+int ta_fft_level_f32(const void* in, void* out, const void* roots, int64_t A,
+                     int64_t n, int64_t C, int64_t sign, int64_t tw_cols,
+                     int64_t m, int64_t tc, int64_t ra, int64_t pitch,
+                     int64_t grid_x, int64_t grid_y, void* stream) {
+  return fft_level<float2>(in, out, roots, A, n, C, sign, tw_cols, m, tc, ra,
+                           pitch, grid_x, grid_y, stream);
 }
 
 // z (m, w) complex128, natural order -> out (n_top, R, ph) complex128;
 // roots: the order-m table; the work split (shift, tq, nj, ktc, cols,
 // fine_bits and the grid) from cuda_fft.UnpackTiles.
+// ta_unpack_power_inva_f32: the same for complex64.
 int ta_unpack_power_inva(const void* z, void* out, const void* roots,
                          int64_t m, int64_t n_top, int64_t R, int64_t w,
                          int64_t P, int64_t d, int64_t ph, int64_t shift,
                          int64_t tq, int64_t nj, int64_t ktc, int64_t cols,
                          int64_t fine_bits, int64_t grid_x, int64_t grid_y,
                          void* stream) {
-  const bool pow2 = !(n_top & (n_top - 1)) && !(nj & (nj - 1)) &&
-                    !(ktc & (ktc - 1));
-  if (!pow2 || n_top < 1 || nj < 1 || ktc < 1 || ktc > n_top || tq < 1 ||
-      tq > 32 || shift < 0 || cols < tq * d + 2 * shift)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(n_top * (1 + nj * (1 + tq)) + ktc * nj * cols) * sizeof(double2);
-  cudaError_t err = allow_smem((const void*)unpack_power_inva_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  unpack_power_inva_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y), kThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const double2*)z, (double2*)out, (const double2*)roots, m, (int)n_top,
-      R, w, P, (int)d, ph, (int)shift, (int)tq, (int)nj, (int)ktc, (int)cols,
-      (int)fine_bits);
-  return (int)cudaGetLastError();
+  return unpack_power_inva<double2>(z, out, roots, m, n_top, R, w, P, d, ph,
+                                    shift, tq, nj, ktc, cols, fine_bits,
+                                    grid_x, grid_y, stream);
+}
+int ta_unpack_power_inva_f32(const void* z, void* out, const void* roots,
+                             int64_t m, int64_t n_top, int64_t R, int64_t w,
+                             int64_t P, int64_t d, int64_t ph, int64_t shift,
+                             int64_t tq, int64_t nj, int64_t ktc,
+                             int64_t cols, int64_t fine_bits, int64_t grid_x,
+                             int64_t grid_y, void* stream) {
+  return unpack_power_inva<float2>(z, out, roots, m, n_top, R, w, P, d, ph,
+                                   shift, tq, nj, ktc, cols, fine_bits,
+                                   grid_x, grid_y, stream);
 }
 
 // in (A, n, ph) complex128 -> out (N, P) float64; roots: the order-n table;
 // the split and the grid from cuda_fft.LevelTiles.
+// ta_inverse_last_level_f32: complex64 -> float32.
 int ta_inverse_last_level(const void* in, void* out, const void* roots,
                           int64_t A, int64_t n, int64_t ph, int64_t n_out,
                           int64_t N, int64_t P, int64_t normalize, int64_t tc,
                           int64_t ra, int64_t pitch, int64_t grid_x,
                           int64_t grid_y, void* stream) {
-  size_t smem = 0;
-  cudaError_t err = level_smem((const void*)inverse_last_level_kernel,
-                               (const void*)inverse_last_level_rows_kernel, n,
-                               ph, tc, ra, pitch, true, &smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  if (tc < ph)
-    inverse_last_level_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const double2*)in, (double*)out, (const double2*)roots, (int)n, ph,
-        A, (int)n_out, (int)tc, N, P, (int)normalize);
-  else
-    inverse_last_level_rows_kernel<<<grid, kThreads, smem,
-                                     (cudaStream_t)stream>>>(
-        (const double2*)in, (double*)out, (const double2*)roots, (int)n, ph,
-        A, (int)n_out, (int)ra, (int)pitch, N, P, (int)normalize);
-  return (int)cudaGetLastError();
+  return inverse_last_level<double2>(in, out, roots, A, n, ph, n_out, N, P,
+                                     normalize, tc, ra, pitch, grid_x, grid_y,
+                                     stream);
+}
+int ta_inverse_last_level_f32(const void* in, void* out, const void* roots,
+                              int64_t A, int64_t n, int64_t ph, int64_t n_out,
+                              int64_t N, int64_t P, int64_t normalize,
+                              int64_t tc, int64_t ra, int64_t pitch,
+                              int64_t grid_x, int64_t grid_y, void* stream) {
+  return inverse_last_level<float2>(in, out, roots, A, n, ph, n_out, N, P,
+                                    normalize, tc, ra, pitch, grid_x, grid_y,
+                                    stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Kneller/Calandrini assembly of the Einstein lag differences, float64, for
-// Hopper (sm_90a). Built by transport_analysis_tpu_torch/_build.py and called
+// Kneller/Calandrini assembly of the Einstein lag differences, for Hopper
+// (sm_90a), float64 or float32. Built by transport_analysis_tpu_torch/_build.py and called
 // through ctypes from transport_analysis_tpu_torch/ops/cuda_kneller.py.
 //
 // K6a ta_kneller_totals
@@ -62,19 +62,30 @@
 // CUDA's y limit of 65,535 a block strides over them by gridDim.y, so N
 // up to 2^23 and beyond runs with the same per-block arithmetic. Sizes are
 // 64-bit.
+//
+// Types: K6a and K6b read sq and corr and write out in the work mode's type,
+// float64 (ta_kneller_totals, ta_kneller_windows) or float32 (the _f32
+// entries, the float32 work mode, dtype=np.float32), and keep the block
+// totals tot, the scan's seg and off, and every running sum in float64 in
+// both: they are 1/rows of the data, and the window sums they carry meet
+// 2 corr in s_head + s_tail - 2 corr, which cancels at small lags. That is
+// what the TPU kernel's compensated float32 pairs give
+// (pallas_kneller.py:27); a float32 running sum of 65,536 frames would lose
+// the MSD there. Only the result is rounded to float32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// the column sum of rows [i0, i1) from `at`, the column's row 0
-__device__ __forceinline__ double column_sum(const double* __restrict__ at,
+// the column sum of rows [i0, i1) from `at`, the column's row 0, in float64
+template <typename T>
+__device__ __forceinline__ double column_sum(const T* __restrict__ at,
                                              int64_t i0, int64_t i1,
                                              int64_t p) {
   double acc = 0.0;
 #pragma unroll 8
-  for (int64_t i = i0; i < i1; ++i) acc += at[i * p];
+  for (int64_t i = i0; i < i1; ++i) acc += (double)at[i * p];
   return acc;
 }
 
@@ -86,7 +97,8 @@ constexpr int kSplit = 8;  // K6a's thread rows, a slice of a block's rows each
 // sq[N-1-i]. Thread row ty sums the slice [ty rows / kSplit, (ty + 1)
 // rows / kSplit) of each block as its lo and hi parts; warp 0 adds the
 // slices in order and writes both legs.
-__global__ void kneller_totals_kernel(const double* __restrict__ sq,
+template <typename T>
+__global__ void kneller_totals_kernel(const T* __restrict__ sq,
                                       double* __restrict__ tot, int64_t n,
                                       int64_t p, int rows, int64_t nb,
                                       int64_t run, int64_t runs) {
@@ -94,7 +106,7 @@ __global__ void kneller_totals_kernel(const double* __restrict__ sq,
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int64_t col = (int64_t)blockIdx.x * 32 + tx;
   const bool in = col < p;
-  const double* at = sq + (in ? col : 0);
+  const T* at = sq + (in ? col : 0);
   const int64_t q = n / rows, r = n % rows;
   const int slice = rows / kSplit;
   for (int64_t j = blockIdx.y; j < runs; j += gridDim.y) {
@@ -282,11 +294,12 @@ __global__ void __launch_bounds__(kThreads)
 // a tile and its mirror, whose forward rows are the first one's reversed
 // rows (shifted by N mod tile_rows), so the two run side by side and the
 // second read of those rows can come from L2.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    kneller_windows_kernel(const double* __restrict__ sq,
-                           const double* __restrict__ corr,
+    kneller_windows_kernel(const T* __restrict__ sq,
+                           const T* __restrict__ corr,
                            const double* __restrict__ off,
-                           double* __restrict__ out, int64_t n, int64_t p,
+                           T* __restrict__ out, int64_t n, int64_t p,
                            int log2c, int64_t nt, double dfac) {
   __shared__ Legs wsum[kWarps * 32];
   const int c = threadIdx.x & ((1 << log2c) - 1);
@@ -305,9 +318,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int k = 0; k < kRun; ++k) {
       const int64_t lag = l0 + k;
       const bool ok = in && lag < n;
-      fw[k] = ok ? sq[lag * p + col] : 0.0;
-      rv[k] = ok ? sq[(n - 1 - lag) * p + col] : 0.0;
-      cr[k] = ok ? corr[lag * p + col] : 0.0;
+      fw[k] = ok ? (double)sq[lag * p + col] : 0.0;
+      rv[k] = ok ? (double)sq[(n - 1 - lag) * p + col] : 0.0;
+      cr[k] = ok ? (double)corr[lag * p + col] : 0.0;
     }
     Legs own = {0.0, 0.0};
 #pragma unroll
@@ -326,43 +339,34 @@ __global__ void __launch_bounds__(kThreads, 2)
       run.f += fw[k];
       run.r += rv[k];
       if (in && lag < n)
-        out[lag * p + col] = lag == 0 ? 0.0
-                                      : (run.r + run.f - 2.0 * cr[k]) /
-                                            ((double)(n - lag) * dfac);
+        out[lag * p + col] =
+            (T)(lag == 0 ? 0.0
+                         : (run.r + run.f - 2.0 * cr[k]) /
+                               ((double)(n - lag) * dfac));
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// sq (n, p) float64 -> tot (2, nb, p) float64, nb = ceil(n / rows), in
-// `runs` runs of `run` row blocks, on a (grid_x, grid_y) grid of blocks of
-// 32 x kSplit threads; all from cuda_kneller.py.
-int ta_kneller_totals(const void* sq, void* tot, int64_t n, int64_t p,
-                      int64_t rows, int64_t nb, int64_t run, int64_t runs,
-                      int64_t grid_x, int64_t grid_y, void* stream) {
+template <typename T>
+int kneller_totals(const void* sq, void* tot, int64_t n, int64_t p,
+                   int64_t rows, int64_t nb, int64_t run, int64_t runs,
+                   int64_t grid_x, int64_t grid_y, void* stream) {
   if (run < 1 || runs * run < nb || (runs - 1) * run >= nb ||
       rows % kSplit != 0)
     return (int)cudaErrorInvalidValue;
-  kneller_totals_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_y),
-                          dim3(32, kSplit), 0, (cudaStream_t)stream>>>(
-      (const double*)sq, (double*)tot, n, p, (int)rows, nb, run, runs);
+  kneller_totals_kernel<T><<<dim3((unsigned)grid_x, (unsigned)grid_y),
+                             dim3(32, kSplit), 0, (cudaStream_t)stream>>>(
+      (const T*)sq, (double*)tot, n, p, (int)rows, nb, run, runs);
   return (int)cudaGetLastError();
 }
 
-// sq, corr (n, p) and tot from ta_kneller_totals -> out (n, p) float64,
-// through the scratch seg (2, segs, p) and off (2, nt, p): three launches
-// on a grid of (grid_x column tiles, grid_segs segments) for the scan's
-// two and (grid_x, grid_tiles) for the windows; the split from
-// cuda_kneller.py windows_split.
-int ta_kneller_windows(const void* sq, const void* corr, const void* tot,
-                       void* seg, void* off, void* out, int64_t n, int64_t p,
-                       int64_t rows, int64_t nb, double dfac, int64_t log2c,
-                       int64_t g, int64_t nt, int64_t segt, int64_t segs,
-                       int64_t chunk, int64_t grid_x, int64_t grid_segs,
-                       int64_t grid_tiles, void* stream) {
+template <typename T>
+int kneller_windows(const void* sq, const void* corr, const void* tot,
+                    void* seg, void* off, void* out, int64_t n, int64_t p,
+                    int64_t rows, int64_t nb, double dfac, int64_t log2c,
+                    int64_t g, int64_t nt, int64_t segt, int64_t segs,
+                    int64_t chunk, int64_t grid_x, int64_t grid_segs,
+                    int64_t grid_tiles, void* stream) {
   if (log2c < 0 || log2c > 5 || (kThreads >> log2c) * kRun != g * rows ||
       nt * g < nb || (nt - 1) * g >= nb || segs * segt < nt ||
       (segs - 1) * segt >= nt || chunk * (kThreads >> log2c) < segt)
@@ -379,11 +383,60 @@ int ta_kneller_windows(const void* sq, const void* corr, const void* tot,
       (int)log2c, g, nt, segt, segs, chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kneller_windows_kernel<<<dim3((unsigned)grid_x, (unsigned)grid_tiles),
-                           kThreads, 0, st>>>(
-      (const double*)sq, (const double*)corr, (const double*)off,
-      (double*)out, n, p, (int)log2c, nt, dfac);
+  kneller_windows_kernel<T><<<dim3((unsigned)grid_x, (unsigned)grid_tiles),
+                              kThreads, 0, st>>>(
+      (const T*)sq, (const T*)corr, (const double*)off, (T*)out, n, p,
+      (int)log2c, nt, dfac);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// sq (n, p) float64 -> tot (2, nb, p) float64, nb = ceil(n / rows), in
+// `runs` runs of `run` row blocks, on a (grid_x, grid_y) grid of blocks of
+// 32 x kSplit threads; all from cuda_kneller.py. ta_kneller_totals_f32:
+// sq float32, tot float64.
+int ta_kneller_totals(const void* sq, void* tot, int64_t n, int64_t p,
+                      int64_t rows, int64_t nb, int64_t run, int64_t runs,
+                      int64_t grid_x, int64_t grid_y, void* stream) {
+  return kneller_totals<double>(sq, tot, n, p, rows, nb, run, runs, grid_x,
+                                grid_y, stream);
+}
+int ta_kneller_totals_f32(const void* sq, void* tot, int64_t n, int64_t p,
+                          int64_t rows, int64_t nb, int64_t run, int64_t runs,
+                          int64_t grid_x, int64_t grid_y, void* stream) {
+  return kneller_totals<float>(sq, tot, n, p, rows, nb, run, runs, grid_x,
+                               grid_y, stream);
+}
+
+// sq, corr (n, p) and tot from ta_kneller_totals -> out (n, p) float64,
+// through the scratch seg (2, segs, p) and off (2, nt, p) of float64: three
+// launches on a grid of (grid_x column tiles, grid_segs segments) for the
+// scan's two and (grid_x, grid_tiles) for the windows; the split from
+// cuda_kneller.py windows_split. ta_kneller_windows_f32: sq, corr and out
+// float32.
+int ta_kneller_windows(const void* sq, const void* corr, const void* tot,
+                       void* seg, void* off, void* out, int64_t n, int64_t p,
+                       int64_t rows, int64_t nb, double dfac, int64_t log2c,
+                       int64_t g, int64_t nt, int64_t segt, int64_t segs,
+                       int64_t chunk, int64_t grid_x, int64_t grid_segs,
+                       int64_t grid_tiles, void* stream) {
+  return kneller_windows<double>(sq, corr, tot, seg, off, out, n, p, rows, nb,
+                                 dfac, log2c, g, nt, segt, segs, chunk,
+                                 grid_x, grid_segs, grid_tiles, stream);
+}
+int ta_kneller_windows_f32(const void* sq, const void* corr, const void* tot,
+                           void* seg, void* off, void* out, int64_t n,
+                           int64_t p, int64_t rows, int64_t nb, double dfac,
+                           int64_t log2c, int64_t g, int64_t nt, int64_t segt,
+                           int64_t segs, int64_t chunk, int64_t grid_x,
+                           int64_t grid_segs, int64_t grid_tiles,
+                           void* stream) {
+  return kneller_windows<float>(sq, corr, tot, seg, off, out, n, p, rows, nb,
+                                dfac, log2c, g, nt, segt, segs, chunk, grid_x,
+                                grid_segs, grid_tiles, stream);
 }
 
 }  // extern "C"

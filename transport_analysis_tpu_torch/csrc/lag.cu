@@ -1,5 +1,4 @@
-// Windowed lag sums of the exact (fft=False) path, accumulated in float64,
-// for Hopper (sm_90a). Built by transport_analysis_tpu_torch/_build.py and
+// Windowed lag sums of the exact (fft=False) path, for Hopper (sm_90a). Built by transport_analysis_tpu_torch/_build.py and
 // called through ctypes from transport_analysis_tpu_torch/ops/cuda_lag.py.
 //
 // K8  ta_lag_sums
@@ -17,6 +16,15 @@
 //     A float operand is read at 4 bytes and upcast exactly, so both give the
 //     float64 sums of the float64 values; K8b's (hi, lo) float32 pairs, band
 //     slicing and N <= 2^17 cap existed only because the TPU has no f64.
+//     The output is float64, or float32 (ta_lag_sums_f32) for the float32 work mode
+//     (dtype=np.float32, K8a's own type: a float operand, float32 results
+//     at about 1e-6 grade). There the acf mode keeps its float64 Gram on
+//     the FP64 tensor cores, which run at the 67 TFLOP/s of FP32 outside
+//     them (TF32's 10-bit mantissa cannot hold the 1e-6 grade), and only
+//     rounds its result; the einstein mode takes float32 differences and
+//     squares (W = float: twice the FP64 rate), each tile's partials of
+//     kTileF frames summed in float32 and added to a float64 running sum,
+//     so no float32 register sums more than one tile's terms.
 //
 // What bounds it: float64 arithmetic. Every (frame, lag, series) pair costs
 // one multiply-add (acf) or a subtract and a multiply-add (einstein). At
@@ -151,6 +159,13 @@ __device__ __forceinline__ void cp_async(void* dst, const double* src,
                "l"(src), "r"(valid ? 8 : 0));
 }
 
+__device__ __forceinline__ double fmar(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fmar(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -182,10 +197,12 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ x, T* dst,
 
 // block (x: tile of kTileP particles, y: spans b of kSpan lags, strided);
 // warp w sums lags [b kSpan + w kLagBlock, ... + kLagBlock) of the lane's
-// particle p0 + lane.
-template <typename T, int D>
+// particle p0 + lane. W is the type of the differences, squares and tile
+// partials, and of the output: double, or float for the float32 work mode;
+// the running sums acc are double either way.
+template <typename T, int D, typename W>
 __global__ void __launch_bounds__(kThreads, 1)
-    einstein_tile_kernel(const T* __restrict__ x, double* __restrict__ out,
+    einstein_tile_kernel(const T* __restrict__ x, W* __restrict__ out,
                          int64_t n, int64_t p, int64_t n_lags,
                          int64_t nspans, double dfac) {
   constexpr int kTileF = tile_frames<T>();
@@ -205,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
     // ring window: x[i + lw + j] of component c in w[c][j % kLagBlock]
-    double w[D][kLagBlock];
+    W w[D][kLagBlock];
     // frames at which every lag of the span has its partner,
     // i + l0 + kSpan - 1 < n, in whole tiles
     const int64_t n_full = n - l0 - (kSpan - 1);
@@ -239,13 +256,13 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int j = 0; j < kLagBlock - 1; ++j) {
 #pragma unroll
               for (int c = 0; c < D; ++c)
-                w[c][j] = (double)ring[(c * kRing + warp * kLagBlock + j +
-                                        1) * kTileP + lane];
+                w[c][j] = (W)ring[(c * kRing + warp * kLagBlock + j + 1) *
+                                      kTileP + lane];
             }
           }
-          double part[kLagBlock];
+          W part[kLagBlock];
 #pragma unroll
-          for (int l = 0; l < kLagBlock; ++l) part[l] = 0.0;
+          for (int l = 0; l < kLagBlock; ++l) part[l] = 0;
 #pragma unroll 1
           for (int kk = 0; kk < kTileF; kk += kLagBlock) {
             const T* xb = base + (size_t)(t & 1) * D * kTileF * kTileP +
@@ -257,25 +274,25 @@ __global__ void __launch_bounds__(kThreads, 1)
             const T* xw = ring + sb * kTileP + lane;
 #pragma unroll
             for (int k = 0; k < kLagBlock; ++k) {
-              double xi[D];
+              W xi[D];
 #pragma unroll
               for (int c = 0; c < D; ++c) {
                 w[c][(k + kLagBlock - 1) % kLagBlock] =
-                    (double)xw[(c * kRing + k) * kTileP];
-                xi[c] = (double)xb[(c * kTileF + k) * kTileP];
+                    (W)xw[(c * kRing + k) * kTileP];
+                xi[c] = (W)xb[(c * kTileF + k) * kTileP];
               }
 #pragma unroll
               for (int l = 0; l < kLagBlock; ++l) {
 #pragma unroll
                 for (int c = 0; c < D; ++c) {
-                  const double diff = xi[c] - w[c][(k + l) % kLagBlock];
-                  part[l] = fma(diff, diff, part[l]);
+                  const W diff = xi[c] - w[c][(k + l) % kLagBlock];
+                  part[l] = fmar(diff, diff, part[l]);
                 }
               }
             }
           }
 #pragma unroll
-          for (int l = 0; l < kLagBlock; ++l) acc[l] += part[l];
+          for (int l = 0; l < kLagBlock; ++l) acc[l] += (double)part[l];
         }
       }
       __syncthreads();  // the next span's copies overwrite the last tile
@@ -291,32 +308,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < kLagBlock - 1; ++j) {
 #pragma unroll
           for (int c = 0; c < D; ++c)
-            w[c][j] = j < i_end ? (double)col[(lw + j) * s + c] : 0.0;
+            w[c][j] = j < i_end ? (W)col[(lw + j) * s + c] : (W)0;
         }
       }
-      double part[kLagBlock];
+      W part[kLagBlock];
 #pragma unroll
-      for (int l = 0; l < kLagBlock; ++l) part[l] = 0.0;
+      for (int l = 0; l < kLagBlock; ++l) part[l] = 0;
       for (int64_t i0 = n_tiles * kTileF; i0 < i_end; i0 += kLagBlock) {
 #pragma unroll
         for (int k = 0; k < kLagBlock; ++k) {
           const int64_t i = i0 + k;
           const int64_t lim = i_end - i;  // lags lw + l, l < lim, pair
           const int64_t jn = i + kLagBlock - 1;  // the new partner, - lw
-          double xi[D];
+          W xi[D];
 #pragma unroll
           for (int c = 0; c < D; ++c) {
             w[c][(k + kLagBlock - 1) % kLagBlock] =
-                jn < i_end ? (double)col[(lw + jn) * s + c] : 0.0;
-            xi[c] = lim > 0 ? (double)col[i * s + c] : 0.0;
+                jn < i_end ? (W)col[(lw + jn) * s + c] : (W)0;
+            xi[c] = lim > 0 ? (W)col[i * s + c] : (W)0;
           }
 #pragma unroll
           for (int l = 0; l < kLagBlock; ++l) {
             if (l < lim) {
 #pragma unroll
               for (int c = 0; c < D; ++c) {
-                const double diff = xi[c] - w[c][(k + l) % kLagBlock];
-                part[l] = fma(diff, diff, part[l]);
+                const W diff = xi[c] - w[c][(k + l) % kLagBlock];
+                part[l] = fmar(diff, diff, part[l]);
               }
             }
           }
@@ -327,7 +344,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int64_t lag = lw + l;
         if (lag < n_lags) {
           out[lag * p + q] =
-              lag == 0 ? 0.0 : (acc[l] + part[l]) / ((double)(n - lag) * dfac);
+              (W)(lag == 0 ? 0.0
+                           : (acc[l] + (double)part[l]) /
+                                 ((double)(n - lag) * dfac));
         }
       }
     }
@@ -484,10 +503,10 @@ __device__ __forceinline__ void gram_chunk(const double* buf,
 }
 
 // block (x: particle q, y: spans b, strided): lags [b span, (b + 1) span)
-// of particle q, span <= kAcfSpan.
-template <typename T, int D>
+// of particle q, span <= kAcfSpan; the float64 sums stored as O.
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(kAcfThreads, 2)
-    acf_gram_kernel(const T* __restrict__ x, double* __restrict__ out,
+    acf_gram_kernel(const T* __restrict__ x, O* __restrict__ out,
                     int64_t n, int64_t p, int64_t n_lags, int64_t nspans,
                     int span, double dfac) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -546,47 +565,57 @@ __global__ void __launch_bounds__(kAcfThreads, 2)
         double s = 0.0;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) s += gram[r * kCStride + l + r];
-        out[lag * p + q] = s / ((double)(n - lag) * dfac);
+        out[lag * p + q] = (O)(s / ((double)(n - lag) * dfac));
       }
     }
     __syncthreads();  // the next span's copies overwrite C
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
            bool einstein, double dfac, int64_t lag_block, dim3 grid,
            unsigned cols, cudaStream_t stream) {
   if (einstein) {
     constexpr size_t smem = tile_smem_bytes<T, D>();
     const cudaError_t err = cudaFuncSetAttribute(
-        einstein_tile_kernel<T, D>,
+        einstein_tile_kernel<T, D, O>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int64_t nspans = (n_lags + kSpan - 1) / kSpan;
-    einstein_tile_kernel<T, D><<<grid, cols, smem, stream>>>(
-        (const T*)x, (double*)out, n, p, n_lags, nspans, dfac);
+    einstein_tile_kernel<T, D, O><<<grid, cols, smem, stream>>>(
+        (const T*)x, (O*)out, n, p, n_lags, nspans, dfac);
   } else {
     constexpr size_t smem = acf_smem_bytes<T, D>();
     const cudaError_t err = cudaFuncSetAttribute(
-        acf_gram_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        acf_gram_kernel<T, D, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int64_t nspans = (n_lags + lag_block - 1) / lag_block;
-    acf_gram_kernel<T, D><<<grid, cols, smem, stream>>>(
-        (const T*)x, (double*)out, n, p, n_lags, nspans, (int)lag_block,
-        dfac);
+    acf_gram_kernel<T, D, O><<<grid, cols, smem, stream>>>(
+        (const T*)x, (O*)out, n, p, n_lags, nspans, (int)lag_block, dfac);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename O>
 int launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
              int64_t n_lags, bool einstein, double dfac, int64_t lag_block,
              dim3 grid, unsigned cols, cudaStream_t stream) {
-  if (d == 1) return launch<T, 1>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
-  if (d == 2) return launch<T, 2>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
-  return launch<T, 3>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  if (d == 1) return launch<T, 1, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  if (d == 2) return launch<T, 2, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  return launch<T, 3, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+}
+
+// The launch geometry cuda_lag.py hands a C entry: what the kernels take.
+bool lag_geometry(int64_t n, int64_t p, int64_t d, int64_t n_lags,
+                  int64_t einstein, int64_t lag_block, int64_t cols,
+                  int64_t grid_x) {
+  const bool geometry =
+      einstein ? lag_block == kSpan && cols == kThreads
+               : lag_block >= 1 && lag_block <= kAcfSpan &&
+                     cols == kAcfThreads && grid_x == p;
+  return geometry && d >= 1 && d <= 3 && n_lags >= 1 && n_lags <= n;
 }
 
 }  // namespace
@@ -603,21 +632,29 @@ int ta_lag_sums(const void* x, void* out, int64_t n, int64_t p, int64_t d,
                 int64_t n_lags, int64_t f64, int64_t einstein, double dfac,
                 int64_t lag_block, int64_t cols, int64_t grid_x,
                 int64_t grid_y, void* stream) {
-  const bool geometry =
-      einstein ? lag_block == kSpan && cols == kThreads
-               : lag_block >= 1 && lag_block <= kAcfSpan &&
-                     cols == kAcfThreads && grid_x == p;
-  if (!geometry || d < 1 || d > 3 || n_lags < 1 || n_lags > n)
+  if (!lag_geometry(n, p, d, n_lags, einstein, lag_block, cols, grid_x))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)grid_x, (unsigned)grid_y);
-  if (f64) {
-    return launch_d<double>(x, out, n, p, d, n_lags, einstein != 0, dfac,
-                            lag_block, grid, (unsigned)cols,
-                            (cudaStream_t)stream);
-  }
-  return launch_d<float>(x, out, n, p, d, n_lags, einstein != 0, dfac,
-                         lag_block, grid, (unsigned)cols,
-                         (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (f64)
+    return launch_d<double, double>(x, out, n, p, d, n_lags, einstein != 0,
+                                    dfac, lag_block, grid, (unsigned)cols, st);
+  return launch_d<float, double>(x, out, n, p, d, n_lags, einstein != 0, dfac,
+                                 lag_block, grid, (unsigned)cols, st);
+}
+
+// The float32 work mode's instantiation: x float32 (f64 must be 0) -> out
+// (n_lags, p) float32; the arguments are ta_lag_sums'.
+int ta_lag_sums_f32(const void* x, void* out, int64_t n, int64_t p,
+                    int64_t d, int64_t n_lags, int64_t f64, int64_t einstein,
+                    double dfac, int64_t lag_block, int64_t cols,
+                    int64_t grid_x, int64_t grid_y, void* stream) {
+  if (f64 || !lag_geometry(n, p, d, n_lags, einstein, lag_block, cols, grid_x))
+    return (int)cudaErrorInvalidValue;
+  return launch_d<float, float>(x, out, n, p, d, n_lags, einstein != 0, dfac,
+                                lag_block, dim3((unsigned)grid_x,
+                                                (unsigned)grid_y),
+                                (unsigned)cols, (cudaStream_t)stream);
 }
 
 }  // extern "C"

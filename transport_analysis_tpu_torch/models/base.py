@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, work_types
 from ..core.trajectory import take_axis
 
 NO_F32_SOURCE_ENV = "TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE"
@@ -52,10 +52,6 @@ def select_series(block, indices, dim) -> np.ndarray:
         take_axis(take_axis(block, indices, 1), dim, 2))
 
 
-TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
-                np.dtype(np.float64): torch.float64}
-
-
 class DeviceSeriesBuffer:
     """Assembles an (n_frames, …) series on ``device`` from host frame
     blocks: the host holds one decoded block at a time while the whole
@@ -64,7 +60,7 @@ class DeviceSeriesBuffer:
     the f32-source mode); each block is copied into its rows."""
 
     def __init__(self, shape, dtype, device):
-        self._buf = torch.empty(shape, dtype=TORCH_DTYPES[np.dtype(dtype)],
+        self._buf = torch.empty(shape, dtype=work_types(dtype)[0],
                                 device=device)
 
     def write(self, block: np.ndarray, offset: int) -> None:

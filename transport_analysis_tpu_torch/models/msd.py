@@ -12,20 +12,20 @@ algorithm (``fft=True``: K1, K2, K5, K6a, K6b on the card) or by the
 exact windowed sums (``fft=False``: K8), batched over every particle in
 one device call. Float32 positions cross to the device at 4 bytes a
 value and are upcast there, exactly. ``frame_block=``, ``atom_chunk=``
-and ``checkpoint=`` stream as in ``VelocityAutocorr``. Not ported yet:
-the float32 work mode.
+and ``checkpoint=`` stream as in ``VelocityAutocorr``. ``dtype=
+np.float32`` is the float32 work mode, as in the JAX package
+(``msd.py:58``, ``:105-153``): float32 positions and results.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..core.groups import AtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
-from .. import ops
+from ..ops import cuda_lag
 from ..ops.einstein import einstein_difference_fft_
-from .._device import as_tensor
+from .._device import as_tensor, work_types
 from ..parallel.streaming import chunked_per_particle, shares_memory
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -51,6 +51,8 @@ class EinsteinMSD(AnalysisBase):
     atom_chunk, checkpoint, frame_block :
         Atom chunks, their resume file and the frame-blocked feed, as in
         ``VelocityAutocorr``.
+    dtype : {np.float64, np.float32}
+        The work dtype, as in ``VelocityAutocorr``.
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -73,7 +75,7 @@ class EinsteinMSD(AnalysisBase):
         self.max_lag = max_lag
         self.atom_chunk = atom_chunk
         self.checkpoint = checkpoint
-        self._work_dtype = np.dtype(np.float64)
+        self._work_dtype = np.dtype(dtype)
         self.n_particles = len(ag)
 
     _NO_DATA_MSG = "MSD computation requires positions"
@@ -95,8 +97,8 @@ class EinsteinMSD(AnalysisBase):
     def _process_batch(self, batch):
         if "positions" not in batch:
             raise NoDataError(self._NO_DATA_MSG)
-        # float32 samples stay float32 (half the transfer); the device
-        # upcasts them exactly
+        # float32 samples stay float32 (half the transfer); under the
+        # float64 work dtype the device upcasts them exactly
         self._positions = source_cast(
             select_series(batch["positions"], self.ag.indices, self._dim),
             self._work_dtype, self._keep_f32)
@@ -119,14 +121,17 @@ class EinsteinMSD(AnalysisBase):
             else min(self.max_lag, self.n_frames)
         )
         feed = self._positions
+        work = work_types(self._work_dtype)[0]
 
         def kernel(r):
             if not self.fft:
-                return ops.einstein_difference_windowed(
-                    r, "sum", max_lag=self.n_lags)
-            # the FFT path centers its float64 operand in place: hand it
-            # one of its own, a copy only where ``r`` may still be the feed
-            owned = r.to(torch.float64, copy=shares_memory(r, feed))
+                # float32 samples under the float64 work dtype are upcast
+                # inside the kernel, exactly
+                return cuda_lag.lag_sums(r, self.n_lags, "einstein", "sum",
+                                         out_dtype=work)
+            # the FFT path centers its operand in place: hand it one of
+            # its own, a copy only where ``r`` may still be the feed
+            owned = r.to(work, copy=shares_memory(r, feed))
             return einstein_difference_fft_(owned, "sum")[: self.n_lags]
 
         if self.atom_chunk:

@@ -15,7 +15,11 @@ particle at once; ``fft=False`` runs the exact windowed sums (K8) on
 the same feed, O(N·n_lags) per atom. ``frame_block=`` feeds the card in
 frame blocks; ``atom_chunk=`` correlates that many atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume
-from. Not ported yet: the float32 work mode.
+from. ``dtype=np.float32`` is the float32 work mode, as in the JAX
+package (``velocityautocorr.py:60-62``): float32 samples, float32 results
+at about 1e-6 grade, through the float32/complex64 instantiations of the
+same kernels (an atom-chunked run's results are float64 accumulators of
+them, as the JAX package's are).
 
 Results are in MDAnalysis standard units: (Å/ps)² against ps.
 """
@@ -28,7 +32,8 @@ import torch
 from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
-from .._device import as_tensor
+from .._device import as_tensor, work_types
+from ..ops import cuda_lag
 from ..parallel.streaming import chunked_per_particle
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -59,6 +64,9 @@ class VelocityAutocorr(AnalysisBase):
     frame_block : int, optional
         Feed the device in blocks of this many frames, decoded on a
         background thread (the host holds one block at a time).
+    dtype : {np.float64, np.float32}
+        The work dtype: float64 (default, reference-grade numerics) or
+        float32, the fast mode (about 1e-6 relative accuracy).
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -79,7 +87,7 @@ class VelocityAutocorr(AnalysisBase):
         self.max_lag = max_lag
         self.atom_chunk = atom_chunk
         self.checkpoint = checkpoint
-        self._work_dtype = np.dtype(np.float64)
+        self._work_dtype = np.dtype(dtype)
         self.atomgroup = atomgroup
         self.n_particles = len(atomgroup)
         self._run_called = False
@@ -108,8 +116,9 @@ class VelocityAutocorr(AnalysisBase):
             )
         v = select_series(batch["velocities"], self.atomgroup.indices,
                           self._dim)
-        # float32 samples stay float32 (half the transfer); the device
-        # upcasts them exactly (ops.acf_fft_from_f32)
+        # float32 samples stay float32 (half the transfer); under the
+        # float64 work dtype the device upcasts them exactly
+        # (ops.acf_fft_from_f32)
         self._velocities = source_cast(v, self._work_dtype, self._keep_f32)
 
     def _process_block(self, batch, offset):
@@ -136,11 +145,15 @@ class VelocityAutocorr(AnalysisBase):
             else min(self.max_lag, self.n_frames)
         )
 
+        work = work_types(self._work_dtype)[0]
+
         def kernel(v):
             if not self.fft:
-                # float32 samples are upcast inside the kernel, exactly
-                return ops.acf_windowed(v, max_lag=self.n_lags)
-            if v.dtype == torch.float32:
+                # float32 samples under the float64 work dtype are upcast
+                # inside the kernel, exactly
+                return cuda_lag.lag_sums(v, self.n_lags, "acf", "sum",
+                                         out_dtype=work)
+            if work == torch.float64 and v.dtype == torch.float32:
                 return ops.acf_fft_from_f32(v)[: self.n_lags]
             return ops.acf_fft(v)[: self.n_lags]
 

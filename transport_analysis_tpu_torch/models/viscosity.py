@@ -11,11 +11,13 @@ as ``results.viscosity``.
 The Einstein differences run through the Kneller/Calandrini FFT path
 (ops/einstein.py) on the device, or with ``fft=False`` through the exact
 windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
-formed there in float64 from the float32 feed. ``frame_block=`` feeds the
-card in frame blocks (the per-frame volumes stay on the host);
+formed there in the work dtype from the float32 feed. ``frame_block=``
+feeds the card in frame blocks (the per-frame volumes stay on the host);
 ``atom_chunk=`` forms m·v·x and correlates it a chunk of atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from.
-Not ported yet: the float32 work mode.
+``dtype=np.float32`` is the float32 work mode, as in the JAX package
+(``viscosity.py:89-109``, ``:194-230``): masses, samples and m·v·x in
+float32, float32 results at about 1e-6 grade.
 """
 
 from __future__ import annotations
@@ -37,10 +39,10 @@ from ._dims import parse_dim_type
 class HelfandSeries:
     """The Helfand accumulator m·v·x of (N, P, d) velocities and positions
     (host arrays or device tensors) and (P,) masses, formed on ``device``
-    in float64 for the atoms a slice asks for: ``series[:, lo:hi, :]`` is
-    a new (N, hi − lo, d) tensor, (m·v)·x in the reference's multiply
-    order (viscosity.py:197), with float32 samples upcast exactly inside
-    the products. Only the sliced atoms' factors are copied to the device,
+    in the masses' type (the work dtype) for the atoms a slice asks for:
+    ``series[:, lo:hi, :]`` is a new (N, hi − lo, d) tensor, (m·v)·x in
+    the reference's multiply order (viscosity.py:197); under float64
+    masses float32 samples are upcast exactly inside the products. Only the sliced atoms' factors are copied to the device,
     so an atom-chunked run never holds the whole accumulator there."""
 
     def __init__(self, masses, velocities, positions, device):
@@ -85,6 +87,8 @@ class ViscosityHelfand(AnalysisBase):
         Atom chunks, their resume file and the frame-blocked feed, as in
         ``VelocityAutocorr``; the timeseries and per-particle values of a
         chunked run are divided by 2·k_B·⟨V⟩·T after the chunks.
+    dtype : {np.float64, np.float32}
+        The work dtype, as in ``VelocityAutocorr``.
     device : torch device, optional
         Where the analysis computes: the CUDA card by default (raises
         where there is none), the CPU only as ``"cpu"``.
@@ -117,7 +121,7 @@ class ViscosityHelfand(AnalysisBase):
         self.max_lag = max_lag
         self.atom_chunk = atom_chunk
         self.checkpoint = checkpoint
-        self._work_dtype = np.dtype(np.float64)
+        self._work_dtype = np.dtype(dtype)
         self.atomgroup = atomgroup
         self.n_particles = len(atomgroup)
 
@@ -164,7 +168,7 @@ class ViscosityHelfand(AnalysisBase):
         self._volumes = volumes
         idx = self.atomgroup.indices
         # float32 samples stay float32 (half the transfer); m·v·x is
-        # formed in float64 on the device (the upcast is exact)
+        # formed in the work dtype on the device (an upcast is exact)
         self._velocities = source_cast(
             select_series(batch["velocities"], idx, self._dim),
             self._work_dtype, self._keep_f32)
@@ -206,8 +210,8 @@ class ViscosityHelfand(AnalysisBase):
     def _conclude(self):
         self._vol_avg = float(np.average(self._volumes))
         dev = self.device
-        # the accumulator m·v·x, formed in float64 on the device for the
-        # atoms asked for (all of them, or one chunk at a time)
+        # the accumulator m·v·x, formed in the work dtype on the device
+        # for the atoms asked for (all of them, or one chunk at a time)
         series = HelfandSeries(self._masses, self._velocities,
                                self._positions, dev)
         self.n_lags = (
@@ -219,7 +223,7 @@ class ViscosityHelfand(AnalysisBase):
         def kernel(accum):
             # ``accum`` is a new tensor of ``series``: the FFT path
             # centers it in place (the windowed path differences it as it
-            # is), so it is the one full-size float64 tensor
+            # is), so it is the one full-size tensor of the work dtype
             if self.fft:
                 return einstein_difference_fft_(accum, "mean")[
                     : self.n_lags]

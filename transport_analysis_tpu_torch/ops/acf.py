@@ -1,4 +1,5 @@
-"""Autocorrelation by the Wiener–Khinchin theorem, float64 on the device.
+"""Autocorrelation by the Wiener–Khinchin theorem on the device, float64,
+or float32 in the float32 work mode.
 
 Counterpart of ``transport_analysis_tpu/ops/acf.py``'s FFT path:
 
@@ -17,6 +18,12 @@ here. The exact windowed :func:`acf_windowed` (``fft=False``) runs
 the lag-sum kernel of ``cuda_lag``. :func:`auto_atom_chunk` sizes the
 atom chunks of a streamed run (``parallel.streaming``) from the port's
 own device-memory model, :func:`chunk_peak_bytes`.
+
+A float32 operand of :func:`acf_fft` or :func:`acf_windowed` runs the
+float32 work mode (``dtype=np.float32``), as the JAX ops do: float32
+results at about 1e-6 grade, through the complex64/float32 instantiations
+of the same kernels. :func:`acf_fft_from_f32` stays the float64-grade
+entry for float32 samples.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from .._device import as_tensor, resolve_device
+from .._device import REAL_TYPES, as_tensor, resolve_device
 from . import cuda_fft
 from .cuda_lag import windowed_lag
 
@@ -53,13 +60,16 @@ CPU_BUDGET_GB = 16.0
 ALLOCATOR_SLACK = 8 * 2 ** 20
 
 
-def chunk_peak_bytes(n_frames: int, chunk: int, d: int = 3) -> int:
+def chunk_peak_bytes(n_frames: int, chunk: int, d: int = 3,
+                     dtype=np.float64) -> int:
     """Device bytes the FFT analyses of one chunk of ``chunk`` atoms over
-    ``n_frames`` frames (``d`` components) hold at their peak: the MSD's,
-    the largest of the three (s = d·chunk series, M = 2·next_pow_2(N),
-    w = ceil(s/2) packed columns). Its kernel is handed the float32 chunk
-    of the feed, which the caller holds through the call (4·N·s), and
-    centers a float64 copy of it in place (8·N·s); beside these two:
+    ``n_frames`` frames (``d`` components) hold at their peak under the
+    work ``dtype``: the MSD's, the largest of the three (s = d·chunk
+    series, M = 2·next_pow_2(N), w = ceil(s/2) packed columns).
+
+    float64: its kernel is handed the float32 chunk of the feed, which
+    the caller holds through the call (4·N·s), and centers a float64 copy
+    of it in place (8·N·s); beside these two:
 
     * its squares: the elementwise square and the (N, chunk) component
       sums, 8·N·s + 8·N·chunk;
@@ -71,20 +81,33 @@ def chunk_peak_bytes(n_frames: int, chunk: int, d: int = 3) -> int:
     :data:`ALLOCATOR_SLACK`. Helfand holds the same stages without the
     float32 chunk (its m·v·x is formed from float32 factors it frees,
     16·N·s at most), the VACF a float32 chunk beside the same spectra,
-    and the windowed runs less."""
+    and the windowed runs less.
+
+    float32 (the float32 work mode): every stage at half the bytes, and
+    no copy of the chunk: the MSD centers the float32 chunk itself in
+    place (4·N·s; Helfand forms m·v·x from two float32 factors, 8·N·s at
+    most, within the squares' stage), float32 squares and sums, complex64
+    spectra (2·8·M·w) and complex64 roots tables (16·M)."""
+    size = np.dtype(dtype).itemsize
+    if size not in (4, 8):
+        raise ValueError(f"dtype must be float64 or float32, got "
+                         f"{np.dtype(dtype)}")
     s = d * chunk
     m = 2 * next_pow_2(n_frames)
-    spectra = 2 * 16 * m * ((s + 1) // 2)
-    operands = 12 * n_frames * s
-    stages = max(8 * n_frames * s + 8 * n_frames * chunk,
-                 8 * n_frames * chunk + spectra)
-    return operands + stages + 32 * m + ALLOCATOR_SLACK
+    spectra = 2 * 2 * size * m * ((s + 1) // 2)
+    # the float32 chunk, and the float64 work mode's copy of it
+    operands = (4 + (size if size == 8 else 0)) * n_frames * s
+    stages = max(size * n_frames * s + size * n_frames * chunk,
+                 size * n_frames * chunk + spectra)
+    return operands + stages + 4 * size * m + ALLOCATOR_SLACK
 
 
 def auto_atom_chunk(n_frames: int, d: int = 3, hbm_budget_gb=None,
-                    device=None) -> int:
-    """The largest atom chunk whose :func:`chunk_peak_bytes` fits the
-    device-memory budget, in GB (1e9 bytes): ``hbm_budget_gb``, else the
+                    dtype=np.float64, device=None) -> int:
+    """The largest atom chunk whose :func:`chunk_peak_bytes` under the
+    work ``dtype`` (float64, or float32 for the float32 work mode; the
+    JAX function's signature) fits the device-memory budget, in GB (1e9
+    bytes): ``hbm_budget_gb``, else the
     ``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB`` environment variable, else
     :data:`CARD_HEADROOM` of the card's total memory
     (``torch.cuda.mem_get_info``) on a CUDA ``device`` (the default), else
@@ -102,30 +125,34 @@ def auto_atom_chunk(n_frames: int, d: int = 3, hbm_budget_gb=None,
             else:
                 hbm_budget_gb = CPU_BUDGET_GB
     budget = float(hbm_budget_gb) * 1e9
-    if chunk_peak_bytes(n_frames, 1, d) > budget:
+    if chunk_peak_bytes(n_frames, 1, d, dtype) > budget:
         raise ValueError(
             f"one atom of {n_frames} frames needs "
-            f"{chunk_peak_bytes(n_frames, 1, d) / 1e9:.3f} GB of device "
-            f"memory, past the budget of {hbm_budget_gb} GB")
+            f"{chunk_peak_bytes(n_frames, 1, d, dtype) / 1e9:.3f} GB of "
+            f"device memory, past the budget of {hbm_budget_gb} GB")
     lo, hi = 1, 2
-    while chunk_peak_bytes(n_frames, hi, d) <= budget:
+    while chunk_peak_bytes(n_frames, hi, d, dtype) <= budget:
         lo, hi = hi, 2 * hi
     while hi - lo > 1:  # peak(lo) fits, peak(hi) does not
         mid = (lo + hi) // 2
-        if chunk_peak_bytes(n_frames, mid, d) <= budget:
+        if chunk_peak_bytes(n_frames, mid, d, dtype) <= budget:
             lo = mid
         else:
             hi = mid
     return lo
 
 
-def raw_autocorr_sumlast_flat(x: torch.Tensor, P: int, d: int
+def raw_autocorr_sumlast_flat(x: torch.Tensor, P: int, d: int,
+                              work_dtype: torch.dtype = torch.float64
                               ) -> torch.Tensor:
     """Component-summed raw autocorrelation of a flat (N, P·d) operand
-    (float32 or float64; series of particle p in columns p·d … p·d+d-1)
-    → (N, P) float64, unnormalized."""
+    (series of particle p in columns p·d … p·d+d-1) → (N, P) of
+    ``work_dtype``, unnormalized: float64 from float32 or float64
+    samples, or float32 from a float32 operand (the float32 work
+    mode)."""
     n = x.shape[0]
-    return cuda_fft.autocorr_power_sum(x, 2 * next_pow_2(n), P, d)
+    return cuda_fft.autocorr_power_sum(x, 2 * next_pow_2(n), P, d,
+                                       work_dtype=work_dtype)
 
 
 def raw_autocorr_sumlast(x: torch.Tensor) -> torch.Tensor:
@@ -135,15 +162,16 @@ def raw_autocorr_sumlast(x: torch.Tensor) -> torch.Tensor:
     return raw_autocorr_sumlast_flat(x.reshape(n, p * d), p, d)
 
 
-def _normalized(x: torch.Tensor) -> torch.Tensor:
+def _normalized(x: torch.Tensor,
+                work_dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """The raw autocorrelation divided by N − lag in the transform's
-    epilogue."""
+    epilogue, in ``work_dtype``."""
     if x.ndim == 2:
         x = x[:, :, None]
     n, p, d = x.shape
     return cuda_fft.autocorr_power_sum(x.reshape(n, p * d),
                                        2 * next_pow_2(n), p, d,
-                                       normalize=True)
+                                       normalize=True, work_dtype=work_dtype)
 
 
 def acf_fft(x, device=None) -> torch.Tensor:
@@ -151,19 +179,22 @@ def acf_fft(x, device=None) -> torch.Tensor:
 
     Parameters
     ----------
-    x : (N, P, d) or (N, P) float64 tensor or array — N frames, P
-        particles, d components. Arrays go to ``device`` (default: the
-        CUDA card; the CPU only as ``"cpu"``).
+    x : (N, P, d) or (N, P) float64 or float32 tensor or array — N
+        frames, P particles, d components. Arrays go to ``device``
+        (default: the CUDA card; the CPU only as ``"cpu"``).
 
     Returns
     -------
-    (N, P) float64 tensor on the operand's device.
+    (N, P) tensor of the operand's type on its device: float64, or
+    float32 at about 1e-6 grade for a float32 operand (the float32 work
+    mode, as the JAX op returns it; :func:`acf_fft_from_f32` is the
+    float64-grade entry for float32 samples).
     """
     x = as_tensor(x, device)
-    if x.dtype != torch.float64:
-        raise TypeError(f"acf_fft expects float64, got {x.dtype} (use "
-                        "acf_fft_from_f32 for float32 samples)")
-    return _normalized(x)
+    if x.dtype not in REAL_TYPES:
+        raise TypeError(f"acf_fft expects float64 or float32, got "
+                        f"{x.dtype}")
+    return _normalized(x, x.dtype)
 
 
 def acf_fft_from_f32(x32, device=None) -> torch.Tensor:
@@ -190,18 +221,16 @@ def acf_windowed(x, max_lag=None, device=None) -> torch.Tensor:
 
     Parameters
     ----------
-    x : (N, P, d) or (N, P) float64, or float32 samples, tensor or array.
+    x : (N, P, d) or (N, P) float64 or float32 tensor or array.
         Arrays go to ``device`` (default: the CUDA card; the CPU only as
         ``"cpu"``).
-        float32 samples are read at 4 bytes and upcast exactly inside the
-        kernel, so the result is that of the float64 values (the JAX op
-        returns float32 for them; here the float32 work mode is not
-        ported, see ``ROADMAP.md``).
     max_lag : lags [0, max_lag) only (default all N).
 
     Returns
     -------
-    (n_lags, P) float64 tensor on the operand's device.
+    (n_lags, P) tensor of the operand's type on its device, as the JAX
+    op returns it: float64, or float32 for a float32 operand (the float32
+    work mode).
     """
     return windowed_lag(as_tensor(x, device), max_lag, mode="acf",
                         reduce_mode="sum")

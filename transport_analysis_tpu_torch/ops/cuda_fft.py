@@ -1,5 +1,5 @@
-"""Multi-level four-step complex128 FFT for the Wiener–Khinchin
-autocorrelation.
+"""Multi-level four-step FFT, complex128 or complex64, for the
+Wiener–Khinchin autocorrelation.
 
 Counterpart of ``transport_analysis_tpu/ops/pallas_fft.py`` (the engine,
 M ≤ 65,536) and ``ops/deep_acf.py`` (the deep composition, an outer level
@@ -45,6 +45,15 @@ and K2's from :class:`UnpackTiles`, and run their plain PyTorch versions
 on CPU tensors;
 :func:`autocorr_power_sum` is the one orchestration both devices run, so
 the CPU tests exercise the same plans and index maps as the card.
+
+Two work types. complex128 with float64 results is the float64 work
+mode. complex64 with float32 results is the float32 work mode
+(``dtype=np.float32``, the JAX package's 4-band "fast" profile of its
+engine and deep chain): the same plans, tiles and index maps, each kernel
+instantiated on ``float2`` (``csrc/fft.cu``'s ``_f32`` entries), the
+roots the float64 table rounded once (:func:`roots_tensor`), and each
+plain version run in the operand's type. A complex64 operand never goes
+through the complex128 kernels and a cast.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from .._device import COMPLEX_TYPES, REAL_TYPES, work_types
 
 # Largest DFT the level kernels take (their shared-memory slab): plans stay
 # at PLAN_LEVEL, and K2's explicit ``n_top`` and scripts/fft_plan_sweep.py
@@ -132,17 +142,29 @@ def unit_roots(m: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def roots_tensor(m: int, device: torch.device) -> torch.Tensor:
-    """:func:`unit_roots` as a complex128 tensor, cached per (M, device).
-    The order-M table is 16·M bytes (512 MiB at M = 2^25); a plan's other
-    levels use the much smaller tables of their sub-orders."""
-    return torch.as_tensor(unit_roots(m), dtype=torch.complex128,
-                           device=device)
+def roots_tensor(m: int, device: torch.device,
+                 dtype: torch.dtype = torch.complex128) -> torch.Tensor:
+    """:func:`unit_roots` as a tensor of ``dtype``, cached per (M, device,
+    dtype): complex128, or complex64 for the float32 work mode, the
+    float64 table rounded once (never computed in float32). The order-M
+    table is 16·M bytes in complex128 (512 MiB at M = 2^25), 8·M in
+    complex64; a plan's other levels use the much smaller tables of their
+    sub-orders."""
+    table = unit_roots(m).astype(
+        np.complex64 if dtype == torch.complex64 else np.complex128)
+    return torch.as_tensor(table, device=device)
+
+
+def _check_complex(x: torch.Tensor, name: str) -> None:
+    if x.dtype not in COMPLEX_TYPES:
+        raise TypeError(f"{name} takes complex128 or complex64, got "
+                        f"{x.dtype}")
 
 
 def tile_cols(n: int) -> int:
     """Columns per block of a level kernel: the n x tc slab of 16-byte
-    values stays at 64 KB or less."""
+    values stays at 64 KB or less (32 KB for complex64, on the same
+    split)."""
     return min(64, max(8, 4096 // n))
 
 
@@ -179,22 +201,24 @@ class LevelTiles:
     a complex sum into a shared (k, a_l, p) stage of n·ra·C 16-byte
     values, which its output lanes, over (k, a_l, p), write out.
     Grid y strides over the rows or groups past its limit. ``smem``: the
-    kernel's shared-memory bytes."""
+    kernel's shared-memory bytes for complex values of ``itemsize`` bytes
+    (16, complex128; 8, complex64: the same split)."""
 
-    def __init__(self, a: int, n: int, c: int, epilogue: bool = False):
+    def __init__(self, a: int, n: int, c: int, epilogue: bool = False,
+                 itemsize: int = 16):
         self.a, self.n, self.c = a, n, c
         tc = tile_cols(n)
         self.wide = c > tc
         if self.wide:
             self.tc, self.ra, self.pitch = tc, 1, n * tc
-            self.smem = 16 * (n + n * tc)
+            self.smem = itemsize * (n + n * tc)
         else:
             self.tc = c
             self.ra = min(_pow2_floor(LEVEL_SLAB // (n * c)),
                           1 << (a - 1).bit_length())
             self.pitch = n * c + ((c - n * c) % 8 if self.ra > 1 else 0)
-            self.smem = 16 * (n + self.ra * self.pitch
-                              + (n * self.ra * c if epilogue else 0))
+            self.smem = itemsize * (n + self.ra * self.pitch
+                                    + (n * self.ra * c if epilogue else 0))
         self.tiles = -(-c // self.tc)
         self.groups = -(-a // self.ra)
         self.grid = _build.launch_grid(self.tiles, self.groups)
@@ -221,7 +245,8 @@ def fft_level_plain(x: torch.Tensor, m: int, sign: int = -1,
     if twiddle_cols:
         k = torch.arange(n, device=x.device)
         j = torch.arange(c // twiddle_cols, device=x.device)
-        tw = roots_tensor(m, x.device)[(k[:, None] * j[None, :]) % m]
+        tw = roots_tensor(m, x.device, x.dtype)[
+            (k[:, None] * j[None, :]) % m]
         if sign > 0:
             tw = tw.conj()
         y = (y.reshape(n, a, c // twiddle_cols, twiddle_cols)
@@ -232,7 +257,8 @@ def fft_level_plain(x: torch.Tensor, m: int, sign: int = -1,
 def fft_level(x: torch.Tensor, m: int, sign: int = -1,
               twiddle_cols: int = 0) -> torch.Tensor:
     """One four-step level: a batched DFT of length n along axis 1 of a
-    complex128 (A, n, C) tensor, written as (n, A, C):
+    complex128 or complex64 (A, n, C) tensor, written as (n, A, C) of its
+    type:
 
         out[k, a, c] = tw(k, c) · Σ_j x[a, j, c] · exp(sign·2πi·j·k/n)
 
@@ -241,8 +267,7 @@ def fft_level(x: torch.Tensor, m: int, sign: int = -1,
     belongs to.
     """
     a, n, c = x.shape
-    if x.dtype != torch.complex128:
-        raise TypeError(f"fft_level takes complex128, got {x.dtype}")
+    _check_complex(x, "fft_level")
     if n < 1 or n & (n - 1) or m % n:
         raise ValueError(f"fft_level: need n a power of two dividing m "
                          f"(n={n}, m={m})")
@@ -254,24 +279,24 @@ def fft_level(x: torch.Tensor, m: int, sign: int = -1,
     if n > MAX_LEVEL:
         raise ValueError(f"fft_level: the kernel takes levels of length "
                          f"<= {MAX_LEVEL}, got {n}")
-    tl = LevelTiles(a, n, c)
-    out = torch.empty((n, a, c), dtype=torch.complex128, device=x.device)
-    roots = roots_tensor(m, x.device)
+    tl = LevelTiles(a, n, c, itemsize=x.element_size())
+    out = torch.empty((n, a, c), dtype=x.dtype, device=x.device)
+    roots = roots_tensor(m, x.device, x.dtype)
     with torch.cuda.device(x.device):
-        err = _build.library().ta_fft_level(
+        err = _build.entry("ta_fft_level", x.dtype)(
             x.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, c, sign,
             twiddle_cols, m, tl.tc, tl.ra, tl.pitch, *tl.grid,
             _build.stream(x))
     _build.check(err, "fft_level")
-    fft_level.launches += 1
+    _build.count_launch(fft_level, x.dtype)
     return out
 
 
-fft_level.launches = 0
+fft_level.launches = fft_level.launches_f32 = 0
 
 
 def fft_forward(z: torch.Tensor) -> torch.Tensor:
-    """Forward DFT along axis 0 of a complex128 (M, B) tensor, natural
+    """Forward DFT along axis 0 of a complex (M, B) tensor, natural
     frequency order: the levels of :func:`plan_levels`. Each level's
     input is dropped once the next exists, so a caller that hands over
     a temporary holds at most two spectra at once."""
@@ -290,8 +315,7 @@ def _unpack_args(z: torch.Tensor, P: int, d: int,
     """Check K2's operands; the top level's length, by default the
     plan's last level."""
     m, w = z.shape
-    if z.dtype != torch.complex128:
-        raise TypeError(f"unpack_power_inva takes complex128, got {z.dtype}")
+    _check_complex(z, "unpack_power_inva")
     if P < 1 or d < 1 or w != (P * d + 1) // 2:
         raise ValueError(
             f"unpack_power_inva: {w} packed columns do not hold P={P} "
@@ -313,7 +337,7 @@ def unpack_power_inva_plain(z: torch.Tensor, P: int, d: int,
     power = torch.cat([torch.view_as_real(z + zm).square().sum(-1),
                        torch.view_as_real(z - zm).square().sum(-1)], dim=1)
     psum = power[:, : P * d].reshape(m, P, d).sum(-1) * (0.25 / m)
-    packed = torch.zeros((m, ph), dtype=torch.complex128, device=z.device)
+    packed = torch.zeros((m, ph), dtype=z.dtype, device=z.device)
     pr = torch.view_as_real(packed)
     pr[:, :, 0] = psum[:, :ph]
     pr[:, : P - ph, 1] = psum[:, ph:]
@@ -346,9 +370,12 @@ class UnpackTiles:
     − w: 0 for even P; for odd P the imaginary halves of the partner
     particles q + ph lie that many columns right of particle q's, and the
     last particle's upper components are the imaginary halves of columns
-    [0, shift) (the wrap)."""
+    [0, shift) (the wrap). ``smem``: the kernel's shared-memory bytes for
+    complex values of ``itemsize`` bytes (16, complex128; 8, complex64:
+    the same split)."""
 
-    def __init__(self, m: int, n_top: int, w: int, P: int, d: int):
+    def __init__(self, m: int, n_top: int, w: int, P: int, d: int,
+                 itemsize: int = 16):
         self.m, self.n_top, self.w, self.P, self.d = m, n_top, w, P, d
         self.r = m // n_top
         self.ph = (P + 1) // 2
@@ -365,8 +392,8 @@ class UnpackTiles:
                        n_top)
         self.runs = -(-self.pairs // self.nj)
         self.fine_bits = ((m.bit_length() - 1) + 1) // 2
-        self.smem = 16 * (n_top * (1 + self.nj * (1 + self.tq))
-                          + self.ktc * self.nj * self.cols)
+        self.smem = itemsize * (n_top * (1 + self.nj * (1 + self.tq))
+                                + self.ktc * self.nj * self.cols)
 
     def columns(self, t: int) -> tuple[int, int, int]:
         """(first column, span, wrap) of column tile t's staging rows:
@@ -411,8 +438,8 @@ def unpack_power_inva(z: torch.Tensor, P: int, d: int,
     with F1 = (Z[k] + conj Z[M-k])/2 and F2 = (Z[k] - conj Z[M-k])/2i the
     spectra of a column's real and imaginary series, and run inverse
     level A over the top digit of k = k_top·R + k_low (length ``n_top``,
-    R = M/n_top): out (n_top, R, ph) = (dd, k_low, q). The kernel's work
-    split is :class:`UnpackTiles`."""
+    R = M/n_top): out (n_top, R, ph) = (dd, k_low, q) of z's type. The
+    kernel's work split is :class:`UnpackTiles`."""
     n_top = _unpack_args(z, P, d, n_top)
     if z.device.type == "cpu":
         return unpack_power_inva_plain(z, P, d, n_top)
@@ -421,25 +448,24 @@ def unpack_power_inva(z: torch.Tensor, P: int, d: int,
     if n_top > MAX_LEVEL:
         raise ValueError(f"unpack_power_inva: the kernel takes a top level "
                          f"of length <= {MAX_LEVEL}, got {n_top}")
-    tl = UnpackTiles(m, n_top, w, P, d)
+    tl = UnpackTiles(m, n_top, w, P, d, itemsize=z.element_size())
     if tl.smem > SMEM_LIMIT:
         raise ValueError(f"unpack_power_inva: d = {d} needs {tl.smem} bytes "
                          f"of shared memory a block, past {SMEM_LIMIT}")
     grid = _build.launch_grid(tl.tiles, tl.runs)
-    out = torch.empty((n_top, tl.r, tl.ph), dtype=torch.complex128,
-                      device=z.device)
-    roots = roots_tensor(m, z.device)
+    out = torch.empty((n_top, tl.r, tl.ph), dtype=z.dtype, device=z.device)
+    roots = roots_tensor(m, z.device, z.dtype)
     with torch.cuda.device(z.device):
-        err = _build.library().ta_unpack_power_inva(
+        err = _build.entry("ta_unpack_power_inva", z.dtype)(
             z.data_ptr(), out.data_ptr(), roots.data_ptr(), m, n_top, tl.r,
             w, P, d, tl.ph, tl.shift, tl.tq, tl.nj, tl.ktc, tl.cols,
             tl.fine_bits, *grid, _build.stream(z))
     _build.check(err, "unpack_power_inva")
-    unpack_power_inva.launches += 1
+    _build.count_launch(unpack_power_inva, z.dtype)
     return out
 
 
-unpack_power_inva.launches = 0
+unpack_power_inva.launches = unpack_power_inva.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------
@@ -449,8 +475,7 @@ unpack_power_inva.launches = 0
 def _epilogue_args(t: torch.Tensor, n_rows: int, P: int) -> int:
     """Check K5's operands; the outputs formed per column, n_out."""
     a, n, ph = t.shape
-    if t.dtype != torch.complex128:
-        raise TypeError(f"inverse_last_level takes complex128, got {t.dtype}")
+    _check_complex(t, "inverse_last_level")
     if P < 1 or ph != (P + 1) // 2:
         raise ValueError(f"inverse_last_level: {ph} columns do not hold "
                          f"P={P} particles in pairs")
@@ -469,19 +494,21 @@ def inverse_last_level_plain(t: torch.Tensor, n_rows: int, P: int,
     r = fft_level_plain(t, n, +1)[:n_out].reshape(n_out * a, ph)
     out = torch.cat([r[:n_rows].real, r[:n_rows].imag[:, : P - ph]], dim=1)
     if normalize:
-        # the reciprocal first, then the product, as the kernel forms it
+        # the reciprocal first, then the product, as the kernel forms it,
+        # in the result's type
         out = out * (1.0 / (n_rows - torch.arange(
-            n_rows, dtype=torch.float64, device=t.device)))[:, None]
+            n_rows, dtype=out.dtype, device=t.device)))[:, None]
     return out
 
 
 def inverse_last_level(t: torch.Tensor, n_rows: int, P: int,
                        normalize: bool = False) -> torch.Tensor:
     """The last inverse level (an unscaled inverse DFT of length n along
-    axis 1 of ``t`` (A, n, ph), no twiddle) written as the (N, P) float64
-    result: row lag = k·A + a < N holds particle q's value in column q
-    (the real part) and particle ph + q's in column ph + q (the imaginary
-    part), times 1/(N − lag) when ``normalize``."""
+    axis 1 of ``t`` (A, n, ph), no twiddle) written as the (N, P) real
+    result, float64 for complex128 and float32 for complex64: row
+    lag = k·A + a < N holds particle q's value in column q (the real
+    part) and particle ph + q's in column ph + q (the imaginary part),
+    times 1/(N − lag) when ``normalize``."""
     n_out = _epilogue_args(t, n_rows, P)
     if t.device.type == "cpu":
         return inverse_last_level_plain(t, n_rows, P, normalize)
@@ -490,33 +517,35 @@ def inverse_last_level(t: torch.Tensor, n_rows: int, P: int,
     if n > MAX_LEVEL:
         raise ValueError(f"inverse_last_level: the kernel takes levels of "
                          f"length <= {MAX_LEVEL}, got {n}")
-    tl = LevelTiles(a, n, ph, epilogue=True)
-    out = torch.empty((n_rows, P), dtype=torch.float64, device=t.device)
-    roots = roots_tensor(n, t.device)
+    tl = LevelTiles(a, n, ph, epilogue=True, itemsize=t.element_size())
+    out = torch.empty((n_rows, P), dtype=work_types(t.dtype)[0], device=t.device)
+    roots = roots_tensor(n, t.device, t.dtype)
     with torch.cuda.device(t.device):
-        err = _build.library().ta_inverse_last_level(
+        err = _build.entry("ta_inverse_last_level", t.dtype)(
             t.data_ptr(), out.data_ptr(), roots.data_ptr(), a, n, ph, n_out,
             n_rows, P, int(normalize), tl.tc, tl.ra, tl.pitch, *tl.grid,
             _build.stream(t))
     _build.check(err, "inverse_last_level")
-    inverse_last_level.launches += 1
+    _build.count_launch(inverse_last_level, t.dtype)
     return out
 
 
-inverse_last_level.launches = 0
+inverse_last_level.launches = inverse_last_level.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------
 # orchestration
 # ---------------------------------------------------------------------
 
-def pack_pairs(x: torch.Tensor, m: int) -> torch.Tensor:
-    """(N, S) real series (float32 or float64) → (M, ceil(S/2)) complex128
-    two-for-one packing, zero rows from N on. A float32 operand is
-    upcast here, on its own device."""
+def pack_pairs(x: torch.Tensor, m: int,
+               work_dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """(N, S) real series (float32 or float64) → (M, ceil(S/2)) two-for-
+    one packing, zero rows from N on: complex128 for the float64
+    ``work_dtype``, where float32 samples are upcast here, exactly, on
+    their own device; complex64 for the float32 work mode."""
     n, s = x.shape
     w = (s + 1) // 2
-    z = torch.zeros((m, w), dtype=torch.complex128, device=x.device)
+    z = torch.zeros((m, w), dtype=work_types(work_dtype)[1], device=x.device)
     zr = torch.view_as_real(z)
     zr[:n, :, 0] = x[:, :w]
     zr[:n, : s - w, 1] = x[:, w:]
@@ -524,19 +553,30 @@ def pack_pairs(x: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def autocorr_power_sum(x: torch.Tensor, m: int, P: int, d: int,
-                       normalize: bool = False) -> torch.Tensor:
+                       normalize: bool = False,
+                       work_dtype: torch.dtype = torch.float64
+                       ) -> torch.Tensor:
     """Raw component-summed autocorrelation of the flat (N, P·d) operand
     zero-padded to M: out[lag, p] = Σ_c Σ_i x[i, p·d+c]·x[i+lag, p·d+c],
-    (N, P) float64, for lags < N; divided by N − lag when
-    ``normalize``."""
+    (N, P) of ``work_dtype``, for lags < N; divided by N − lag when
+    ``normalize``. ``work_dtype`` float64 (the default) takes float64 or
+    float32 samples through complex128; float32, the float32 work mode,
+    takes a float32 operand through complex64."""
     n, s = x.shape
+    if work_dtype not in REAL_TYPES:
+        raise TypeError(f"work_dtype must be float64 or float32, got "
+                        f"{work_dtype}")
+    if work_dtype == torch.float32 and x.dtype != torch.float32:
+        raise TypeError(f"the float32 work mode takes a float32 operand, "
+                        f"got {x.dtype}")
     if s != P * d:
         raise ValueError(f"operand has {s} columns, expected P·d = {P * d}")
     if m < 2 * n or m & (m - 1):
         raise ValueError(f"M = {m} must be a power of two >= 2N = {2 * n}")
     plan = plan_levels(m)
     ph = (P + 1) // 2
-    t = unpack_power_inva(fft_forward(pack_pairs(x, m)), P, d, plan[-1])
+    t = unpack_power_inva(fft_forward(pack_pairs(x, m, work_dtype)), P, d,
+                          plan[-1])
     *levels, last = level_shapes(plan[:-1], ph, a0=plan[-1])
     for a, n_level, c, order, tw in levels:
         t = fft_level(t.reshape(a, n_level, c), order, +1, twiddle_cols=tw)

@@ -9,8 +9,8 @@ component-summed autocorrelation ``corr`` (N, P),
 with css the inclusive prefix sum of sq over frames, denom =
 (N - lag)·(d if reduce_mode == "mean" else 1), and out[0] = 0.
 
-K6a and K6b (``csrc/kneller.cu``), native float64, any N ≥ 1 and P ≥ 1
-(the row blocks fold over the grid, so N is not bounded by its y limit):
+K6a and K6b (``csrc/kneller.cu``), any N ≥ 1 and P ≥ 1 (the row blocks
+fold over the grid, so N is not bounded by its y limit):
 K6a :func:`kneller_totals` sums each block of ``KNELLER_ROWS`` frames,
 forwards and in reverse frame order, from one read of ``sq`` (its work
 split is :func:`totals_split` and :func:`totals_run`); K6b
@@ -20,6 +20,13 @@ applies the combine above (the TPU module's ``_finish``) in the same pass
 (its work split is :func:`windows_split`, :func:`windows_tile`,
 :func:`windows_lags` and :func:`scan_tiles`). On CPU tensors both run
 their plain PyTorch versions.
+
+``sq``, ``corr`` and the result are float64, or float32 in the float32
+work mode (``dtype=np.float32``; the kernels' ``_f32`` entries). The
+block totals, the scan and every running sum stay float64 in both: the
+window sums meet 2·corr in a difference that cancels at small lags, which
+the TPU kernel guards with compensated float32 pairs
+(``pallas_kneller.py:27``). Only the result is rounded to float32.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .._device import REAL_TYPES
 
 KNELLER_ROWS = 128       # frames per block of both kernels
 TOTALS_TILE = 32         # K6a: columns of a block, one a lane
@@ -133,13 +141,15 @@ def scan_tiles(sp: WindowsSplit, s: int, j: int) -> range:
 
 
 def _check_operand(t: torch.Tensor, name: str) -> None:
-    if t.dtype != torch.float64 or t.ndim != 2:
-        raise TypeError(f"{name} takes (N, P) float64, got {t.dtype} "
-                        f"of shape {tuple(t.shape)}")
+    if t.dtype not in REAL_TYPES or t.ndim != 2:
+        raise TypeError(f"{name} takes (N, P) float64 or float32, got "
+                        f"{t.dtype} of shape {tuple(t.shape)}")
 
 
 def kneller_totals_plain(sq: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`kneller_totals`."""
+    """Plain version of :func:`kneller_totals` (float64 totals of float64
+    or float32 ``sq``)."""
+    sq = sq.to(torch.float64)
     n, p = sq.shape
     nb = -(-n // KNELLER_ROWS)
     both = torch.stack([sq, sq.flip(0)])
@@ -150,7 +160,8 @@ def kneller_totals_plain(sq: torch.Tensor) -> torch.Tensor:
 
 
 def kneller_totals(sq: torch.Tensor) -> torch.Tensor:
-    """K6a: block totals of ``sq`` (N, P) float64 → (2, nb, P): [0, b]
+    """K6a: block totals of ``sq`` (N, P) float64 or float32 → (2, nb, P)
+    float64: [0, b]
     sums frames [b·R, (b+1)·R), [1, b] the same positions of the frames
     read in reverse order (R = ``KNELLER_ROWS``, nb = ceil(N/R)). The
     kernel reads ``sq`` once: each block is summed as its lo and hi
@@ -165,15 +176,15 @@ def kneller_totals(sq: torch.Tensor) -> torch.Tensor:
     grid = _build.launch_grid(-(-p // TOTALS_TILE), runs)
     tot = torch.empty((2, nb, p), dtype=torch.float64, device=sq.device)
     with torch.cuda.device(sq.device):
-        err = _build.library().ta_kneller_totals(
+        err = _build.entry("ta_kneller_totals", sq.dtype)(
             sq.data_ptr(), tot.data_ptr(), n, p, KNELLER_ROWS, nb, run, runs,
             *grid, _build.stream(sq))
     _build.check(err, "kneller_totals")
-    kneller_totals.launches += 1
+    _build.count_launch(kneller_totals, sq.dtype)
     return tot
 
 
-kneller_totals.launches = 0
+kneller_totals.launches = kneller_totals.launches_f32 = 0
 
 
 def kneller_windows_plain(sq: torch.Tensor, corr: torch.Tensor,
@@ -181,7 +192,10 @@ def kneller_windows_plain(sq: torch.Tensor, corr: torch.Tensor,
     """Plain version of :func:`kneller_windows`; it needs no block
     totals. Like the kernel it takes total - css[lag-1] as the suffix
     sum Σ_{i >= lag} sq[i], not as a difference of prefixes, which at
-    the deepest lags would cancel down to eps·total."""
+    the deepest lags would cancel down to eps·total, and, like the
+    kernel, it sums float32 operands in float64 and rounds the result."""
+    out_dtype = sq.dtype
+    sq, corr = sq.to(torch.float64), corr.to(torch.float64)
     n = sq.shape[0]
     css = torch.cumsum(sq, dim=0)
     suffix = torch.cumsum(sq.flip(0), dim=0).flip(0)
@@ -189,20 +203,23 @@ def kneller_windows_plain(sq: torch.Tensor, corr: torch.Tensor,
     denom = (n - torch.arange(n, dtype=torch.float64, device=sq.device))
     out = (w - 2.0 * corr) / (denom * dfac)[:, None]
     out[0] = 0.0
-    return out
+    return out.to(out_dtype)
 
 
 def kneller_windows(sq: torch.Tensor, corr: torch.Tensor, tot: torch.Tensor,
                     dfac: float) -> torch.Tensor:
     """K6b: the window sums from :func:`kneller_totals`' ``tot`` and
     in-tile suffix sums of ``sq``, combined with ``corr``:
-    out[lag] = (w[lag] - 2·corr[lag]) / ((N - lag)·dfac), out[0] = 0.
-    Three launches (the scan's two, then the windows), each counted."""
+    out[lag] = (w[lag] - 2·corr[lag]) / ((N - lag)·dfac), out[0] = 0,
+    in the type of ``sq`` and ``corr`` (float64, or float32), the sums in
+    float64. Three launches (the scan's two, then the windows), each
+    counted."""
     _check_operand(sq, "kneller_windows")
     _check_operand(corr, "kneller_windows")
     n, p = sq.shape
     nb = -(-n // KNELLER_ROWS)
-    if (corr.shape != sq.shape or tot.dtype != torch.float64
+    if (corr.shape != sq.shape or corr.dtype != sq.dtype
+            or tot.dtype != torch.float64
             or tot.shape != (2, nb, p)):
         raise ValueError("kneller_windows: sq, corr and tot disagree")
     if sq.device.type == "cpu":
@@ -215,19 +232,19 @@ def kneller_windows(sq: torch.Tensor, corr: torch.Tensor, tot: torch.Tensor,
     seg = torch.empty((2, sp.segs, p), dtype=torch.float64, device=sq.device)
     off = torch.empty((2, sp.tiles, p), dtype=torch.float64,
                       device=sq.device)
-    out = torch.empty((n, p), dtype=torch.float64, device=sq.device)
+    out = torch.empty((n, p), dtype=sq.dtype, device=sq.device)
     with torch.cuda.device(sq.device):
-        err = _build.library().ta_kneller_windows(
+        err = _build.entry("ta_kneller_windows", sq.dtype)(
             sq.data_ptr(), corr.data_ptr(), tot.data_ptr(), seg.data_ptr(),
             off.data_ptr(), out.data_ptr(), n, p, KNELLER_ROWS, nb,
             float(dfac), sp.log2c, sp.g, sp.tiles, sp.segt, sp.segs,
             sp.chunk, grid_x, grid_segs, grid_tiles, _build.stream(sq))
     _build.check(err, "kneller_windows")
-    kneller_windows.launches += 3
+    _build.count_launch(kneller_windows, sq.dtype, 3)
     return out
 
 
-kneller_windows.launches = 0
+kneller_windows.launches = kneller_windows.launches_f32 = 0
 
 
 def einstein_assembly(sq: torch.Tensor, corr: torch.Tensor,

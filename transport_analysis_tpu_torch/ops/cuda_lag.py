@@ -10,11 +10,18 @@ series of an (N, P, d) operand and each lag < n_lags,
 with dfac = d for ``reduce_mode='mean'`` and 1 for ``'sum'``: the
 reference's windowed summation (``_acf_windowed_impl``,
 ``_einstein_windowed_impl``), O(N·n_lags) per series. One CUDA kernel
-(K8, ``csrc/lag.cu``) serves both modes and both operand types: a
-float32 operand is read at 4 bytes and upcast exactly, a float64 one is
-read as it is, and the sums are float64 either way. It takes the place of
-the TPU's float32 kernel (K8a) and of its double-float pair kernel (K8b),
-whose N ≤ 2^17 cap does not apply here. A launch takes d ≤ 3 components;
+(K8, ``csrc/lag.cu``) serves both modes, both operand types and both
+work modes. The result's type follows the operand's, as the JAX
+package's does (:func:`windowed_lag`): a float64 operand gives float64
+sums (the TPU's double-float pair kernel K8b, whose N ≤ 2^17 cap does
+not apply here), a float32 one float32 results at about 1e-6 grade (the
+float32 work mode, the TPU's float32 kernel K8a): the acf mode keeps its
+float64 Gram and rounds the result, the einstein mode takes float32
+differences and squares and adds each frame tile's float32 partials to
+a float64 running sum. The float64 work mode hands the kernel its
+float32 samples with ``out_dtype=torch.float64`` (:func:`lag_sums`): they
+are read at 4 bytes and upcast exactly, and the sums are the float64
+sums of the float64 values. A launch takes d ≤ 3 components;
 past that :func:`lag_sums` launches it once per group of
 :func:`component_groups` and adds the groups' sums, so d is unbounded
 as in the reference. The acf mode is a Gram product of
@@ -68,11 +75,14 @@ MAX_D = 3                # components one launch takes (lag_sums groups more)
 PLAIN_BLOCK_VALUES = 1 << 22
 
 
-def _check(x: torch.Tensor, n_lags: int, mode: str,
-           reduce_mode: str) -> None:
+def _check(x: torch.Tensor, n_lags: int, mode: str, reduce_mode: str,
+           out_dtype: torch.dtype) -> None:
     if x.dtype not in (torch.float32, torch.float64) or x.ndim != 3:
         raise TypeError(f"lag_sums takes an (N, P, d) float32 or float64 "
                         f"tensor, got {x.dtype} of shape {tuple(x.shape)}")
+    if out_dtype not in (x.dtype, torch.float64):
+        raise TypeError(f"lag_sums: a {x.dtype} operand gives {x.dtype} "
+                        f"or float64 sums, not {out_dtype}")
     n, p, d = x.shape
     if n < 1 or p < 1 or d < 1:
         raise ValueError(f"lag_sums: empty operand {tuple(x.shape)}")
@@ -212,15 +222,23 @@ def tail_frames(n: int, l0: int, warp: int, tile_f: int) -> range:
 
 
 def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
-                   reduce_mode: str = "sum") -> torch.Tensor:
+                   reduce_mode: str = "sum",
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain version of :func:`lag_sums`: for each block of lags, the
     products x[i]·x[i+lag] or squared differences (x[i] − x[i+lag])² of
     the float64 values, reduced over the components and then summed over
-    the frames i < N − lag, as the JAX package's windowed kernels do."""
-    _check(x, n_lags, mode, reduce_mode)
+    the frames i < N − lag, as the JAX package's windowed kernels do.
+    For float32 results (the float32 work mode) the acf sums are the
+    float64 ones rounded, and the einstein terms, differences, squares
+    and their component sum, are float32, summed over the frames in
+    float64, as the kernel does."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check(x, n_lags, mode, reduce_mode, out_dtype)
     n, p, d = x.shape
     s = p * d
-    xf = x.to(torch.float64).reshape(n, s)
+    # the terms' type: float32 only for the float32 einstein sums
+    f32_terms = mode == "einstein" and out_dtype == torch.float32
+    xf = x.to(torch.float32 if f32_terms else torch.float64).reshape(n, s)
     dfac = d if reduce_mode == "mean" else 1
     out = torch.zeros((n_lags, p), dtype=torch.float64, device=x.device)
     block = max(1, min(n_lags, PLAIN_BLOCK_VALUES // (n * s)))
@@ -240,9 +258,10 @@ def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
         terms = terms.reshape(l1 - l0, m, p, d).sum(-1)
         frames = torch.arange(m, device=x.device)
         valid = frames[None, :] < (n - lags)[:, None]
-        sums = torch.where(valid[:, :, None], terms, 0.0).sum(1)
+        sums = torch.where(valid[:, :, None], terms, 0.0).sum(
+            1, dtype=torch.float64)
         out[l0:l1] = sums / ((n - lags).to(torch.float64) * dfac)[:, None]
-    return out
+    return out.to(out_dtype)
 
 
 def component_groups(d: int) -> list[tuple[int, int]]:
@@ -256,38 +275,49 @@ def component_groups(d: int) -> list[tuple[int, int]]:
 
 
 def sum_component_groups(fn, x: torch.Tensor, n_lags: int, mode: str,
-                         reduce_mode: str) -> torch.Tensor:
+                         reduce_mode: str,
+                         out_dtype: torch.dtype | None = None
+                         ) -> torch.Tensor:
     """The windowed lag sums of an operand of any d from ``fn`` (K8 or
     its plain version) over :func:`component_groups`: each group's
-    ``'sum'`` result, added in order, divided once by dfac. Both modes
-    sum over the components, so the grouping changes only the order of
-    the additions; einstein's lag 0 stays exactly 0."""
+    ``'sum'`` result, in ``out_dtype`` (default the operand's type),
+    added in order, divided once by dfac. Both modes sum over the
+    components, so the grouping changes only the order of the additions;
+    einstein's lag 0 stays exactly 0."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     total = None
     for c0, c1 in component_groups(x.shape[2]):
-        part = fn(x[:, :, c0:c1].contiguous(), n_lags, mode, "sum")
+        part = fn(x[:, :, c0:c1].contiguous(), n_lags, mode, "sum",
+                  out_dtype)
         total = part if total is None else total.add_(part)
     return total / x.shape[2] if reduce_mode == "mean" else total
 
 
 def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
-             reduce_mode: str = "sum") -> torch.Tensor:
+             reduce_mode: str = "sum",
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """K8: the windowed lag sums of the module docstring for lags
     < ``n_lags`` of an (N, P, d) float32 or float64 tensor → (n_lags, P)
-    float64 on its device. A CUDA tensor launches the kernel or raises:
-    once for d ≤ ``MAX_D``, past it once per :func:`component_groups`
-    range (:func:`sum_component_groups`). A CPU tensor runs
-    :func:`lag_sums_plain`."""
-    _check(x, n_lags, mode, reduce_mode)
+    on its device, of ``out_dtype``: by default the operand's type (a
+    float32 operand runs the float32 work mode's instantiation);
+    float64 for a float32 operand gives the float64 sums of its exact
+    upcast (the float64 work mode's float32 samples). A CUDA tensor
+    launches the kernel or raises: once for d ≤ ``MAX_D``, past it once
+    per :func:`component_groups` range (:func:`sum_component_groups`).
+    A CPU tensor runs :func:`lag_sums_plain`."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check(x, n_lags, mode, reduce_mode, out_dtype)
     if x.device.type == "cpu":
-        return lag_sums_plain(x, n_lags, mode, reduce_mode)
+        return lag_sums_plain(x, n_lags, mode, reduce_mode, out_dtype)
     _build.kernel_operand(x, "lag_sums")
     if x.shape[2] > MAX_D:
-        return sum_component_groups(_launch, x, n_lags, mode, reduce_mode)
-    return _launch(x, n_lags, mode, reduce_mode)
+        return sum_component_groups(_launch, x, n_lags, mode, reduce_mode,
+                                    out_dtype)
+    return _launch(x, n_lags, mode, reduce_mode, out_dtype)
 
 
-def _launch(x: torch.Tensor, n_lags: int, mode: str,
-            reduce_mode: str) -> torch.Tensor:
+def _launch(x: torch.Tensor, n_lags: int, mode: str, reduce_mode: str,
+            out_dtype: torch.dtype) -> torch.Tensor:
     """One K8 launch on a contiguous CUDA operand of d ≤ ``MAX_D``."""
     n, p, d = x.shape
     if mode == "einstein":
@@ -297,19 +327,19 @@ def _launch(x: torch.Tensor, n_lags: int, mode: str,
         spans, lags = acf_spans(n_lags)
         cols = ACF_THREADS
         grid = _build.launch_grid(p, spans)
-    out = torch.empty((n_lags, p), dtype=torch.float64, device=x.device)
+    out = torch.empty((n_lags, p), dtype=out_dtype, device=x.device)
     dfac = d if reduce_mode == "mean" else 1
     with torch.cuda.device(x.device):
-        err = _build.library().ta_lag_sums(
+        err = _build.entry("ta_lag_sums", out_dtype)(
             x.data_ptr(), out.data_ptr(), n, p, d, n_lags,
             int(x.dtype == torch.float64), int(mode == "einstein"),
             float(dfac), lags, cols, *grid, _build.stream(x))
     _build.check(err, "lag_sums")
-    lag_sums.launches += 1
+    _build.count_launch(lag_sums, out_dtype)
     return out
 
 
-lag_sums.launches = 0
+lag_sums.launches = lag_sums.launches_f32 = 0
 
 
 def windowed_lag(x, max_lag=None, mode: str = "acf",
@@ -317,11 +347,11 @@ def windowed_lag(x, max_lag=None, mode: str = "acf",
     """Windowed lag correlation, the counterpart of the JAX package's
     ``windowed_lag_pallas`` (``pallas_lag.py:317``) under a name that
     does not say TPU: ``x`` (N, P, d) or (N, P) float32 or float64
-    tensor, lags [0, max_lag) (default all N) → (n_lags, P) float64 per-
-    lag means, sums / (N − lag) (and / d for ``reduce_mode='mean'``),
-    row 0 = 0 in ``'einstein'`` mode. The JAX function returns float32
-    for a float32 operand; here a float32 operand gives the float64 sums
-    of its exact upcast."""
+    tensor, lags [0, max_lag) (default all N) → (n_lags, P) per-lag
+    means of the operand's type, as the JAX function returns them
+    (float32 in, float32 out: the float32 work mode), sums / (N − lag)
+    (and / d for ``reduce_mode='mean'``), row 0 = 0 in ``'einstein'``
+    mode."""
     if x.ndim == 2:
         x = x[:, :, None]
     n = x.shape[0]

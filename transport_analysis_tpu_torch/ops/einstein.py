@@ -19,13 +19,20 @@ accumulator is the only full-size float64 copy (the role of the JAX
 package's f32-pair deep path). :func:`einstein_difference_windowed` sums
 the squared differences directly, lag by lag (the reference's ``fft=False``
 path), through the lag-sum kernel of ``cuda_lag``.
+
+A float32 operand runs the float32 work mode (``dtype=np.float32``), as
+the JAX ops do: centering and |c|² in float32 (JAX ``einstein.py:218-
+238``), the complex64 autocorrelation, the float32 Kneller assembly (its
+window sums kept in float64) or the float32 windowed sums, and float32
+results. :func:`einstein_difference_fft_from_f32` stays the
+float64-grade entry for float32 samples.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._device import as_tensor
+from .._device import REAL_TYPES, as_tensor
 from .acf import raw_autocorr_sumlast_flat
 from .cuda_kneller import einstein_assembly
 from .cuda_lag import windowed_lag
@@ -33,8 +40,9 @@ from .cuda_lag import windowed_lag
 
 def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
                             device=None) -> torch.Tensor:
-    """FFT-accelerated mean-squared lag difference, (N, P, d) float64 →
-    (N, P) float64 on the operand's device.
+    """FFT-accelerated mean-squared lag difference, (N, P, d) float64 or
+    float32 → (N, P) of the operand's type on its device (float32: the
+    float32 work mode).
 
     Advanced: ``corr`` supplies a precomputed raw component-summed
     autocorrelation of ``a``; ``a`` must then already be centered per
@@ -42,9 +50,9 @@ def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
     the prefix sums to agree. Callers use it to batch several analyses'
     correlation passes into one ``raw_autocorr_sumlast_flat`` call."""
     a = as_tensor(a, device)
-    if a.dtype != torch.float64:
-        raise TypeError(f"einstein_difference_fft expects float64, got "
-                        f"{a.dtype}")
+    if a.dtype not in REAL_TYPES:
+        raise TypeError(f"einstein_difference_fft expects float64 or "
+                        f"float32, got {a.dtype}")
     if a.ndim == 2:
         a = a[:, :, None]
     if corr is None:
@@ -58,19 +66,20 @@ def einstein_difference_fft(a, reduce_mode: str = "mean", corr=None,
 def einstein_difference_fft_(a: torch.Tensor,
                              reduce_mode: str = "mean") -> torch.Tensor:
     """:func:`einstein_difference_fft` of a contiguous (N, P, d) float64
-    tensor that the caller hands over: ``a`` is centered in place (its
-    values are lost), and no other full-size copy of it is made."""
-    if a.dtype != torch.float64 or a.ndim != 3 or not a.is_contiguous():
+    or float32 tensor that the caller hands over: ``a`` is centered in
+    place (its values are lost), and no other full-size copy of it is
+    made. The work type is ``a``'s."""
+    if a.dtype not in REAL_TYPES or a.ndim != 3 or not a.is_contiguous():
         raise TypeError(f"einstein_difference_fft_ takes a contiguous "
-                        f"(N, P, d) float64 tensor, got {a.dtype} of shape "
-                        f"{tuple(a.shape)}")
+                        f"(N, P, d) float64 or float32 tensor, got "
+                        f"{a.dtype} of shape {tuple(a.shape)}")
     n, P, d = a.shape
     # per-series centering in the flat (N, P·d) layout the
     # autocorrelation takes, and the component-summed squares (N, P)
     flat = a.view(n, P * d)
     flat.sub_(flat.mean(dim=0, keepdim=True))
     sq = (flat * flat).view(n, P, d).sum(-1)
-    corr = raw_autocorr_sumlast_flat(flat, P, d)
+    corr = raw_autocorr_sumlast_flat(flat, P, d, a.dtype)
     return einstein_assembly(sq, corr, reduce_mode, d)
 
 
@@ -91,8 +100,9 @@ def einstein_difference_fft_from_f32(a32, reduce_mode: str = "mean",
 
 
 def msd_fft(r, device=None) -> torch.Tensor:
-    """Mean squared displacement per particle, (N, P, d) float64 →
-    (N, P) float64 (JAX ``einstein.py:483``): the Einstein difference with
+    """Mean squared displacement per particle, (N, P, d) float64 or
+    float32 → (N, P) of its type (JAX ``einstein.py:483``): the Einstein
+    difference with
     the components summed, ``tidynamics.msd`` / MDAnalysis
     ``EinsteinMSD`` semantics."""
     return einstein_difference_fft(r, reduce_mode="sum", device=device)
@@ -101,12 +111,12 @@ def msd_fft(r, device=None) -> torch.Tensor:
 def einstein_difference_windowed(a, reduce_mode: str = "mean",
                                  max_lag=None, device=None) -> torch.Tensor:
     """Exact windowed mean-squared lag difference (JAX ``einstein.py:36``),
-    (N, P, d) or (N, P) float64, or float32 samples → (n_lags, P) float64
-    on the operand's device, lags [0, max_lag) (default all N), row 0 = 0.
+    (N, P, d) or (N, P) float64 or float32 → (n_lags, P) of the operand's
+    type on its device, as the JAX op returns it (float32: the float32
+    work mode), lags [0, max_lag) (default all N), row 0 = 0.
 
     ``reduce_mode='mean'`` averages over the components (Helfand),
     ``'sum'`` sums them (MSD). The raw series is differenced as it is,
-    with no centering, as the reference does; float32 samples are read at
-    4 bytes and upcast exactly inside the kernel."""
+    with no centering, as the reference does."""
     return windowed_lag(as_tensor(a, device), max_lag, mode="einstein",
                         reduce_mode=reduce_mode)

@@ -7,6 +7,8 @@ Mirrors the error contract the reference consumes from MDAnalysis:
 
 import numpy as np
 
+from .._device import WORK_TYPES
+
 
 class TransportAnalysisError(Exception):
     """Base class for all transport_analysis_tpu_torch errors."""
@@ -25,11 +27,8 @@ class SelectionError(TransportAnalysisError, ValueError):
 
 
 # ROADMAP.md queue 1 items the port has not reached yet; every entry
-# point of those parts raises ``not_ported`` naming its item (the float32
-# work mode: ``check_work_dtype``'s ValueError).
+# point of those parts raises ``not_ported`` naming its item.
 ROADMAP_ITEMS = {
-    "float32": "ROADMAP.md queue 1 item 4 (the float32 work mode, "
-               "dtype=np.float32)",
     "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
 }
 
@@ -48,12 +47,12 @@ def not_ported_module(package: str, item: str):
 
 
 def check_work_dtype(dtype) -> None:
-    """The port computes in float64; the JAX package's float32 work mode
-    raises ``ValueError`` naming the ROADMAP.md item that will bring it."""
-    if np.dtype(dtype) != np.float64:
+    """The analyses' work dtype, as the JAX package takes it: float64
+    (the default, reference-grade numerics) or float32 (the float32 work
+    mode, about 1e-6 grade); anything else raises ``ValueError``."""
+    if np.dtype(dtype) not in WORK_TYPES:
         raise ValueError(
-            f"transport_analysis_tpu_torch computes in float64 only, got "
-            f"dtype={np.dtype(dtype)}; see {ROADMAP_ITEMS['float32']}")
+            f"dtype must be float64 or float32, got dtype={np.dtype(dtype)}")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

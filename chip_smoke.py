@@ -21,8 +21,9 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    kernels on narrow, very long series, 4 particles of 2 components at
    M = 2^24 and at M = 2^25 (past the plan's old cap), with the share of
    its bound and the work split of each K1 level, of K2 and of K5 at
-   every shape (K1's and K5's ``LevelTiles``: column tiles, or at narrow
-   widths ra rows of A a block at a slab pitch); K8 at each windowed
+   every shape (K1's and K5's ``LevelTiles``: at wide levels K1's column
+   launch, a column a thread, at n <= 16, else column tiles of a slab, at
+   narrow widths ra rows of A a block at a slab pitch); K8 at each windowed
    run's shapes (the kernel over every atom, its plain version over
    every 21st atom's series) and at d = 5 (8,192 frames x 64 atoms, 512
    lags, both modes and operand types; one launch per group of at most
@@ -52,10 +53,12 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    atom), and the FFT kernels and K6 at the deep shape over the widths of
    the chunked float32 MSD's atom chunks (1,904 and 1,776 atoms), each
    against its plain version in the same types within 1e-5
-   (a few float32 roundings of each output's sum); bounds of float32
+   (a few float32 roundings of each output's sum), each complex64 K1
+   level with its split; bounds of float32
    bytes, and flop over 67 TFLOP/s (FP32 outside the tensor cores, and
    the FP64 tensor cores for K8's acf Gram; K6's float64 sums over FP64's
-   34); library calls ``torch.fft`` in complex64 per K1 level, rfft,
+   34), beside the einstein bound the FP32 pipe's issue-slot ceiling, two
+   instructions a pair-component at 33.5e12/s; library calls ``torch.fft`` in complex64 per K1 level, rfft,
    |.|², component sum and irfft of the float32 operand beside K1 + K2 +
    K5, and a grouped float32 ``F.conv1d`` (TF32 off) for K8's acf launch.
 4. model   — the ethylene-carbonate system (368 molecules, 3,680 atoms;
@@ -219,6 +222,7 @@ PEAK_FP64_MMA = 67e12    # flop/s, FP64 matrix products on the tensor cores
 PEAK_FP32 = 67e12        # flop/s, FP32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # bytes/s, HBM3
 ISSUE_FP64 = 17e12       # FP64 instructions/s outside the tensor cores
+ISSUE_FP32 = 33.5e12     # FP32 lane-instructions/s (FADD and FFMA alike)
 
 # ethylene carbonate (transport_analysis_tpu/data/generate.py:21-38)
 EC_ATOMS = [
@@ -435,6 +439,24 @@ def finish_results(results) -> None:
                   f"{r['bound_ms']:.3f} ms ({r['bound_by']}), library {lib}")
 
 
+def level_split(label, times, k_ms, tl):
+    """The share of its bound and K1's or K5's split of one launch
+    (``cuda_fft.LevelTiles``)."""
+    b_ms = bound(*times)[0]
+    if tl.columns:
+        split = (f"wide, a column a thread: {tl.tiles} blocks of {tl.tc} "
+                 f"columns x {tl.groups} rows")
+    elif tl.wide:
+        split = (f"wide, {tl.tiles} slab tiles of {tl.tc} columns x "
+                 f"{tl.groups} rows")
+    else:
+        split = (f"narrow, ra = {tl.ra} rows of {tl.tc} columns a block, "
+                 f"pitch {tl.pitch}, {tl.groups} groups")
+    phase("kernels", f"{label}: {100 * b_ms / k_ms:.1f} % of its "
+          f"{b_ms:.3f} ms bound; split: {split}, grid {tl.grid}, "
+          f"{tl.smem} bytes of shared memory")
+
+
 def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
     """Each kernel against its plain version at every model phase's
     shapes, at the narrow shapes and, for K8, at d = 5. The JSON numbers
@@ -459,17 +481,6 @@ def kernels_phase(torch, cuda_fft, cuda_kneller, cuda_lag):
         t_bytes, t_dft = work(32 * a * nl * c + 16 * order,
                               8 * nl * a * nl * c, PEAK_FP64_MMA)
         return t_bytes, t_dft + (6 * a * nl * c if tw else 0) / PEAK_FP64
-
-    def level_split(label, times, k_ms, tl):
-        """The share of its bound and K1's or K5's split of one launch."""
-        b_ms = bound(*times)[0]
-        split = (f"wide, {tl.tiles} column tiles of {tl.tc} x {tl.groups} "
-                 f"rows" if tl.wide else
-                 f"narrow, ra = {tl.ra} rows of {tl.tc} columns a block, "
-                 f"pitch {tl.pitch}, {tl.groups} groups")
-        phase("kernels", f"{label}: {100 * b_ms / k_ms:.1f} % of its "
-              f"{b_ms:.3f} ms bound; split: {split}, grid {tl.grid}, "
-              f"{tl.smem} bytes of shared memory")
 
     lv, lvp = cuda_fft.fft_level, cuda_fft.fft_level_plain
     k6b_ms = {}
@@ -752,11 +763,15 @@ def kernels_f32_phase(torch, cuda_fft, cuda_kneller, cuda_lag,
         for i, (a, nl, c, order, tw) in enumerate(
                 cuda_fft.level_shapes(plan, w)):
             x = crandn64(a, nl, c)
-            compare("fft_level", lambda: lv(x, order, -1, twiddle_cols=tw),
-                    lambda: lvp(x, order, -1, twiddle_cols=tw),
-                    f"K1 forward level {i} ({a}, {nl}, {c}) complex64",
-                    level_work(a, nl, c, order, tw),
-                    library=lambda: torch.fft.fft(x, dim=1))
+            label = f"K1 forward level {i} ({a}, {nl}, {c}) complex64"
+            times = level_work(a, nl, c, order, tw)
+            k_ms = compare("fft_level",
+                           lambda: lv(x, order, -1, twiddle_cols=tw),
+                           lambda: lvp(x, order, -1, twiddle_cols=tw),
+                           label, times,
+                           library=lambda: torch.fft.fft(x, dim=1))
+            level_split(f"{label32} {label}", times, k_ms,
+                        cuda_fft.LevelTiles(a, nl, c, itemsize=8))
             del x
         z = crandn64(m, w)
         compare("unpack_power_inva",
@@ -770,12 +785,16 @@ def kernels_f32_phase(torch, cuda_fft, cuda_kneller, cuda_lag,
         *levels, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
         for i, (a, nl, c, order, tw) in enumerate(levels):
             x = crandn64(a, nl, c)
-            compare("fft_level", lambda: lv(x, order, +1, twiddle_cols=tw),
-                    lambda: lvp(x, order, +1, twiddle_cols=tw),
-                    f"K1 inverse level {i} ({a}, {nl}, {c}) complex64",
-                    level_work(a, nl, c, order, tw),
-                    library=lambda: torch.fft.ifft(x, dim=1,
-                                                   norm="forward"))
+            label = f"K1 inverse level {i} ({a}, {nl}, {c}) complex64"
+            times = level_work(a, nl, c, order, tw)
+            k_ms = compare("fft_level",
+                           lambda: lv(x, order, +1, twiddle_cols=tw),
+                           lambda: lvp(x, order, +1, twiddle_cols=tw),
+                           label, times,
+                           library=lambda: torch.fft.ifft(x, dim=1,
+                                                          norm="forward"))
+            level_split(f"{label32} {label}", times, k_ms,
+                        cuda_fft.LevelTiles(a, nl, c, itemsize=8))
             del x
         a, nl, c, _, _ = last
         n_out = min(nl, -(-n // a))
@@ -878,8 +897,13 @@ def kernels_f32_phase(torch, cuda_fft, cuda_kneller, cuda_lag,
                 times, library=library,
                 pick=lambda out: out[:, ::PLAIN_STRIDE], tol=F32_KERNEL_TOL)
             b_ms = bound(*times)[0]
+            ceiling = ("" if mode == "acf" else
+                       f"; FP32 issue-slot ceiling "
+                       f"{1e3 * 2 * pairs / ISSUE_FP32:.3f} ms (2 "
+                       f"instructions a pair-component at 33.5e12/s)")
             phase("kernels", f"{label32} K8 lag_sums {what}: "
-                  f"{100 * b_ms / k_ms:.1f} % of its {b_ms:.3f} ms bound")
+                  f"{100 * b_ms / k_ms:.1f} % of its {b_ms:.3f} ms "
+                  f"bound{ceiling}")
             r = results[label32]["lag_sums_f32"]
             r["atoms"], r["plain_atoms"] = p, sub.shape[1]
             del x, sub, library
@@ -1012,13 +1036,14 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("Memcpy DtoH", "copy device->host"),
     ("Memcpy", "copy on device"),
     ("Memset", "memset"),
-    ("fft_level", "K1 fft_level"),      # fft_level_kernel, _rows_kernel
+    ("fft_level", "K1 fft_level"),  # fft_level_columns_, _rows_, _kernel
     ("unpack_power_inva_kernel", "K2 unpack_power_inva"),
     ("inverse_last_level", "K5 inverse_last_level"),
     ("kneller_totals_kernel", "K6a kneller_totals"),
     ("kneller_windows_kernel", "K6b kneller_windows"),
     ("kneller_scan", "K6b kneller_windows scan"),
     ("einstein_tile_kernel", "K8 lag_sums einstein"),
+    ("einstein_rows_kernel", "K8 lag_sums einstein"),   # float32 sums
     ("acf_gram_kernel", "K8 lag_sums acf"),
 ]
 

@@ -9,12 +9,17 @@ loop for tuning these kernels without the whole of chip_smoke.py.
                                     [--reps 5] [--package DIR]
 
 ``--only fft`` times each K1 level beside its bound and its ``torch.fft``
-call, K2, K5, K1 + K2 + K5 against the library's autocorrelation, and
-K6b, at the EC model, deep and depth shapes and the narrow top and past
-ones.
-``--only k1`` times K1's narrow levels and K5 (those of ``LevelTiles``
-whose block takes whole rows of A) under each ``LEVEL_SLAB`` of
+call, in complex128 and in complex64 (the float32 work mode), K2, K5,
+K1 + K2 + K5 against the library's autocorrelation, and K6b, at the EC
+model, deep and depth shapes and the narrow top and past ones.
+``--only k1`` times K1's wide levels (``LevelTiles`` column launches) in
+complex128 and complex64 at those shapes, then its narrow levels and K5
+(those whose block takes whole rows of A) under each ``LEVEL_SLAB`` of
 ``LEVEL_SLABS``, the default first.
+``--only k8`` times K8 at the EC model and deep shapes: the einstein
+launches with float64 sums (float64 and float32 operands) and with
+float32 sums (the float32 work mode, ``out_dtype=torch.float32``), and
+the acf launches.
 
 ``--only k6b`` times K6b (kneller_windows, its scan's launches included)
 at the EC model, deep and depth shapes and the narrow top and past ones,
@@ -28,12 +33,13 @@ versions are compared in one call on one card: parent, change, change,
 parent.
 
 Prints one line per case: kernel ms (CUDA events, warm, median), the
-bound (bytes over 3.35 TB/s, flop over the FP64 peak of their kind), the
-FP64 issue-slot ceiling of the einstein sums (two instructions a pair-
-component at 17e12/s) or the FMA-pipe floor of the acf sums (one
-multiply-add a pair-component at 17e12/s, what the sums would need off
-the tensor cores), the library call where there is one, and the
-kernel's max relative error against its plain version.
+bound (bytes over 3.35 TB/s, flop over the peak of their kind: FP64's
+34 TFLOP/s, FP64 matrix products' 67, FP32's 67), the issue-slot
+ceiling of the einstein sums (two instructions a pair-component at
+17e12/s in FP64, 33.5e12/s in FP32) or the FMA-pipe floor of the acf
+sums (one multiply-add a pair-component at 17e12/s, what the sums would
+need off the tensor cores), the library call where there is one, and
+the kernel's max relative error against its plain version.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PEAK_FP64 = 34e12        # flop/s outside the tensor cores (H100 SXM)
 PEAK_FP64_MMA = 67e12    # flop/s on the tensor cores
 ISSUE_FP64 = 17e12       # FP64 instructions/s, DADD and DFMA alike
+PEAK_FP32 = 67e12        # flop/s, FP32 outside the tensor cores
+ISSUE_FP32 = 33.5e12     # FP32 lane-instructions/s, FADD and FFMA alike
 PEAK_BYTES = 3.35e12     # bytes/s, HBM3
 EC_ATOMS = 3680
 
@@ -81,7 +89,15 @@ def time_ms(fn, reps):
 
 
 def rel(got, ref):
-    return float((got - ref).abs().max() / ref.abs().max())
+    """max|got − ref| / max|ref|, over chunks of rows, so that no full-size
+    difference of two spectra of many GB is formed."""
+    g, r = got.reshape(got.shape[0], -1), ref.reshape(ref.shape[0], -1)
+    step = max(1, (1 << 26) // max(1, g.shape[1]))
+    diff = scale = 0.0
+    for i in range(0, g.shape[0], step):
+        diff = max(diff, float((g[i:i + step] - r[i:i + step]).abs().max()))
+        scale = max(scale, float(r[i:i + step].abs().max()))
+    return diff / scale
 
 
 def k6a(cuda_kneller, g, reps):
@@ -104,48 +120,63 @@ def k6a(cuda_kneller, g, reps):
 
 
 def k8(cuda_lag, g, reps, acf_only=False):
-    cases = [  # (label, N, n_lags, dtype, mode, reduce)
-        ("model MSD", 8192, 8192, torch.float32, "einstein", "sum"),
-        ("model Helfand", 8192, 8192, torch.float64, "einstein", "mean"),
-        ("deep Helfand", 65536, 2048, torch.float64, "einstein", "mean"),
-        ("model VACF", 8192, 8192, torch.float32, "acf", "sum"),
-        ("deep VACF", 65536, 2048, torch.float32, "acf", "sum"),
+    """K8 at the EC shapes: each case's kernel ms, bound, issue ceiling or
+    FMA floor, and error against its plain version on every 21st atom.
+    ``out`` float64 is the float64 work mode's sums (of float32 samples
+    too), float32 the float32 work mode's einstein launch."""
+    f64, f32 = torch.float64, torch.float32
+    cases = [  # (label, N, n_lags, operand, mode, reduce, sums)
+        ("model MSD", 8192, 8192, f32, "einstein", "sum", f64),
+        ("model Helfand", 8192, 8192, f64, "einstein", "mean", f64),
+        ("deep Helfand", 65536, 2048, f64, "einstein", "mean", f64),
+        ("model MSD", 8192, 8192, f32, "einstein", "sum", f32),
+        ("model Helfand", 8192, 8192, f32, "einstein", "mean", f32),
+        ("deep Helfand", 65536, 2048, f32, "einstein", "mean", f32),
+        ("model VACF", 8192, 8192, f32, "acf", "sum", f64),
+        ("deep VACF", 65536, 2048, f32, "acf", "sum", f64),
     ]
-    for label, n, n_lags, dtype, mode, reduce_mode in cases:
+    for label, n, n_lags, dtype, mode, reduce_mode, out in cases:
         if acf_only and mode != "acf":
             continue
         p, d = EC_ATOMS, 3
         x = torch.randn((n, p, d), dtype=dtype, device="cuda", generator=g)
         sub = x[:, ::21].contiguous()
-        # float64 sums (the float64 work mode), in a package that takes
-        # out_dtype as in one that gave them for every operand
-        f64 = ({"out_dtype": torch.float64} if "out_dtype" in
-               inspect.signature(cuda_lag.lag_sums).parameters else {})
-        got = cuda_lag.lag_sums(x, n_lags, mode, reduce_mode, **f64)[:, ::21]
+        kw = {"out_dtype": out}
+
+        def call():
+            return cuda_lag.lag_sums(x, n_lags, mode, reduce_mode, **kw)
+
+        got = call()[:, ::21]
         err = rel(got, cuda_lag.lag_sums_plain(sub, n_lags, mode,
-                                               reduce_mode, **f64))
-        k = time_ms(lambda: cuda_lag.lag_sums(x, n_lags, mode, reduce_mode,
-                                              **f64), reps)
+                                               reduce_mode, **kw))
+        k = time_ms(call, reps)
         for _ in range(3):
-            cuda_lag.lag_sums(x, n_lags, mode, reduce_mode, **f64)
+            call()
         busy = smi("clocks.sm,power.draw")  # read while the card works
         torch.cuda.synchronize()
         lag0 = 1 if mode == "einstein" else 0
         count = n_lags - lag0
         pairs = p * d * (count * n - (n_lags * (n_lags - 1)
                                       - lag0 * (lag0 - 1)) // 2)
-        nbytes = x.element_size() * n * p * d + 8 * n_lags * p
-        if mode == "einstein":
+        nbytes = (x.element_size() * n * p * d
+                  + torch.tensor([], dtype=out).element_size() * n_lags * p)
+        if mode == "einstein" and out == f32:
+            bound = 1e3 * max(nbytes / PEAK_BYTES, 3 * pairs / PEAK_FP32)
+            ceiling = (f", FP32 issue ceiling "
+                       f"{1e3 * 2 * pairs / ISSUE_FP32:.3f} ms")
+        elif mode == "einstein":
             bound = 1e3 * max(nbytes / PEAK_BYTES, 3 * pairs / PEAK_FP64)
-            ceiling = f", issue ceiling {1e3 * 2 * pairs / ISSUE_FP64:.3f} ms"
+            ceiling = (f", FP64 issue ceiling "
+                       f"{1e3 * 2 * pairs / ISSUE_FP64:.3f} ms")
         else:
             bound = 1e3 * max(nbytes / PEAK_BYTES,
                               2 * pairs / PEAK_FP64_MMA)
             ceiling = f", FMA-pipe floor {1e3 * pairs / ISSUE_FP64:.3f} ms"
-        print(f"K8 {label} {str(dtype)[6:]} ({n}, {p}, {d}) {mode}, "
-              f"{n_lags} lags: kernel {k:.3f} ms, bound {bound:.3f} ms"
-              f"{ceiling}, {100 * bound / k:.1f} % of bound, err {err:.2e}; "
-              f"SM clock, power under load: {busy}", flush=True)
+        print(f"K8 {label} {str(dtype)[6:]} -> {str(out)[6:]} ({n}, {p}, "
+              f"{d}) {mode}, {n_lags} lags: kernel {k:.3f} ms, bound "
+              f"{bound:.3f} ms{ceiling}, {100 * bound / k:.1f} % of bound, "
+              f"err {err:.2e}; SM clock, power under load: {busy}",
+              flush=True)
         del x, sub, got
 
 
@@ -162,9 +193,8 @@ K2_SPLITS = [  # (UNPACK_PAIRS, UNPACK_SLAB, UNPACK_STAGE)
     (32, 2048, 4096), (16, 512, 1024), (32, 1024, 1024), (32, 1024, 4096)]
 
 
-def crandn(g, *shape):
-    return torch.randn(shape, dtype=torch.complex128, device="cuda",
-                       generator=g)
+def crandn(g, *shape, dtype=torch.complex128):
+    return torch.randn(shape, dtype=dtype, device="cuda", generator=g)
 
 
 def k2_bound(m, w, ph, n_top):
@@ -204,8 +234,13 @@ def k2_splits(cuda_fft, g, reps):
         torch.cuda.empty_cache()
 
 
-def level_bound(a, nl, c, order, tw):
-    """A K1 level's least milliseconds, as chip_smoke.py reckons them."""
+def level_bound(a, nl, c, order, tw, itemsize=16):
+    """A K1 level's least milliseconds, as chip_smoke.py reckons them:
+    complex128 at the FP64 peaks, complex64 (``itemsize`` 8) at FP32's."""
+    if itemsize == 8:
+        return 1e3 * max((16 * a * nl * c + 8 * order) / PEAK_BYTES,
+                         (8 * nl * a * nl * c + (6 * a * nl * c if tw else 0))
+                         / PEAK_FP32)
     return 1e3 * max((32 * a * nl * c + 16 * order) / PEAK_BYTES,
                      8 * nl * a * nl * c / PEAK_FP64_MMA
                      + (6 * a * nl * c if tw else 0) / PEAK_FP64)
@@ -218,12 +253,14 @@ def k5_bound(a, nl, c, n, p):
                      + n * p / PEAK_FP64)
 
 
-def split_of(cuda_fft, a, nl, c, epilogue=False):
+def split_of(cuda_fft, a, nl, c, epilogue=False, itemsize=16):
     """K1's or K5's split, where the package has LevelTiles."""
     if not hasattr(cuda_fft, "LevelTiles"):
         return "one row of A a block"
-    tl = cuda_fft.LevelTiles(a, nl, c, epilogue)
-    return (f"wide, tiles of {tl.tc}" if tl.wide else
+    tl = cuda_fft.LevelTiles(a, nl, c, epilogue, itemsize=itemsize)
+    if getattr(tl, "columns", False):
+        return f"wide, a column a thread, {tl.tc} a block, grid {tl.grid}"
+    return (f"wide, slab tiles of {tl.tc}" if tl.wide else
             f"ra {tl.ra}, pitch {tl.pitch}")
 
 
@@ -236,6 +273,46 @@ def fft_launches(cuda_fft, n, p, d):
     levels = [(shape, -1) for shape in cuda_fft.level_shapes(plan, w)]
     *inverse, last = cuda_fft.level_shapes(plan[:-1], ph, a0=plan[-1])
     return levels + [(shape, +1) for shape in inverse], last
+
+
+def k1_levels(cuda_fft, g, reps, label, n, p, d, dtype, wide_only=False):
+    """Each K1 level of one autocorrelation at (n, p, d) on ``dtype``
+    operands (complex128, or complex64 for the float32 work mode) beside
+    its bound and its ``torch.fft`` call, and their sums over the levels
+    (only the wide ones with ``wide_only``): returns (kernel, bound,
+    library) ms and the count of levels timed."""
+    k1 = k1_bound = k1_lib = 0.0
+    levels, _ = fft_launches(cuda_fft, n, p, d)
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    kind = str(dtype)[6:]
+    timed = 0
+    for i, ((a, nl, c, order, tw), sign) in enumerate(levels):
+        split = split_of(cuda_fft, a, nl, c, itemsize=itemsize)
+        if wide_only and not split.startswith("wide"):
+            continue
+        x = crandn(g, a, nl, c, dtype=dtype)
+        err = rel(cuda_fft.fft_level(x, order, sign, twiddle_cols=tw),
+                  cuda_fft.fft_level_plain(x, order, sign, twiddle_cols=tw))
+        ms = time_ms(lambda: cuda_fft.fft_level(x, order, sign,
+                                                twiddle_cols=tw), reps)
+        lib = time_ms((lambda: torch.fft.fft(x, dim=1)) if sign < 0
+                      else (lambda: torch.fft.ifft(x, dim=1,
+                                                   norm="forward")),
+                      reps)
+        b = level_bound(a, nl, c, order, tw, itemsize)
+        k1, k1_bound, k1_lib = k1 + ms, k1_bound + b, k1_lib + lib
+        timed += 1
+        print(f"K1 {label} {kind} level {i} ({a}, {nl}, {c}) sign "
+              f"{sign:+d}, {split}: {ms:.3f} ms, bound {b:.3f} ms "
+              f"({100 * b / ms:.1f} %), library {lib:.3f} ms, err "
+              f"{err:.2e}", flush=True)
+        del x
+    if timed:
+        print(f"K1 {label} {kind}: {k1:.3f} ms over {timed} "
+              f"{'wide ' if wide_only else ''}levels (bound {k1_bound:.3f}, "
+              f"{100 * k1_bound / k1:.1f} %; library {k1_lib:.3f})",
+              flush=True)
+    return k1, k1_bound, k1_lib, timed
 
 
 def fft(cuda_fft, cuda_kneller, g, reps):
@@ -260,23 +337,10 @@ def fft(cuda_fft, cuda_kneller, g, reps):
                   cuda_fft.unpack_power_inva_plain(z, p, d))
         del z
         bound = k2_bound(m, w, ph, plan[-1])
-        k1 = k1_bound = k1_lib = 0.0
         levels, last = fft_launches(cuda_fft, n, p, d)
-        for i, ((a, nl, c, order, tw), sign) in enumerate(levels):
-            x = crandn(g, a, nl, c)
-            ms = time_ms(lambda: cuda_fft.fft_level(x, order, sign,
-                                                    twiddle_cols=tw), reps)
-            lib = time_ms((lambda: torch.fft.fft(x, dim=1)) if sign < 0
-                          else (lambda: torch.fft.ifft(x, dim=1,
-                                                       norm="forward")),
-                          reps)
-            b = level_bound(a, nl, c, order, tw)
-            k1, k1_bound, k1_lib = k1 + ms, k1_bound + b, k1_lib + lib
-            print(f"K1 {label} level {i} ({a}, {nl}, {c}) sign {sign:+d}, "
-                  f"{split_of(cuda_fft, a, nl, c)}: {ms:.3f} ms, bound "
-                  f"{b:.3f} ms ({100 * b / ms:.1f} %), library {lib:.3f} ms",
-                  flush=True)
-            del x
+        k1, k1_bound, k1_lib, _ = k1_levels(cuda_fft, g, reps, label, n, p,
+                                            d, torch.complex128)
+        k1_levels(cuda_fft, g, reps, label, n, p, d, torch.complex64)
         a, nl, c, _, _ = last
         t = crandn(g, a, nl, c)
         k5 = time_ms(lambda: cuda_fft.inverse_last_level(t, n, p, True),
@@ -320,9 +384,14 @@ LEVEL_SLABS = [512, 1024, 2048, 4096, 8192]  # LEVEL_SLAB values to sweep
 
 
 def k1_splits(cuda_fft, g, reps):
-    """K1's narrow levels and K5 at FFT_SHAPES under the default
-    LEVEL_SLAB and each other of LEVEL_SLABS, beside their bounds and
-    against their plain versions."""
+    """K1's wide levels in complex128 and complex64 at FFT_SHAPES, then its
+    narrow levels and K5 under the default LEVEL_SLAB and each other of
+    LEVEL_SLABS, beside their bounds and against their plain versions."""
+    for label, n, p, d in FFT_SHAPES:
+        for dtype in (torch.complex128, torch.complex64):
+            k1_levels(cuda_fft, g, reps, label, n, p, d, dtype,
+                      wide_only=True)
+            torch.cuda.empty_cache()
     default = cuda_fft.LEVEL_SLAB
     for label, n, p, d in FFT_SHAPES:
         levels, last = fft_launches(cuda_fft, n, p, d)

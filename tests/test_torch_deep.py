@@ -35,6 +35,7 @@ from test_deep_acf import exact_fft_banded_pair  # noqa: E402
 
 TOL = 1e-12
 DEEP_TOL = 1e-11
+F32_TOL = 1e-5   # complex64 replays: a few float32 roundings of each output
 
 
 def rel(got, ref) -> float:
@@ -505,6 +506,8 @@ def replay_level_split(a, n, c, P=None, n_rows=None, full=None):
     gx, gy = tl.grid
     assert 1 <= gx <= _build.MAX_GRID_X and 1 <= gy <= _build.MAX_GRID_Y
     assert tl.smem <= cuda_fft.SMEM_LIMIT
+    if tl.columns:
+        return replay_column_split(tl, full)
     assert tl.ra >= 1 and tl.ra & (tl.ra - 1) == 0
     if tl.wide:
         assert (tl.tc, tl.ra, tl.pitch) == (cuda_fft.tile_cols(n), 1,
@@ -584,10 +587,50 @@ def replay_level_split(a, n, c, P=None, n_rows=None, full=None):
     return tl
 
 
+def replay_column_split(tl, full=None):
+    """K1's column launch (cuda_fft.LevelTiles, ``columns``) as
+    csrc/fft.cu runs it: blocks of ``tc`` threads (a multiple of 32, at
+    most 256) over consecutive columns along grid x, rows of A along grid
+    y, strided past its limit; thread (x, lane) of row a owns column
+    c = x·tc + lane < C, reads in[a, j, c] for j < n and writes out[k, a,
+    c] for k < n. Each output is written once; the lanes of a warp read
+    one contiguous run of a row j; the last block holds a column."""
+    a, n, c = tl.a, tl.n, tl.c
+    assert tl.wide and n <= cuda_fft.COLUMN_LEVEL
+    assert tl.tc == cuda_fft.column_block(c) and tl.tc % 32 == 0
+    assert 64 <= tl.tc <= 256 and (tl.ra, tl.pitch, tl.smem) == (1, 0, 0)
+    assert tl.tiles == -(-c // tl.tc) and tl.groups == a
+    assert (tl.tiles - 1) * tl.tc < c
+    gx, gy = tl.grid
+    assert gx == tl.tiles
+    g = np.arange(gy)[:, None] + gy * np.arange(-(-a // gy))
+    np.testing.assert_array_equal(np.bincount(g[g < a], minlength=a), 1)
+    cols = np.arange(gx * tl.tc)
+    live = cols < c
+    for warp in cols.reshape(-1, 32):
+        run = warp[warp < c]
+        if len(run):
+            np.testing.assert_array_equal(run, np.arange(run[0],
+                                                         run[0] + len(run)))
+    every = full if full is not None else a * n * c <= 2 ** 20
+    rows = range(a) if every else sorted({0, a - 1})
+    writes = np.zeros(n * a * c if every else n * c, np.int64)
+    for row in rows:
+        k = np.arange(n)[:, None]
+        dst = (k * a * c + row * c + cols[live][None, :]).ravel()
+        if every:
+            np.add.at(writes, dst, 1)
+        else:
+            assert len(np.unique(dst)) == n * c
+    if every:
+        np.testing.assert_array_equal(writes, 1)
+    return tl
+
+
 LEVEL_COLUMNS = [1, 2, 3, 4, 5, 16, 32, 40, 63, 64, 65, 120, 5520]
 
 
-@pytest.mark.parametrize("n", [2, 8, 16, 512])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 512])
 @pytest.mark.parametrize("c", LEVEL_COLUMNS)
 def test_level_split_replay(n, c):
     """K1 and K5 at C from 1 to the EC width, n = 2 … 512, A one row past
@@ -676,19 +719,80 @@ def dft_items(tl, slab, rts, addr, k):
             * rts[(j[None, :] * k[:, None]) % tl.n]).sum(1)
 
 
+def bit_reverse(k, bits):
+    return int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def dif_network(v, w):
+    """csrc/fft.cu's dif_registers stage by stage: the n-point DFT of the
+    list ``v`` (one array of columns per j) by radix-2 decimation in
+    frequency, butterfly b of the stage of length ``length`` taking
+    (lo, lo + half), j = b mod half, lo = (b // half)·length + j, to
+    (x + y, (x − y)·w[j·n/length]), root index checked below n/2; returns
+    the outputs in bit-reversed order."""
+    n = len(v)
+    v = list(v)
+    length = n
+    while length >= 2:
+        half = length // 2
+        for b in range(n // 2):
+            j = b % half
+            lo = (b // half) * length + j
+            x, y = v[lo], v[lo + half]
+            v[lo] = x + y
+            t = j * (n // length)
+            assert t < max(1, n // 2)
+            v[lo + half] = x - y if j == 0 else (x - y) * w[t]
+        length = half
+    return v
+
+
+def column_replay(x, m, sign, tw):
+    """K1's column launch replayed in numpy block by block from
+    cuda_fft.LevelTiles, in x's type: each block's live columns of row a
+    (a thread each) read their n values, run the butterfly network of
+    :func:`dif_network` on the level's roots W_n^(sign·t), t < n/2, from
+    the order-m table, and output k, taken from register bitrev(k), times
+    the twiddle W_m^(sign·k·(c // tw)) from the table."""
+    a, n, c = x.shape
+    tl = cuda_fft.LevelTiles(a, n, c, itemsize=x.itemsize)
+    assert tl.columns
+    roots = cuda_fft.unit_roots(m).astype(x.dtype)
+    w = roots[np.arange(max(1, n // 2)) * (m // n)]
+    if sign > 0:
+        w, roots = np.conj(w), np.conj(roots)
+    bits = n.bit_length() - 1
+    out = np.full((n, a, c), np.nan, dtype=x.dtype)
+    for row in range(a):
+        for t in range(tl.tiles):
+            cols = t * tl.tc + np.arange(tl.tc)
+            cols = cols[cols < c]
+            v = dif_network([x[row, j, cols] for j in range(n)], w)
+            for k in range(n):
+                y = v[bit_reverse(k, bits)]
+                if tw and k:
+                    f = cols // tw
+                    y = np.where(f > 0, y * roots[(k * f) % m], y)
+                out[k, row, cols] = y
+    return out
+
+
 def level_replay(x, m, sign, tw):
     """K1's arithmetic replayed in numpy pass by pass from
-    cuda_fft.LevelTiles, as csrc/fft.cu runs it: the slab staged at the
-    split's slots, each item's outputs k (and, narrow, k + n/2) the sum
-    over j of the slab value it reads times the root, then the twiddle
+    cuda_fft.LevelTiles, as csrc/fft.cu runs it: the column launch by
+    :func:`column_replay`; else the slab staged at the split's slots,
+    each item's outputs k (and, narrow, k + n/2) the sum over j of the
+    slab value it reads times the root, then the twiddle
     W_m^(sign·k·(c // tw)) from the order-m table."""
     a, n, c = x.shape
-    tl = cuda_fft.LevelTiles(a, n, c)
-    roots = cuda_fft.unit_roots(m)
+    tl = cuda_fft.LevelTiles(a, n, c, itemsize=x.itemsize)
+    if tl.columns:
+        return column_replay(x, m, sign, tw)
+    roots = cuda_fft.unit_roots(m).astype(x.dtype)
     rts = roots[np.arange(n) * (m // n)]
     if sign > 0:
         rts, roots = np.conj(rts), np.conj(roots)
-    out = np.full(n * a * c, np.nan, dtype=complex)
+    out = np.full(n * a * c, np.nan, dtype=x.dtype)
     n_k = pair_count(tl)
     for g in range(tl.groups):
         a0, rows = tl.rows(g).start, len(tl.rows(g))
@@ -744,19 +848,44 @@ def epilogue_replay(t, n_rows, P, normalize):
     return out.reshape(n_rows, P)
 
 
-@pytest.mark.parametrize("a,n,c,m,tw", [
+LEVEL_REPLAY_CASES = [
     (33, 16, 4, 16 * 64, 1), (17, 8, 3, 8, 0), (5, 16, 63, 256, 9),
     (9, 16, 65, 1024, 5), (3, 512, 8, 512, 0), (131, 2, 1, 64, 1),
-    (4, 16, 40, 2 ** 12, 8), (2, 8, 120, 2 ** 10, 3), (7, 1, 3, 8, 0)])
-@pytest.mark.parametrize("sign", [-1, +1])
-def test_level_replay_matches_the_plain_version(a, n, c, m, tw, sign):
-    """K1's arithmetic at narrow and wide splits, short last groups, with
-    and without the twiddle, n = 1 … 512: within 1e-12 of
-    fft_level_plain."""
-    x = crandn(np.random.RandomState(a + n + c), a, n, c)
+    (4, 16, 40, 2 ** 12, 8), (2, 8, 120, 2 ** 10, 3), (7, 1, 3, 8, 0),
+    # column launches, ragged C, with and without the twiddle
+    (3, 2, 70, 64, 7), (2, 4, 99, 4, 0), (5, 4, 130, 256, 13),
+    (3, 8, 65, 8, 0), (4, 8, 161, 512, 23), (2, 16, 67, 16, 0),
+    (3, 16, 300, 2 ** 12, 30), (2, 1, 97, 2, 0),
+    # the slab launch: wide levels past COLUMN_LEVEL
+    (3, 32, 130, 64, 0), (2, 32, 130, 2 ** 10, 13)]
+
+
+def check_level_replay(a, n, c, m, tw, sign, dtype, tol):
+    x = crandn(np.random.RandomState(a + n + c), a, n, c).astype(dtype)
+    tl = cuda_fft.LevelTiles(a, n, c)
+    assert tl.columns == (c > cuda_fft.tile_cols(n) and n <= 16)
     got = level_replay(x, m, sign, tw)
     ref = cuda_fft.fft_level_plain(torch.from_numpy(x), m, sign, tw).numpy()
-    assert rel(got, ref) <= TOL
+    assert got.dtype == ref.dtype == dtype
+    assert rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("a,n,c,m,tw", LEVEL_REPLAY_CASES)
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_level_replay_matches_the_plain_version(a, n, c, m, tw, sign):
+    """K1's arithmetic at narrow, column and slab splits, short last
+    groups and ragged last blocks, with and without the twiddle, n = 1 …
+    512: within 1e-12 of fft_level_plain."""
+    check_level_replay(a, n, c, m, tw, sign, np.complex128, TOL)
+
+
+@pytest.mark.parametrize("a,n,c,m,tw", LEVEL_REPLAY_CASES)
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_level_replay_f32_matches_the_plain_version(a, n, c, m, tw, sign):
+    """The same in complex64 (the float32 work mode: float32 roots and
+    arithmetic): within 1e-5 of fft_level_plain, a few float32 roundings
+    of each output."""
+    check_level_replay(a, n, c, m, tw, sign, np.complex64, F32_TOL)
 
 
 @pytest.mark.parametrize("a,n,ph,n_rows", [

@@ -734,3 +734,95 @@ def test_f32_chunked_peak_under_its_budget(cuda_device):
     peak = torch.cuda.max_memory_allocated() - before
     assert peak <= acf.chunk_peak_bytes(n, chunk, 3, np.float32) <= \
         budget * 1e9
+
+
+# ---------------------------------------------------------------------
+# K1's wide launches and K8's float32 einstein launch
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 32, 512])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_level_kernel_wide_ragged(cuda_device, n, dtype):
+    """K1's wide launches, the column launch at n ≤ 16 and the slab launch
+    at 32 and 512, at C ≡ 1 … 31 and 0 (mod 32) (C = 65 … 96), a short
+    last block or tile, both signs, with a twiddle of sub-order 64·n over
+    columns of 1 and without: within 1e-12 of the plain version in
+    complex128, 1e-5 in complex64."""
+    rng = np.random.RandomState(n)
+    tol = TOL if dtype == torch.complex128 else F32_TOL
+    for c in range(65, 97):
+        x = crandn(rng, cuda_device, 3, n, c).to(dtype)
+        tl = cuda_fft.LevelTiles(3, n, c, itemsize=x.element_size())
+        assert tl.wide and tl.columns == (n <= cuda_fft.COLUMN_LEVEL)
+        for sign in (-1, +1):
+            for m, tw in level_cases(n, c, sign):
+                got = cuda_fft.fft_level(x, m, sign, twiddle_cols=tw)
+                ref = cuda_fft.fft_level_plain(x, m, sign, twiddle_cols=tw)
+                assert got.dtype == dtype
+                assert rel(got, ref) <= tol, (c, sign, tw)
+
+
+@pytest.mark.parametrize("n", [2, 16])
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_level_kernel_wide_past_grid_y(cuda_device, n, dtype):
+    """The column launch over more than 65,535 rows of A: blocks stride
+    over the rows by grid y."""
+    a, c = 65535 + 3, 70
+    tl = cuda_fft.LevelTiles(a, n, c)
+    assert tl.columns and tl.groups > tl.grid[1] == 65535
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn((a, n, c), dtype=dtype, device=cuda_device, generator=g)
+    got = cuda_fft.fft_level(x, 64 * n, +1, twiddle_cols=1)
+    ref = cuda_fft.fft_level_plain(x, 64 * n, +1, 1)
+    assert rel(got, ref) <= (TOL if dtype == torch.complex128 else F32_TOL)
+
+
+EINSTEIN_TYPES = [  # (operand, sums): the float32 work mode's launch
+    # (einstein_rows_kernel), and the float64 sums of float32 and float64
+    # operands (einstein_tile_kernel)
+    (torch.float32, torch.float32), (torch.float32, torch.float64),
+    (torch.float64, torch.float64)]
+
+
+def einstein_check(x, n_lags, out_dtype):
+    tol = TOL if out_dtype == torch.float64 else F32_TOL
+    for reduce_mode in ("mean", "sum"):
+        got = cuda_lag.lag_sums(x, n_lags, "einstein", reduce_mode,
+                                out_dtype=out_dtype)
+        ref = cuda_lag.lag_sums_plain(x, n_lags, "einstein", reduce_mode,
+                                      out_dtype=out_dtype)
+        assert got.shape == (n_lags, x.shape[1]) and got.dtype == out_dtype
+        assert torch.all(got[0] == 0.0)
+        if n_lags > 1:
+            assert rel(got, ref) <= tol, (n_lags, reduce_mode)
+
+
+@pytest.mark.parametrize("p", [33, 45, 70])
+@pytest.mark.parametrize("d", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype,out_dtype", EINSTEIN_TYPES)
+def test_einstein_launch_at_span_and_tile_edges(cuda_device, p, d, dtype,
+                                                out_dtype):
+    """K8's einstein launches at P not a multiple of the particle tile,
+    d = 1, 2, 3 and 5 (two launches): N shorter than one frame tile of
+    every span (100, 143) and one float32 tile long (159, 160), n_lags at
+    the span's edges (127, 128, 129) at N = 1000, and the operand one
+    value into its storage, so that frame rows start off 16-byte
+    chunks."""
+    rng = np.random.RandomState(p * d)
+    for n, lags in ((100, (1, 99, 100)), (143, (143,)), (159, (31, 159)),
+                    (160, (160,)), (1000, (127, 128, 129, 1000))):
+        flat = torch.from_numpy(rng.normal(0.5, 2.0, n * p * d + 1)).to(
+            cuda_device, dtype)
+        for x in (flat[:-1].view(n, p, d), flat[1:].view(n, p, d)):
+            for n_lags in lags:
+                einstein_check(x, n_lags, out_dtype)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", EINSTEIN_TYPES)
+def test_einstein_launch_all_lags_long(cuda_device, dtype, out_dtype):
+    """K8's einstein launches over all lags of 8,192 frames, 37 particles
+    of 3 components: every span from the full ones to the last, whose
+    frames are all tail."""
+    x = torch.from_numpy(np.random.RandomState(8192).normal(
+        0.5, 2.0, (8192, 37, 3))).to(cuda_device, dtype)
+    einstein_check(x, 8192, out_dtype)

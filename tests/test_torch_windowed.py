@@ -186,11 +186,30 @@ def test_lag_kernel_takes_cuda_tensors_only():
                                       (300, 300), (1000, 257)])
 def test_einstein_tiles_cover_each_pair_once(n, n_lags, dtype):
     """K8's einstein work split as csrc/lag.cu runs it, for each operand
-    type's tile: the shared-memory tiles and the masked tails cover every
-    (frame i, lag) with i + lag < N exactly once; every partner row a
-    warp reads from the ring is there (copied by an earlier group, not
-    overwritten by the group in flight) and lies inside the operand."""
-    tile_f = cuda_lag.tile_frames(dtype)
+    type's tile with float64 sums (einstein_tile_kernel): the
+    shared-memory tiles and the masked tails cover every (frame i, lag)
+    with i + lag < N exactly once; every partner row a warp reads from
+    the ring is there (copied by an earlier group, not overwritten by the
+    group in flight) and lies inside the operand."""
+    einstein_tile_replay(n, n_lags, cuda_lag.tile_frames(dtype))
+
+
+@pytest.mark.parametrize("n,n_lags", [(1, 1), (15, 15), (16, 16), (143, 1),
+                                      (159, 159), (160, 160), (191, 40),
+                                      (200, 127), (200, 128), (200, 129),
+                                      (300, 300), (1000, 257), (8192, 129)])
+def test_einstein_f32_tiles_cover_each_pair_once(n, n_lags):
+    """The same for the float32 work mode's launch (einstein_rows_kernel,
+    float32 sums, its tile of two lag blocks): every pair once, every
+    ring row there when read, no copy of a frame past N."""
+    tile_f = cuda_lag.tile_frames(torch.float32, torch.float32)
+    assert tile_f == 2 * cuda_lag.LAG_BLOCK
+    einstein_tile_replay(n, n_lags, tile_f)
+
+
+def einstein_tile_replay(n, n_lags, tile_f):
+    """The tiles, ring slots and tails of the einstein launch of tile
+    ``tile_f`` frames: checks each row read and counts each pair."""
     block = cuda_lag.LAG_BLOCK
     count = np.zeros((n_lags, n), dtype=np.int64)
     for l0 in range(0, n_lags, cuda_lag.SPAN):
@@ -234,6 +253,29 @@ def test_einstein_tiles_cover_each_pair_once(n, n_lags, dtype):
     np.testing.assert_array_equal(count, (i + lag < n).astype(np.int64))
 
 
+@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("p", [1, 2, 3, 31, 32, 33, 100, 3679, 3680])
+def test_einstein_row_copies(p, d):
+    """The float32 einstein launch's copy of each frame row: 16-byte
+    aligned chunks, at most a row slot (TILE_P·d + 4 values), covering the
+    row's values and only the 16-byte chunks that hold some of them (no
+    byte outside a chunk of the operand), landing at the delta that lanes
+    compute from the frame mod 4; lanes past P are never stored, so the
+    chunks' edges they may read stay unused."""
+    pitch = cuda_lag.row_pitch(d)
+    for addr in (0, 4, 8, 12, 4096 + 4, 512 + 8):
+        for p0 in range(0, p, cuda_lag.TILE_P):
+            v = min(cuda_lag.TILE_P, p - p0) * d
+            for f in range(9):
+                a0, nbytes, delta = cuda_lag.row_copy(addr, f, p, p0, d)
+                start = addr + 4 * (f * p + p0) * d
+                assert a0 % 16 == 0 and nbytes % 16 == 0
+                assert a0 <= start and start + 4 * v <= a0 + nbytes
+                assert a0 > start - 16 and a0 + nbytes < start + 4 * v + 16
+                assert nbytes <= 4 * pitch and delta + v <= pitch
+                assert delta == cuda_lag.row_delta(addr, f, p, p0, d)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_einstein_ring_holds_a_tile_and_the_next(dtype):
     """The ring's size: the rows one tile reads, those the next tile adds
@@ -246,6 +288,19 @@ def test_einstein_ring_holds_a_tile_and_the_next(dtype):
     assert len(cuda_lag.ring_loads(0, tile_f)) <= ring
     row = cuda_lag.TILE_P * 3 * torch.tensor([], dtype=dtype).element_size()
     assert (ring + 2 * tile_f) * row <= 232_448
+
+
+def test_einstein_f32_ring_fits_two_ctas():
+    """The float32 work mode's ring of particle-major row slots: tiles
+    start at frames ≡ 0 mod 4 (a row's delta follows from its frame), and
+    a CTA's shared memory at d = 3 is within half the SM's 228 KB (1 KB
+    reserved a CTA), so that two CTAs share an SM."""
+    tile_f = cuda_lag.tile_frames(torch.float32, torch.float32)
+    ring = cuda_lag.ring_rows(tile_f)
+    assert ring % cuda_lag.LAG_BLOCK == 0 and tile_f % 4 == 0
+    assert len(cuda_lag.ring_loads(0, tile_f)) <= ring
+    smem = (ring + 2 * tile_f) * cuda_lag.row_pitch(3) * 4
+    assert smem == 102_400 and 2 * (smem + 1024) <= 233_472
 
 
 def acf_gram_replay(x, n_lags):

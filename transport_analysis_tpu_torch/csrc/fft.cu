@@ -29,12 +29,13 @@
 //     particle-pair columns to columns q < ph, the imaginary parts to
 //     ph + q), times 1 / (N - lag) when asked; the rows past N are not formed.
 //
-// What bounds them: each output is a direct sum of n complex products, so
-// a level does n complex multiply-adds per point and reads and writes its
-// tensor once. In the inner loop a warp's threads share one k (a few when
-// n > 128), so the root is a shared-memory broadcast and each complex
-// multiply-add reads one 16-byte slab value: shared-memory bandwidth caps a
-// long level (a 128-point level of M = 16,384 at the EC width ran at about
+// What bounds them: a level reads and writes its tensor once; in the slab
+// and row kernels each output is a direct sum of n complex products (n
+// complex multiply-adds per point), in the column kernel a butterfly
+// network (log2 n). In the slab kernel's inner loop a warp's threads share
+// one k (a few when n > 128), so the root is a shared-memory broadcast and
+// each complex multiply-add reads one 16-byte slab value: shared-memory
+// bandwidth caps a long level (a 128-point level of M = 16,384 at the EC width ran at about
 // 10 TFLOP/s), while a short one is bounded by device memory. Measured on an
 // NVIDIA H100 80GB HBM3 at 700 W: a 16-point level over the 11.6 GB packed
 // spectrum of M = 2^17 at the EC width in 11.4 ms (2.0 TB/s of 3.35), 4.1x
@@ -44,6 +45,23 @@
 // unity in shared memory, so every operand of the inner loop comes from
 // shared memory and each global element is read once per level, and
 // plan_levels keeps the levels near 16 points, where the two bounds meet.
+//
+// Wide levels of n <= 16 points (every wide level a plan makes): the slab
+// kernel's loads and its sums from shared memory, between two barriers,
+// did not overlap, and each complex64 point cost a complex128 point's
+// shared-memory reads and multiply-adds at half the bytes: 51.6 ms for the
+// 8 levels of one complex64 autocorrelation at M = 2^17 over the EC width
+// (40 % of the 20.7 ms byte bound), 61.5 ms in complex128 (67 %). What the
+// design does about it (fft_level_columns_kernel, cuda_fft.LevelTiles'
+// column launch): a thread owns one column, issues its n coalesced loads at
+// once, forms the DFT in registers as a radix-2 butterfly network (n log n
+// multiply-adds, the level's roots read once), twiddles and stores its n
+// outputs coalesced; no shared memory, no barrier, so each level streams
+// its tensor once each way. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (scripts/kernel_times.py, beside the parent commit in one call): 24.2 ms
+// in complex64 (86 % of its bound), 50.8 ms in complex128 (82 %; its
+// first level, 134 registers a thread and one block an SM, at 66 %).
+// Next: the first complex128 16-point level's registers.
 //
 // At narrow widths (C <= 64 at n <= 64: the last levels of 8 series) a
 // 64-column tile and one row of A a block left most lanes idle (60 of 64
@@ -59,8 +77,7 @@
 // (scripts/kernel_times.py --only fft): K1 8.4-8.5 ms at M = 2^24 and
 // 18.9-19.0 ms at 2^25 over 4 columns (61-65 % of their bounds, against
 // the library's 11.6 and 27.6), K5 0.38 and 0.62 ms (62-77 %).
-// Next: the same pairing in the wide kernel, or a radix form for longer
-// levels.
+// Next: a radix form for the slab kernel's longer levels (n > 16).
 //
 // K2 is bounded by device memory: it reads the spectrum once and writes a
 // third of its bytes (at the EC width). A first design, one block per
@@ -97,6 +114,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -235,8 +254,135 @@ __device__ void stage_rows(V* slab, const V* __restrict__ src, int total,
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// K1, wide (C > tc): block (x: column tile, y: a, strided).
-// in (A, n, C) -> out (n, A, C).
+template <typename V>
+__device__ __forceinline__ V cadd(V a, V b) {
+  return cplx(a.x + b.x, a.y + b.y);
+}
+template <typename V>
+__device__ __forceinline__ V csub(V a, V b) {
+  return cplx(a.x - b.x, a.y - b.y);
+}
+
+// The N-point DFT of v in registers, radix 2, decimation in frequency
+// (Gentleman-Sande): in the stage of length LEN, butterfly B takes the
+// pair (lo, lo + LEN/2), j = B mod LEN/2, lo = (B / (LEN/2)) LEN + j, to
+// (x + y, (x - y) W_LEN^j), W_LEN^j = w[j N / LEN]. Run from LEN = N, the
+// stages leave output k in v[bitrev(k)]. w[t] = W_N^(sign t), t < N/2.
+// Every index is a template constant (a pack expansion, not a loop), so v
+// and w stay in registers.
+template <int N, int LEN, int B, typename V>
+__device__ __forceinline__ void butterfly(V (&v)[N],
+                                          const V (&w)[N > 1 ? N / 2 : 1]) {
+  constexpr int kHalf = LEN / 2, j = B % kHalf, lo = (B / kHalf) * LEN + j;
+  const V x = v[lo], y = v[lo + kHalf];
+  v[lo] = cadd(x, y);
+  if constexpr (j == 0)
+    v[lo + kHalf] = csub(x, y);
+  else
+    v[lo + kHalf] = cmul(csub(x, y), w[j * (N / LEN)]);
+}
+
+template <int N, int LEN, typename V, int... B>
+__device__ __forceinline__ void dif_registers(
+    V (&v)[N], const V (&w)[N > 1 ? N / 2 : 1],
+    std::integer_sequence<int, B...>) {
+  if constexpr (LEN >= 2) {
+    (butterfly<N, LEN, B>(v, w), ...);
+    dif_registers<N, LEN / 2>(v, w, std::integer_sequence<int, B...>{});
+  }
+}
+
+__host__ __device__ constexpr int bit_reverse(int k, int bits) {
+  int r = 0;
+  for (int i = 0; i < bits; ++i) r |= ((k >> i) & 1) << (bits - 1 - i);
+  return r;
+}
+
+__host__ __device__ constexpr int log2_of(int n) {
+  int b = 0;
+  while ((1 << b) < n) ++b;
+  return b;
+}
+
+// out[k] = v[bitrev(k)] for each K, times the twiddle W_m^(sign k f) from
+// the order-m table when k > 0 and f > 0: the stores of one column.
+template <int N, typename V, int... K>
+__device__ __forceinline__ void store_outputs(
+    const V (&v)[N], V* dst, int64_t k_stride, const V* __restrict__ roots,
+    int64_t m, int sign, int64_t f, std::integer_sequence<int, K...>) {
+  (
+      [&] {
+        constexpr int kFrom = bit_reverse(K, log2_of(N));
+        V y = v[kFrom];
+        if (K > 0 && f > 0) {
+          V t = roots[(K * f) & (m - 1)];
+          if (sign > 0) t.y = -t.y;
+          y = cmul(y, t);
+        }
+        dst[K * k_stride] = y;
+      }(),
+      ...);
+}
+
+// w[t] = W_N^(sign t) = roots[t m / N] for each T < N/2, conjugated for
+// sign > 0: the level's roots, read once a thread.
+template <int S, typename V, int... T>
+__device__ __forceinline__ void level_roots(V (&w)[S],
+                                            const V* __restrict__ roots,
+                                            int64_t stride, int sign,
+                                            std::integer_sequence<int, T...>) {
+  (
+      [&] {
+        V r = roots[T * stride];
+        if (sign > 0) r.y = -r.y;
+        w[T] = r;
+      }(),
+      ...);
+}
+
+// v[j] = src[j * stride] for each J: the loads of one column, all issued
+// before any arithmetic.
+template <int N, typename V, int... J>
+__device__ __forceinline__ void load_column(V (&v)[N], const V* src,
+                                            int64_t stride,
+                                            std::integer_sequence<int, J...>) {
+  ((v[J] = src[J * stride]), ...);
+}
+
+// K1, columns (C > tile_cols(n), n <= kColumnLevel: cuda_fft.LevelTiles'
+// column launch): a thread owns column c of row a and forms its N outputs
+// in registers. Block (x: blockDim.x consecutive columns, y: a, strided).
+// Its N loads of in[a, j, c] are issued before any arithmetic, each a
+// coalesced warp load (consecutive lanes, consecutive c); the DFT is the
+// butterfly network of dif_registers on the level's roots, read once;
+// output k takes the twiddle W_m^(sign k (c / tw_cols)) from the order-m
+// table as the slab kernel does; its N stores are coalesced likewise. No
+// shared memory, no barrier. in (A, N, C) -> out (N, A, C).
+constexpr int kColumnLevel = 16;
+template <typename V, int N>
+__global__ void __launch_bounds__(kThreads)
+    fft_level_columns_kernel(const V* __restrict__ in, V* __restrict__ out,
+                             const V* __restrict__ roots, int64_t m,
+                             int64_t C, int64_t A, int sign,
+                             int64_t tw_cols) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  V w[N > 1 ? N / 2 : 1];
+  level_roots(w, roots, m / N, sign,
+              std::make_integer_sequence<int, N / 2>{});
+  const int64_t f = tw_cols > 0 ? c / tw_cols : 0;
+  for (int64_t a = blockIdx.y; a < A; a += gridDim.y) {
+    V v[N];
+    load_column(v, in + a * N * C + c, C,
+                std::make_integer_sequence<int, N>{});
+    dif_registers<N, N>(v, w, std::make_integer_sequence<int, N / 2>{});
+    store_outputs(v, out + a * C + c, A * C, roots, m, sign, f,
+                  std::make_integer_sequence<int, N>{});
+  }
+}
+
+// K1, wide slab (C > tc, n > kColumnLevel): block (x: column tile, y: a,
+// strided). in (A, n, C) -> out (n, A, C).
 template <typename V>
 __global__ void fft_level_kernel(const V* __restrict__ in,
                                  V* __restrict__ out,
@@ -594,11 +740,47 @@ cudaError_t level_smem(const void* wide_fn, const void* rows_fn, int64_t n,
   return allow_smem(wide ? wide_fn : rows_fn, *bytes);
 }
 
+template <typename V, int N>
+int fft_level_columns(const void* in, void* out, const void* roots, int64_t A,
+                      int64_t C, int64_t sign, int64_t tw_cols, int64_t m,
+                      int64_t tc, int64_t grid_x, int64_t grid_y,
+                      void* stream) {
+  fft_level_columns_kernel<V, N>
+      <<<dim3((unsigned)grid_x, (unsigned)grid_y), (unsigned)tc, 0,
+         (cudaStream_t)stream>>>((const V*)in, (V*)out, (const V*)roots, m, C,
+                                 A, (int)sign, tw_cols);
+  return (int)cudaGetLastError();
+}
+
 template <typename V>
 int fft_level(const void* in, void* out, const void* roots, int64_t A,
               int64_t n, int64_t C, int64_t sign, int64_t tw_cols, int64_t m,
               int64_t tc, int64_t ra, int64_t pitch, int64_t grid_x,
               int64_t grid_y, void* stream) {
+  if (pitch == 0) {
+    // the column launch: tc threads a block, a column each
+    if (tc < 32 || tc > kThreads || tc % 32 || ra != 1 || grid_x * tc < C)
+      return (int)cudaErrorInvalidValue;
+    switch (n) {
+      case 1:
+        return fft_level_columns<V, 1>(in, out, roots, A, C, sign, tw_cols,
+                                       m, tc, grid_x, grid_y, stream);
+      case 2:
+        return fft_level_columns<V, 2>(in, out, roots, A, C, sign, tw_cols,
+                                       m, tc, grid_x, grid_y, stream);
+      case 4:
+        return fft_level_columns<V, 4>(in, out, roots, A, C, sign, tw_cols,
+                                       m, tc, grid_x, grid_y, stream);
+      case 8:
+        return fft_level_columns<V, 8>(in, out, roots, A, C, sign, tw_cols,
+                                       m, tc, grid_x, grid_y, stream);
+      case 16:
+        return fft_level_columns<V, 16>(in, out, roots, A, C, sign, tw_cols,
+                                        m, tc, grid_x, grid_y, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   size_t smem = 0;
   cudaError_t err = level_smem((const void*)fft_level_kernel<V>,
                                (const void*)fft_level_rows_kernel<V>, n, C,

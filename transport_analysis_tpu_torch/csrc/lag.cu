@@ -21,10 +21,10 @@
 //     at about 1e-6 grade). There the acf mode keeps its float64 Gram on
 //     the FP64 tensor cores, which run at the 67 TFLOP/s of FP32 outside
 //     them (TF32's 10-bit mantissa cannot hold the 1e-6 grade), and only
-//     rounds its result; the einstein mode takes float32 differences and
-//     squares (W = float: twice the FP64 rate), each tile's partials of
-//     kTileF frames summed in float32 and added to a float64 running sum,
-//     so no float32 register sums more than one tile's terms.
+//     rounds its result; the einstein mode (einstein_rows_kernel) takes
+//     float32 differences and squares (twice the FP64 rate), each lag's
+//     partial of at most 64 frames summed in float32 and added to a
+//     float64 running sum, so no float32 register sums more terms.
 //
 // What bounds it: float64 arithmetic. Every (frame, lag, series) pair costs
 // one multiply-add (acf) or a subtract and a multiply-add (einstein). At
@@ -100,6 +100,29 @@
 // lag of the span has its partner, the register ring goes on from global
 // memory, each lag masked by i + lag < N. cuda_lag.py lists this work
 // split (einstein_tiles, ring_slot, ...) and the CPU tests check it.
+//
+// The float32 work mode's einstein launch is bounded by the FP32 pipe's
+// issue: two instructions a pair-component, the subtract and the
+// multiply-add, 87.0 ms at 33.5e12 a second for 65,536 frames x 2,048 lags
+// at the EC width (the flop bound, 3 flop at 67 TFLOP/s, is 65.3). On
+// einstein_tile_kernel's tile of 64 float frames a thread spent 48 4-byte
+// cp.async a tile at 41 instructions each (cuobjdump -sass) beside 6,144
+// FP32 ones, and one CTA an SM waited at each tile's barrier: 157.6-158.8
+// ms on an NVIDIA H100 80GB HBM3 at 700 W. A pipeline of 16-frame stages
+// copied a row a cp.async.bulk by warp 0 and synchronized by mbarriers,
+// two CTAs an SM, did not help (156.5-164.3 ms: its copies and barriers
+// alone took 41.6 ms and its sums with the barriers but no copies 131.5).
+// What the design does about it (einstein_rows_kernel, above): the frame
+// rows keep the operand's particle-major order, so a tile row is one
+// contiguous run copied by 16-byte cp.async (about 6 a thread a 32-frame
+// tile), and 32-frame tiles in 102,400 bytes fit two CTAs an SM. Measured
+// there (scripts/kernel_times.py, beside the parent commit in one call):
+// 126.2-127.2 ms at the deep shape (69 % of the issue ceiling), 33.9 ms
+// for the 8,192-lag model shape (parent 41.7). Next: the issue rate of the
+// sums themselves: the inner loop issues 1,658 instructions a 16-frame
+// chunk, 1,536 of them FP32 (the parent's SASS), so at one a cycle the
+// deep launch would take about 94 ms; it runs at about 75 % of that, at
+// one CTA an SM as at two.
 //
 // Launch geometry: grid x walks the particles (one a CTA in the acf mode,
 // tiles of kTileP in the einstein mode), grid y the spans of lags, strided
@@ -195,6 +218,67 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ x, T* dst,
   }
 }
 
+// The frames [i0, n - lw) past a warp's staged tiles, for its lags lw + l
+// of the lane's particle q < p, each bounded by i + lag < n: the register
+// ring w goes on from global memory in chunks of kLagBlock frames (primed
+// here when i0 == 0: nothing was staged); then each lag's mean, (acc + the
+// tail's partial) / ((n - lag) dfac), lag 0 pinned to 0, is written.
+template <typename T, int D, typename W>
+__device__ __forceinline__ void einstein_tail(
+    const T* __restrict__ x, W* __restrict__ out, int64_t n, int64_t p,
+    int64_t n_lags, double dfac, int64_t q, int64_t lw, int64_t i0,
+    W (&w)[D][kLagBlock], const double (&acc)[kLagBlock]) {
+  const int64_t s = p * D;  // row stride of the operand
+  const T* col = x + q * D;
+  const int64_t i_end = n - lw;
+  if (i0 == 0) {
+#pragma unroll
+    for (int j = 0; j < kLagBlock - 1; ++j) {
+#pragma unroll
+      for (int c = 0; c < D; ++c)
+        w[c][j] = j < i_end ? (W)col[(lw + j) * s + c] : (W)0;
+    }
+  }
+  W part[kLagBlock];
+#pragma unroll
+  for (int l = 0; l < kLagBlock; ++l) part[l] = 0;
+  for (; i0 < i_end; i0 += kLagBlock) {
+#pragma unroll
+    for (int k = 0; k < kLagBlock; ++k) {
+      const int64_t i = i0 + k;
+      const int64_t lim = i_end - i;  // lags lw + l, l < lim, pair
+      const int64_t jn = i + kLagBlock - 1;  // the new partner, - lw
+      W xi[D];
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        w[c][(k + kLagBlock - 1) % kLagBlock] =
+            jn < i_end ? (W)col[(lw + jn) * s + c] : (W)0;
+        xi[c] = lim > 0 ? (W)col[i * s + c] : (W)0;
+      }
+#pragma unroll
+      for (int l = 0; l < kLagBlock; ++l) {
+        if (l < lim) {
+#pragma unroll
+          for (int c = 0; c < D; ++c) {
+            const W diff = xi[c] - w[c][(k + l) % kLagBlock];
+            part[l] = fmar(diff, diff, part[l]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < kLagBlock; ++l) {
+    const int64_t lag = lw + l;
+    if (lag < n_lags) {
+      out[lag * p + q] =
+          (W)(lag == 0 ? 0.0
+                       : (acc[l] + (double)part[l]) /
+                             ((double)(n - lag) * dfac));
+    }
+  }
+}
+
 // block (x: tile of kTileP particles, y: spans b of kSpan lags, strided);
 // warp w sums lags [b kSpan + w kLagBlock, ... + kLagBlock) of the lane's
 // particle p0 + lane. W is the type of the differences, squares and tile
@@ -213,7 +297,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t p0 = (int64_t)blockIdx.x * kTileP;
   const int64_t q = p0 + lane;
-  const int64_t s = p * D;  // row stride of the operand
   for (int64_t b = blockIdx.y; b < nspans; b += gridDim.y) {
     const int64_t l0 = b * kSpan;
     const int64_t lw = l0 + warp * kLagBlock;  // the warp's first lag
@@ -297,59 +380,175 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();  // the next span's copies overwrite the last tile
     }
-    if (active && q < p) {
-      // the frames past the tiles, each lag bounded by i + lag < n: the
-      // register ring goes on from global memory, in chunks of kLagBlock
-      // frames, primed here where there were no tiles
-      const T* col = x + q * D;
-      const int64_t i_end = n - lw;
-      if (n_tiles == 0) {
+    if (active && q < p)
+      einstein_tail<T, D, W>(x, out, n, p, n_lags, dfac, q, lw,
+                             n_tiles * kTileF, w, acc);
+  }
+}
+
+// The float32 work mode's einstein launch (einstein_rows_kernel):
+// einstein_tile_kernel's CTA, ring and barrier a tile, with tiles of
+// kRowsF frames and frame rows kept particle-major, as the operand holds
+// them: a row slot holds a tile row's kTileP D values, copied by 16-byte
+// cp.async of the chunks that hold them, so a row lands delta = its first
+// value's offset mod 4 values into its slot (row_pitch's padding takes
+// the chunks' edges), and a lane reads values delta + lane D + c (no bank
+// conflict for odd D), delta known from the row's frame mod 4 (tiles start
+// at frames = 0 mod 4). Lanes past P read values not copied for them (the
+// chunks' edges, earlier rows) and store nothing. A CTA takes 102,400
+// bytes of shared memory at d = 3 and at most 128 registers a thread, so
+// two CTAs share an SM; each lag's float32 partial sums two tiles, 64
+// frames, before it is added to the float64 running sum.
+constexpr int kRowsF = 2 * kLagBlock;          // frames of a tile
+constexpr int kRowsRing = 2 * kRowsF + kSpan;  // partner-row slots
+static_assert(kRowsRing % kLagBlock == 0, "a chunk's slots must not wrap");
+template <int D>
+__host__ __device__ constexpr int row_pitch() {
+  return kTileP * D + 4;  // floats of a row slot: a row and its chunks' edges
+}
+template <int D>
+constexpr size_t rows_smem_bytes() {
+  return (size_t)(kRowsRing + 2 * kRowsF) * row_pitch<D>() * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Copy frame rows [f0, f0 + count) of particles [p0, p0 + kTileP) into
+// row slots of dst (row k at slot (first + k) mod wrap, row_pitch<D>()
+// floats apart): the 16-byte chunks that hold a row's values, so the row
+// lands delta values into its slot. All threads take part.
+template <int D>
+__device__ __forceinline__ void copy_rows(const float* __restrict__ x,
+                                          float* dst, int64_t f0, int count,
+                                          int64_t p, int64_t p0, int first,
+                                          int wrap) {
+  constexpr int kPitch = row_pitch<D>(), kChunks = kPitch / 4;
+  const int64_t v = (p - p0 < kTileP ? p - p0 : kTileP) * D;
+  for (int e = threadIdx.x; e < count * kChunks; e += kThreads) {
+    const int k = e / kChunks, j = e - k * kChunks;
+    const float* row = x + ((f0 + k) * p + p0) * D;
+    const uintptr_t src =
+        (reinterpret_cast<uintptr_t>(row) & ~(uintptr_t)15) + 16 * j;
+    if (src < reinterpret_cast<uintptr_t>(row + v)) {
+      int slot = first + k;
+      if (slot >= wrap) slot -= wrap;
+      cp_async16(dst + slot * kPitch + 4 * j,
+                 reinterpret_cast<const void*>(src));
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    einstein_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
+                         int64_t n, int64_t p, int64_t n_lags,
+                         int64_t nspans, double dfac) {
+  constexpr int kPitch = row_pitch<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [kRowsRing][kPitch]
+  float* base = ring + kRowsRing * kPitch;       // [2][kRowsF][kPitch]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t p0 = (int64_t)blockIdx.x * kTileP;
+  const int64_t q = p0 + lane;
+  // lane offset of a row's values by its frame mod 4: delta + lane D
+  int lo[4];
 #pragma unroll
-        for (int j = 0; j < kLagBlock - 1; ++j) {
+  for (int r = 0; r < 4; ++r)
+    lo[r] = (int)(((reinterpret_cast<uintptr_t>(x) >> 2) + p0 * D +
+                   (int64_t)r * p * D) &
+                  3) +
+            lane * D;
+  for (int64_t b = blockIdx.y; b < nspans; b += gridDim.y) {
+    const int64_t l0 = b * kSpan;
+    const int64_t lw = l0 + warp * kLagBlock;  // the warp's first lag
+    const bool active = lw < n_lags;           // uniform in the warp
+    double acc[kLagBlock];
 #pragma unroll
-          for (int c = 0; c < D; ++c)
-            w[c][j] = j < i_end ? (W)col[(lw + j) * s + c] : (W)0;
+    for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
+    float w[D][kLagBlock];
+    const int64_t n_full = n - l0 - (kSpan - 1);
+    const int64_t n_tiles = n_full > 0 ? n_full / kRowsF : 0;
+    if (n_tiles > 0) {
+      // partner rows r = 0 .. kRowsF + kSpan - 2 (frames l0 + r, slot
+      // r + 1) and base tile 0
+      copy_rows<D>(x, ring, l0, kRowsF + kSpan - 1, p, p0, 1, kRowsRing);
+      copy_rows<D>(x, base, 0, kRowsF, p, p0, 0, kRowsF);
+      cp_async_commit();
+      float part[kLagBlock];
+#pragma unroll
+      for (int l = 0; l < kLagBlock; ++l) part[l] = 0.0f;
+      for (int64_t t = 0; t < n_tiles; ++t) {
+        cp_async_wait_all();  // tile t's copies
+        // tile t's rows are in for every thread, and every warp is done
+        // with tile t - 1, whose slots the next copies take
+        __syncthreads();
+        if (t + 1 < n_tiles) {
+          const int64_t r = (t + 1) * kRowsF + kSpan - 1;
+          copy_rows<D>(x, ring, l0 + r, kRowsF, p, p0,
+                       (int)((r + 1) % kRowsRing), kRowsRing);
+          copy_rows<D>(x, base + ((t + 1) & 1) * kRowsF * kPitch,
+                       (t + 1) * kRowsF, kRowsF, p, p0, 0, kRowsF);
+          cp_async_commit();
         }
-      }
-      W part[kLagBlock];
+        if (active) {
+          if (t == 0) {
 #pragma unroll
-      for (int l = 0; l < kLagBlock; ++l) part[l] = 0;
-      for (int64_t i0 = n_tiles * kTileF; i0 < i_end; i0 += kLagBlock) {
+            for (int j = 0; j < kLagBlock - 1; ++j) {
 #pragma unroll
-        for (int k = 0; k < kLagBlock; ++k) {
-          const int64_t i = i0 + k;
-          const int64_t lim = i_end - i;  // lags lw + l, l < lim, pair
-          const int64_t jn = i + kLagBlock - 1;  // the new partner, - lw
-          W xi[D];
-#pragma unroll
-          for (int c = 0; c < D; ++c) {
-            w[c][(k + kLagBlock - 1) % kLagBlock] =
-                jn < i_end ? (W)col[(lw + jn) * s + c] : (W)0;
-            xi[c] = lim > 0 ? (W)col[i * s + c] : (W)0;
+              for (int c = 0; c < D; ++c)
+                w[c][j] = ring[(warp * kLagBlock + j + 1) * kPitch +
+                               lo[j & 3] + c];
+            }
           }
+#pragma unroll 1
+          for (int kk = 0; kk < kRowsF; kk += kLagBlock) {
+            const float* xb = base + ((t & 1) * kRowsF + kk) * kPitch;
+            // slot of partner row t kRowsF + kk + k + warp kLagBlock +
+            // kLagBlock - 1, frame k of the chunk; that row's frame is
+            // k + 3 mod 4
+            const float* xw =
+                ring + (int)((t * kRowsF + kk + (warp + 1) * kLagBlock) %
+                             kRowsRing) *
+                           kPitch;
 #pragma unroll
-          for (int l = 0; l < kLagBlock; ++l) {
-            if (l < lim) {
+            for (int k = 0; k < kLagBlock; ++k) {
+              float xi[D];
 #pragma unroll
               for (int c = 0; c < D; ++c) {
-                const W diff = xi[c] - w[c][(k + l) % kLagBlock];
-                part[l] = fmar(diff, diff, part[l]);
+                w[c][(k + kLagBlock - 1) % kLagBlock] =
+                    xw[k * kPitch + lo[(k + 3) & 3] + c];
+                xi[c] = xb[k * kPitch + lo[k & 3] + c];
               }
+#pragma unroll
+              for (int l = 0; l < kLagBlock; ++l) {
+#pragma unroll
+                for (int c = 0; c < D; ++c) {
+                  const float diff = xi[c] - w[c][(k + l) % kLagBlock];
+                  part[l] = fmaf(diff, diff, part[l]);
+                }
+              }
+            }
+          }
+          // a float32 partial of at most two tiles, 64 frames
+          if ((t & 1) || t + 1 == n_tiles) {
+#pragma unroll
+            for (int l = 0; l < kLagBlock; ++l) {
+              acc[l] += (double)part[l];
+              part[l] = 0.0f;
             }
           }
         }
       }
-#pragma unroll
-      for (int l = 0; l < kLagBlock; ++l) {
-        const int64_t lag = lw + l;
-        if (lag < n_lags) {
-          out[lag * p + q] =
-              (W)(lag == 0 ? 0.0
-                           : (acc[l] + (double)part[l]) /
-                                 ((double)(n - lag) * dfac));
-        }
-      }
+      __syncthreads();  // the next span's copies overwrite the last tile
     }
+    if (active && q < p)
+      einstein_tail<float, D, float>(x, out, n, p, n_lags, dfac, q, lw,
+                                     n_tiles * kRowsF, w, acc);
   }
 }
 
@@ -577,14 +776,31 @@ int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
            bool einstein, double dfac, int64_t lag_block, dim3 grid,
            unsigned cols, cudaStream_t stream) {
   if (einstein) {
-    constexpr size_t smem = tile_smem_bytes<T, D>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        einstein_tile_kernel<T, D, O>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
     const int64_t nspans = (n_lags + kSpan - 1) / kSpan;
-    einstein_tile_kernel<T, D, O><<<grid, cols, smem, stream>>>(
-        (const T*)x, (O*)out, n, p, n_lags, nspans, dfac);
+    if constexpr (sizeof(T) == 4 && sizeof(O) == 4) {
+      // the float32 work mode's einstein launch: all of the SM's shared
+      // memory, so that two CTAs fit
+      constexpr size_t smem = rows_smem_bytes<D>();
+      cudaError_t err = cudaFuncSetAttribute(
+          einstein_rows_kernel<D>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            einstein_rows_kernel<D>,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            (int)cudaSharedmemCarveoutMaxShared);
+      if (err != cudaSuccess) return (int)err;
+      einstein_rows_kernel<D><<<grid, cols, smem, stream>>>(
+          (const float*)x, (float*)out, n, p, n_lags, nspans, dfac);
+    } else {
+      constexpr size_t smem = tile_smem_bytes<T, D>();
+      const cudaError_t err = cudaFuncSetAttribute(
+          einstein_tile_kernel<T, D, O>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      einstein_tile_kernel<T, D, O><<<grid, cols, smem, stream>>>(
+          (const T*)x, (O*)out, n, p, n_lags, nspans, dfac);
+    }
   } else {
     constexpr size_t smem = acf_smem_bytes<T, D>();
     const cudaError_t err = cudaFuncSetAttribute(

@@ -40,9 +40,10 @@ last level is the epilogue K5 (:func:`inverse_last_level`) that writes the
 :func:`fft_level`, :func:`unpack_power_inva` and
 :func:`inverse_last_level` launch their CUDA kernels (``csrc/fft.cu``) on
 CUDA tensors, with K1's and K5's work split from :class:`LevelTiles`
-(column tiles at wide levels, groups of whole rows of A at narrow ones)
-and K2's from :class:`UnpackTiles`, and run their plain PyTorch versions
-on CPU tensors;
+(at wide levels K1's column launch, a column a thread in registers, at
+n ≤ 16, else column tiles of a shared-memory slab; groups of whole rows
+of A at narrow ones) and K2's from :class:`UnpackTiles`, and run their
+plain PyTorch versions on CPU tensors;
 :func:`autocorr_power_sum` is the one orchestration both devices run, so
 the CPU tests exercise the same plans and index maps as the card.
 
@@ -162,21 +163,33 @@ def _check_complex(x: torch.Tensor, name: str) -> None:
 
 
 def tile_cols(n: int) -> int:
-    """Columns per block of a level kernel: the n x tc slab of 16-byte
+    """Columns per block of a slab launch: the n x tc slab of 16-byte
     values stays at 64 KB or less (32 KB for complex64, on the same
-    split)."""
+    split); a level of more columns is wide."""
     return min(64, max(8, 4096 // n))
 
 
 # K1's and K5's work split (csrc/fft.cu). A level of C > tile_cols(n)
-# columns is wide: a block takes a column tile and one row of A at a time.
-# A narrower level leaves most of such a tile idle (60 of 64 lanes at
-# C = 4), so its block takes whole rows, ra of them: rows a0 … a0 + ra − 1
-# are one contiguous run of the (A, n, C) input. LEVEL_SLAB was chosen
-# from scripts/kernel_times.py --only k1 times of 512 … 8,192 at the top,
-# past and depth shapes: fastest for K5 at top and past, within 4 % of the
-# fastest (2,048) at K1's narrow levels; 4,096 and more lose occupancy.
+# columns is wide. K1 takes a wide level of n ≤ COLUMN_LEVEL points a
+# column a thread, its n values in registers (the column launch); K5 and
+# longer K1 levels take a column tile and one row of A a block, staged in
+# shared memory (the slab launch). A narrower level leaves most of such a
+# tile idle (60 of 64 lanes at C = 4), so its block takes whole rows, ra
+# of them: rows a0 … a0 + ra − 1 are one contiguous run of the (A, n, C)
+# input. LEVEL_SLAB was chosen from scripts/kernel_times.py --only k1
+# times of 512 … 8,192 at the top, past and depth shapes: fastest for K5
+# at top and past, within 4 % of the fastest (2,048) at K1's narrow
+# levels; 4,096 and more lose occupancy.
 LEVEL_SLAB = 1024       # most complex values a narrow level's block stages
+COLUMN_LEVEL = 16       # the longest level of K1's column launch
+COLUMN_BLOCKS = range(256, 63, -32)  # its block widths, in threads
+
+
+def column_block(c: int) -> int:
+    """Threads of a block of K1's column launch over C columns: of
+    ``COLUMN_BLOCKS``, the width whose last block leaves the fewest lanes
+    idle, the widest of equals."""
+    return min(COLUMN_BLOCKS, key=lambda t: -(-c // t) * t)
 
 
 def _pow2_floor(x: int) -> int:
@@ -187,9 +200,14 @@ class LevelTiles:
     """The work split of K1, or of K5 (``epilogue``), over an (A, n, C)
     level.
 
-    Wide, C > tile_cols(n): column tiles of ``tc`` = tile_cols(n) (grid x),
-    one row of A at a time (``ra`` = 1), an n × tc slab zero past C; an
-    item is an output (k, c).
+    Wide, C > tile_cols(n). K1 at n ≤ ``COLUMN_LEVEL`` (``columns``): a
+    thread owns column (a, c) and forms its n outputs in registers;
+    ``tc`` = :func:`column_block` threads a block over consecutive
+    columns (grid x), one row of A a block (grid y), no shared memory
+    (``smem`` 0, ``pitch`` 0, which tells the C entry this launch).
+    Otherwise (K5, longer K1 levels): column tiles of ``tc`` =
+    tile_cols(n) (grid x), one row of A at a time (``ra`` = 1), an n × tc
+    slab zero past C; an item is an output (k, c).
     Narrow, C ≤ tile_cols(n): ``tc`` = C, one column tile, and groups of
     ``ra`` rows of A (grid y), ra the largest power of two with
     ra·n·C ≤ ``LEVEL_SLAB`` (at least 1, at most A rounded up to a power
@@ -209,7 +227,10 @@ class LevelTiles:
         self.a, self.n, self.c = a, n, c
         tc = tile_cols(n)
         self.wide = c > tc
-        if self.wide:
+        self.columns = self.wide and not epilogue and n <= COLUMN_LEVEL
+        if self.columns:
+            self.tc, self.ra, self.pitch, self.smem = column_block(c), 1, 0, 0
+        elif self.wide:
             self.tc, self.ra, self.pitch = tc, 1, n * tc
             self.smem = itemsize * (n + n * tc)
         else:

@@ -32,8 +32,10 @@ of lags, whose work split :func:`acf_spans`, :func:`acf_tiles`,
 and :func:`acf_smem_row` list; the einstein mode streams frame tiles
 through shared memory for a CTA of particles × a span of lags, whose work
 split :func:`einstein_tiles`, :func:`ring_slot`, :func:`ring_loads`,
-:func:`window_rows` and :func:`tail_frames` list, as ``csrc/lag.cu`` runs
-them. The TPU routing switches
+:func:`window_rows` and :func:`tail_frames` list for the tile of
+:func:`tile_frames`, as ``csrc/lag.cu`` runs them; the float32 work
+mode's launch copies whole particle-major frame rows (:func:`row_copy`,
+:func:`row_delta`, :func:`row_pitch`). The TPU routing switches
 (``TRANSPORT_ANALYSIS_TPU_NO_PALLAS_LAG``, ``..._PALLAS_LAG_F64``, the
 cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
 kernel, a CPU tensor its plain version.
@@ -96,10 +98,15 @@ def _check(x: torch.Tensor, n_lags: int, mode: str, reduce_mode: str,
                          f"{reduce_mode!r}")
 
 
-def tile_frames(dtype: torch.dtype) -> int:
+def tile_frames(dtype: torch.dtype,
+                out_dtype: torch.dtype = torch.float64) -> int:
     """Frames of the einstein mode's shared-memory tile for an operand of
-    ``dtype`` (``csrc/lag.cu`` tile_frames): what the shared memory holds
-    at d = 3."""
+    ``dtype`` and sums of ``out_dtype``: for float64 sums
+    (``csrc/lag.cu`` einstein_tile_kernel, tile_frames) what the shared
+    memory holds at d = 3; for float32 sums (einstein_rows_kernel,
+    kRowsF) two lag blocks, so that two CTAs share an SM."""
+    if out_dtype == torch.float32:
+        return 2 * LAG_BLOCK
     return 4 * LAG_BLOCK if dtype == torch.float32 else 2 * LAG_BLOCK
 
 
@@ -219,6 +226,32 @@ def tail_frames(n: int, l0: int, warp: int, tile_f: int) -> range:
     chunks of LAG_BLOCK, each of its lags masked by i + lag < N."""
     return range(einstein_tiles(n, l0, tile_f) * tile_f,
                  max(0, n - l0 - warp * LAG_BLOCK))
+
+
+def row_pitch(d: int) -> int:
+    """Floats of a row slot of the float32 einstein launch (``csrc/lag.cu``
+    row_pitch): a tile row's TILE_P·d values and its 16-byte chunks'
+    edges."""
+    return TILE_P * d + 4
+
+
+def row_copy(addr: int, f: int, p: int, p0: int, d: int
+             ) -> tuple[int, int, int]:
+    """(first byte, bytes, delta) of the 16-byte copies of frame row f of
+    particles [p0, p0 + TILE_P) of a float32 operand at byte address
+    ``addr`` in the float32 einstein launch (``csrc/lag.cu`` copy_rows):
+    the chunks that hold its min(TILE_P, P − p0)·d values, so the row
+    lands delta values into its slot."""
+    start = addr + 4 * (f * p + p0) * d
+    v = min(TILE_P, p - p0) * d
+    a0 = start & ~15
+    return a0, ((start + 4 * v + 15) & ~15) - a0, (start - a0) // 4
+
+
+def row_delta(addr: int, f: int, p: int, p0: int, d: int) -> int:
+    """The delta a lane reads frame row f at, from f mod 4 alone (tiles
+    start at frames ≡ 0 mod 4): ((addr / 4) + p0·d + (f mod 4)·P·d) mod 4."""
+    return ((addr >> 2) + p0 * d + (f % 4) * p * d) % 4
 
 
 def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",

@@ -147,18 +147,52 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    m·v·x spools (lags < N/2), with its float32-grade distance from the
    in-memory ``ViscosityHelfand``; ``correlate_spools``' per-chunk
    read, stall and kernel seconds and the overlap 1 − Σstall/Σread.
-8. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
+8. mesh    — several devices on the one card: ``analysis_mesh()`` over
+   every visible card (its count printed), then ``analysis_mesh(["cuda"]
+   * 4)``, four particle shards of the card. Under ``use_mesh`` the model
+   phase's runs (``fft``, ``windowed``, ``msd_fft``, ``msd_windowed``),
+   each once warm and once timed, within 1e-13 of the model phase's
+   unsharded run (bit-equal or not, said; the MSD on lags < N/2) and
+   1e-11 of the host oracles, with 4 x its launches. The ring (``parallel.ring``) over four frame blocks
+   of that system, all 8,192 lags, float64 acf and einstein (sum_d both
+   ways) and float32 acf and einstein, against K8 ``lag_sums`` of the
+   whole series within 1e-12 (1e-5), its wall beside its bound (pairs x
+   d x 2 flop at 67 TFLOP/s for acf, x 3 at 34, or 67 in float32, for
+   einstein; bytes over 3.35 TB/s) and K8's, ten two-block launches a
+   ring; the two-block launch (``lag_sums_pair``, K8's ``kPair``
+   instantiations) on the ring's rounds 0 (xa = xb, offset 0), 1 and 3
+   (lags up to N - 1), blocks of 2,048 frames over every atom, against
+   its plain version on every 21st atom, both modes, float64 and float32
+   blocks (1e-12, 1e-5 in float32), round 1's acf launches beside the
+   library's pair sums, a grouped ``F.conv1d`` (TF32 off) of the
+   zero-padded partner series with the base series. The sharded FFT at
+   65,536 frames (M = 2^17, four frame shards) over every 10th atom of
+   the deep system: ``sharded_acf_fft`` and ``sharded_msd_fft`` within
+   1e-12 of ``ops.acf_fft`` / ``ops.msd_fft`` on the card and 1e-11 of
+   host f64 (lags < N/2), and ``sharded_fft`` forward against
+   ``torch.fft.fft`` in transposed order and back. From the files
+   phase's TRR, ``vacf_out_of_core_sharded`` and
+   ``helfand_out_of_core_sharded`` within 1e-13 of the plain out-of-core
+   runs on the same spools (under ``build/``, deleted after). Last, a
+   one-process NCCL group (``init_method`` a file under ``build/``): the
+   multi-process feed in four shards, its all_reduce equal to the local
+   sum and its all_gather to the feed; the group is destroyed. Each run's
+   wall and peak device memory.
+9. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
 Then one JSON line of per-kernel results, one entry per instantiation
 (``<wrapper>_f32`` for the float32 work mode's; launches from the deep
 phase's timed runs, and the f32 phase's at the deep shape for the
-float32 entries, ``fft`` for K1–K6b and ``windowed`` for K8; kernel, plain,
+float32 entries, ``fft`` for K1–K6b and ``windowed`` for K8, the mesh
+phase's ring runs for ``lag_sums_pair``; kernel, plain,
 bound and library milliseconds at its shapes: M = 2^17 over the EC width,
 K8 over 65,536 frames and 2,048 lags, summed over the VACF and Helfand
-launches, with ``plain_atoms`` beside ``atoms`` and ``library_kernel_ms``,
-the kernel's time on the launches its library call covers) and, last,
+launches, the two-block launch at the mesh phase's round 1 summed over
+its acf and einstein launches, with ``plain_atoms`` beside ``atoms`` and
+``library_kernel_ms``, the kernel's time on the launches its library call
+covers: K8's acf launches) and, last,
 the device line ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -216,6 +250,13 @@ BLOCKED_TOL = 1e-15      # frame-blocked run vs the batch run
 CHUNKED_TOL = 1e-12      # atom-chunked run vs the unchunked run
 SPOOL_TOL = 1e-13        # out-of-core VACF and MSD vs in memory
 PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
+# the mesh phase: the model phase's system in four particle shards of the
+# one card, the ring over four frame blocks, the sharded FFT over every
+# 10th atom of the deep system
+MESH_SHARDS = 4
+MESH_TOL = 1e-13         # sharded run vs unsharded; sharded out of core vs plain
+RING_TOL = 1e-12         # the ring vs K8 on the whole series
+FFT_STRIDE = 10
 # the card's peaks for the bounds (H100 SXM data sheet)
 PEAK_FP64 = 34e12        # flop/s, FP64 outside the tensor cores
 PEAK_FP64_MMA = 67e12    # flop/s, FP64 matrix products on the tensor cores
@@ -262,6 +303,12 @@ KERNELS = {  # wrapper name -> (source, TPU kernels it replaces)
 # (``launches_f32``): the same wrappers and sources
 KERNELS.update({f"{key}_f32": value for key, value in list(KERNELS.items())})
 KERNELS["lag_sums_f32"] = (CSRC + "lag.cu", f"{TPU}pallas_lag.py:111 (K8a)")
+# K8's two-block launch, the exact ring's pair sums (the JAX package's ring
+# forms them in plain jnp, transport_analysis_tpu/parallel/ring.py:35)
+RING = "transport_analysis_tpu/parallel/ring.py:35 (its pair sums)"
+KERNELS["lag_sums_pair"] = (CSRC + "lag.cu", f"{TPU}pallas_lag.py:111 (K8a), "
+                            f"{TPU}pallas_lag.py:290 (K8b), as {RING}")
+KERNELS["lag_sums_pair_f32"] = KERNELS["lag_sums_pair"]
 # what each kind of run must launch
 FFT_KERNELS = ["fft_level", "unpack_power_inva", "inverse_last_level",
                "kneller_totals", "kneller_windows"]
@@ -319,12 +366,13 @@ def build_phase(build):
                 dmma[name] = 0
         elif name in dmma and "DMMA" in ln:
             dmma[name] += 1
-    if len(dmma) != 9 or min(dmma.values()) == 0:
+    if len(dmma) != 15 or min(dmma.values()) == 0:
         raise RuntimeError(f"build: acf_gram_kernel's SASS, DMMA instructions "
                            f"by instantiation: {dmma}")
     phase("build", f"acf_gram_kernel: DMMA instructions in the SASS of its "
-          f"9 instantiations (float -> double, double -> double, float -> "
-          f"float x d = 1, 2, 3): {sorted(dmma.values())}")
+          f"15 instantiations (one operand: float -> double, double -> "
+          f"double, float -> float; two blocks: double -> double, float -> "
+          f"float; x d = 1, 2, 3): {sorted(dmma.values())}")
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -1044,7 +1092,7 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("kneller_scan", "K6b kneller_windows scan"),
     ("einstein_tile_kernel", "K8 lag_sums einstein"),
     ("einstein_rows_kernel", "K8 lag_sums einstein"),   # float32 sums
-    ("acf_gram_kernel", "K8 lag_sums acf"),
+    ("acf_gram_kernel", "K8 lag_sums acf"),     # one operand and two blocks
 ]
 
 
@@ -1330,6 +1378,8 @@ def model_phase(torch, ta, acf_numpy, counters, card, name, n, n_molecules,
         cross("msd_windowed", "MSD", msd_win.results.msds_by_particle,
               msd_fft.results.msds_by_particle)
         kept["ref_m"] = ref_m
+        kept["msd_fft"], kept["msd_windowed"] = ((msd_fft.results,),
+                                                 (msd_win.results,))
         del msd_fft, msd_win, ref_m
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
     kept["launches"], kept["walls"] = launches, walls
@@ -1948,6 +1998,344 @@ def stream_phase(torch, ta, acf_numpy, counters, card, deep, files, tmp):
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
+               files, tmp):
+    """Multiple devices on the one card (module docstring): the models in
+    four particle shards against the model phase's unsharded runs
+    (``model``: its system and kept results), the ring over four frame
+    blocks against K8 and its two-block launch against its plain version,
+    the sharded FFT on every 10th atom of ``deep_system``, the sharded
+    out-of-core runs from the files phase's TRR (spools in ``tmp``), and
+    a one-process NCCL group. Returns the launches of its runs and the
+    two-block launch's kernel numbers."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from transport_analysis_tpu_torch import ops, parallel
+    from transport_analysis_tpu_torch.ops.acf import acf_fft_numpy
+    from transport_analysis_tpu_torch.parallel import (multihost, out_of_core,
+                                                       ring, sharded_fft)
+    from transport_analysis_tpu_torch.parallel.mesh import Mesh
+
+    name = "mesh"
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cards = parallel.analysis_mesh()
+    phase(name, f"analysis_mesh(): {cards.size} visible card(s) "
+          f"{[str(d) for d in cards.devices]}")
+    mesh = parallel.analysis_mesh(["cuda"] * MESH_SHARDS)
+    frames = Mesh(["cuda"] * MESH_SHARDS, ("frames",))
+    phase(name, f"analysis_mesh(['cuda'] * {MESH_SHARDS}): {mesh}")
+    launches = {}
+
+    def run_timed(label, run, needed=()):
+        """``run`` once, the counters reset just before and read just
+        after, with its wall and peak device memory; the kernels
+        ``needed`` must have launched."""
+        torch.cuda.reset_peak_memory_stats()
+        out, count, wall = counted_run(torch, counters, run)
+        peak = torch.cuda.max_memory_allocated()
+        launched = {key: c for key, c in count.items() if c}
+        phase(name, f"{label}: wall {wall:.4f} s, peak device memory "
+              f"{peak / 2**30:.3f} GiB, launches {launched}, on {card}")
+        missing = [key for key in needed if count[key] < 1]
+        if missing:
+            raise AssertionError(f"{label}: kernels not launched: {missing}")
+        return out, count, wall
+
+    def rel_err(got, want, head=None):
+        got, want = np.asarray(got), np.asarray(want)
+        if head is not None:
+            got, want = got[:head], want[:head]
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def within(label, err, tol, against, extra=""):
+        phase(name, f"{label} vs {against}: {err:.3e}{extra}")
+        if not err <= tol:
+            raise AssertionError(f"{label}: {err:.3e} from {against}, past "
+                                 f"{tol}")
+
+    # -- the model phase's runs in four particle shards of the card
+    pos, vel, attrs = model["system"]
+    kept = model["kept"]
+    n, n_atoms = pos.shape[:2]
+    u = ec_universe(ta, pos, vel, attrs)
+    analyses, msd = runs(ta, u)
+    check, _, _ = checks(name, n, n_atoms, 1)
+    keys = {"VACF": "vacf_by_particle", "Helfand": "visc_by_particle",
+            "MSD": "msds_by_particle"}
+    refs = {"VACF": kept["ref_v"], "Helfand": kept["ref_h"],
+            "MSD": kept["ref_m"]}
+    pairs = n * (n + 1) // 2
+
+    def sharded(run):
+        def inner():
+            with parallel.use_mesh(mesh):
+                return run()
+        return inner
+
+    for label, run, needed, whats in (
+            ("fft", analyses(True), FFT_KERNELS, ("VACF", "Helfand")),
+            ("windowed", analyses(False), WINDOWED_KERNELS,
+             ("VACF", "Helfand")),
+            ("msd_fft", msd(True), FFT_KERNELS, ("MSD",)),
+            ("msd_windowed", msd(False), WINDOWED_KERNELS, ("MSD",))):
+        out, count, wall = drive(
+            torch, counters, card, name, f"{MESH_SHARDS}-shard {label}",
+            sharded(run), needed, len(whats) * pairs * n_atoms,
+            profile=False)
+        want = {key: MESH_SHARDS * c
+                for key, c in kept["launches"][label].items()}
+        if count != want:
+            raise AssertionError(f"{label}: launches {count}, not "
+                                 f"{MESH_SHARDS} x the unsharded run's {want}")
+        phase(name, f"{MESH_SHARDS}-shard {label}: launches {MESH_SHARDS} x "
+              f"the unsharded run's; wall {wall:.4f} s against its "
+              f"{kept['walls'][label]:.4f} s")
+        got = ((out[0].results, out[2].results) if len(whats) == 2
+               else (out.results,))
+        for what, res, base in zip(whats, got, kept[label]):
+            # the MSD of positions on lags < N/2, as the stream phase
+            # holds its chunks (the Kneller sums' floor near lag N)
+            head = n // 2 if what == "MSD" else None
+            for field in (keys[what], "timeseries"):
+                equal = np.array_equal(res[field], base[field])
+                extra = (f" (over all lags {rel_err(res[field], base[field]):.3e})"
+                         if head else "")
+                within(f"{MESH_SHARDS}-shard {label} {what} {field}",
+                       rel_err(res[field], base[field], head), MESH_TOL,
+                       "the unsharded run",
+                       f"{extra} ({'bit-equal' if equal else 'not bit-equal'})")
+            check(f"{MESH_SHARDS}-shard {label}", what, res[keys[what]],
+                  res.timeseries, refs[what], n)
+        launches[label] = count
+        del out, got
+    torch.cuda.empty_cache()
+
+    # -- the ring over four frame blocks of the model system, all lags
+    block = n // MESH_SHARDS
+    ring_counts = {torch.float64: [], torch.float32: []}
+    for dtype, mode, sum_d, series in (
+            (torch.float64, "acf", True, vel),
+            (torch.float64, "einstein", True, pos),
+            (torch.float64, "einstein", False, pos),
+            (torch.float32, "acf", True, vel),
+            (torch.float32, "einstein", True, pos)):
+        x = torch.from_numpy(series).to(dev, dtype)
+        label = (f"ring {str(dtype)[6:]} {mode} sum_d={sum_d} ({n}, "
+                 f"{n_atoms}, 3) over {MESH_SHARDS} blocks of {block}")
+        got, count, wall = run_timed(
+            label, lambda: ring.windowed_correlation_ring(
+                x, frames, mode=mode, sum_d=sum_d))
+        key = "lag_sums_pair" + ("_f32" if dtype == torch.float32 else "")
+        rounds = MESH_SHARDS * (MESH_SHARDS + 1) // 2
+        if count[key] != rounds or count["lag_sums"]:
+            raise AssertionError(f"{label}: {count[key]} two-block launches, "
+                                 f"not {rounds}")
+        ring_counts[dtype].append(count)
+        reduce_mode = "mean" if mode == "einstein" and not sum_d else "sum"
+        t0 = time.perf_counter()
+        want = cuda_lag.lag_sums(x, n, mode, reduce_mode)
+        torch.cuda.synchronize()
+        k8_s = time.perf_counter() - t0
+        n_pairs = 3 * n_atoms * lag_pairs(n, n)
+        b_ms, by = bound(*work(
+            x.element_size() * x.numel() + 8 * n * n_atoms,
+            (2 if mode == "acf" else 3) * n_pairs,
+            PEAK_FP64_MMA if mode == "acf" else
+            (PEAK_FP32 if dtype == torch.float32 else PEAK_FP64)))
+        diff, scale = max_abs_diff(got, want)
+        within(label, diff / scale,
+               RING_TOL if dtype == torch.float64 else F32_KERNEL_TOL,
+               "K8 lag_sums of the whole series",
+               f"; ring wall {1e3 * wall:.3f} ms beside its bound "
+               f"{b_ms:.3f} ms ({by}) and K8's {1e3 * k8_s:.3f} ms, "
+               f"{count[key]} two-block launches")
+        del x, got, want
+    launches["ring"] = {key: sum(c[key] for c in ring_counts[torch.float64])
+                        for key in counters}
+    launches["ring_f32"] = {key: sum(c[key] for c in
+                                     ring_counts[torch.float32])
+                            for key in counters}
+
+    # -- the two-block launch against its plain version, plain on every
+    # 21st atom: the ring's rounds 0 (xa = xb = block 0, lags 0 .. L - 1,
+    # the pairs b >= a), 1 (blocks 0 and 1, lags 1 .. 2L - 1) and 3 (blocks
+    # 0 and 3, lags up to N - 1). Round 1's numbers are the JSON line's,
+    # its acf launches beside the library's lag sums: a grouped conv1d of
+    # each series of xb, zero-padded to the round's lags, with that of xa
+    results, others = {}, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # float32 conv1d in float32
+    try:
+        for k, dtype, mode, series in (
+                (k, dtype, mode, series) for k in (1, 0, 3)
+                for dtype in (torch.float64, torch.float32)
+                for mode, series in (("acf", vel), ("einstein", pos))):
+            offset = k * block
+            lo, count = ring.round_window(k, block, n)
+            x = torch.from_numpy(series).to(dev, dtype)
+            xa, xb = x[:block], x[offset:offset + block]
+            sa = xa[:, ::PLAIN_STRIDE].contiguous()
+            sb = xb[:, ::PLAIN_STRIDE].contiguous()
+            f32 = dtype == torch.float32
+            shift = lo - offset
+            n_pairs = 3 * n_atoms * sum(
+                max(0, block - abs(delta))
+                for delta in range(shift, shift + count))
+            t_bytes = ((1 if k == 0 else 2) * x.element_size() * block
+                       * n_atoms * 3 + x.element_size() * count * n_atoms)
+            times = (work(t_bytes, 2 * n_pairs, PEAK_FP64_MMA)
+                     if mode == "acf" else
+                     work(t_bytes, 3 * n_pairs,
+                          PEAK_FP32 if f32 else PEAK_FP64))
+            library = None
+            if mode == "acf" and k == 1:
+                weight = xa.reshape(block, -1).T.contiguous()[:, None]
+                padded = torch.nn.functional.pad(
+                    xb.reshape(block, -1).T, (-shift, count - 1 + shift))[
+                        None].contiguous()
+
+                def library():
+                    return torch.nn.functional.conv1d(
+                        padded, weight, groups=weight.shape[0])
+
+                diff, scale = max_abs_diff(
+                    library()[0].view(n_atoms, 3, count).sum(1).T,
+                    cuda_lag.lag_sums_pair(xa, xb, offset, lo, count, mode))
+                phase("kernels", f"{name} library pair sums of round {k} "
+                      f"(grouped {str(dtype)[6:]} conv1d of xb's padded "
+                      f"series with xa's) agree with K8's two-block launch "
+                      f"to {diff / scale:.3e}")
+            key = "lag_sums_pair" + ("_f32" if f32 else "")
+            compare_kernel(
+                torch, results if k == 1 else others, name, key,
+                lambda: cuda_lag.lag_sums_pair(xa, xb, offset, lo, count,
+                                               mode),
+                lambda: cuda_lag.lag_sums_pair_plain(sa, sb, offset, lo,
+                                                     count, mode),
+                f"K8 lag_sums_pair round {k} {str(dtype)[6:]} {mode}: "
+                f"blocks ({block}, {n_atoms}, 3) at offset {offset}, lags "
+                f"{lo} .. {lo + count - 1} (plain on every {PLAIN_STRIDE}st "
+                f"atom)", times, library=library,
+                pick=lambda out: out[:, ::PLAIN_STRIDE],
+                tol=F32_KERNEL_TOL if f32 else KERNEL_TOL)
+            if k == 1:
+                r = results[name][key]
+                r["atoms"], r["plain_atoms"] = n_atoms, sa.shape[1]
+            del x, xa, xb, sa, sb, library
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    finish_results(results)
+    torch.cuda.empty_cache()
+
+    # -- the sharded FFT at the deep shape over every 10th atom
+    pos_d, vel_d, _ = deep_system
+    nd = vel_d.shape[0]
+    v10 = vel_d[:, ::FFT_STRIDE].astype(np.float64)
+    r10 = pos_d[:, ::FFT_STRIDE].astype(np.float64)
+    atoms10 = v10.shape[1]
+    head = nd // 2
+    got, _, _ = run_timed(
+        f"sharded_acf_fft ({nd}, {atoms10}, 3) over {MESH_SHARDS} frame "
+        "shards", lambda: sharded_fft.sharded_acf_fft(v10, frames),
+        ["fft_level"])
+    card_ref = ops.acf_fft(torch.from_numpy(v10).to(dev)).cpu().numpy()
+    within("sharded_acf_fft", rel_err(got, card_ref, head), KERNEL_TOL,
+           "ops.acf_fft on the card (lags < N/2)")
+    within("sharded_acf_fft", rel_err(got, acf_fft_numpy(v10), head),
+           HEAD_TOL, "host f64 (lags < N/2)")
+    del got, card_ref
+    got, _, _ = run_timed(
+        f"sharded_msd_fft ({nd}, {atoms10}, 3) over {MESH_SHARDS} frame "
+        "shards", lambda: sharded_fft.sharded_msd_fft(r10, frames),
+        ["fft_level"])
+    card_ref = ops.msd_fft(torch.from_numpy(r10).to(dev)).cpu().numpy()
+    within("sharded_msd_fft", rel_err(got, card_ref, head), KERNEL_TOL,
+           "ops.msd_fft on the card (lags < N/2)")
+    within("sharded_msd_fft", rel_err(got, einstein_oracle(r10, 1), head),
+           HEAD_TOL, "host f64 (lags < N/2)")
+    del got, card_ref, v10, r10
+    m = 2 * nd
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    re, im = torch.randn((2, m, 256), dtype=torch.float64, device=dev,
+                         generator=g)
+    (zr, zi), _, _ = run_timed(
+        f"sharded_fft forward ({m}, 256) complex128",
+        lambda: sharded_fft.sharded_fft(re, im, frames), ["fft_level"])
+    n2 = m // sharded_fft._pick_n1(m, MESH_SHARDS)
+    k1, k2 = torch.arange(m, device=dev).div(n2, rounding_mode="floor"), \
+        torch.arange(m, device=dev) % n2
+    spectrum = torch.complex(zr.gather(), zi.gather())
+    lib = torch.fft.fft(torch.complex(re, im), dim=0)[k2 * (m // n2) + k1]
+    diff, scale = max_abs_diff(torch.view_as_real(spectrum),
+                               torch.view_as_real(lib))
+    within("sharded_fft forward, transposed order", diff / scale, KERNEL_TOL,
+           "torch.fft.fft reindexed (row k1·N2 + k2 = frequency k2·N1 + k1)")
+    del spectrum, lib
+    (xr, xi), _, _ = run_timed(
+        "sharded_fft inverse", lambda: sharded_fft.sharded_fft(
+            zr, zi, frames, inverse=True), ["fft_level"])
+    diff = max(max_abs_diff(xr.gather(), re)[0],
+               max_abs_diff(xi.gather(), im)[0])
+    within("sharded_fft forward + inverse", diff / float(re.abs().max()),
+           KERNEL_TOL, "the input")
+    del re, im, zr, zi, xr, xi
+    torch.cuda.empty_cache()
+
+    # -- sharded out of core from the files phase's TRR: the plain run
+    # builds the spools, the sharded run reuses them
+    ut = ta.Universe(files["pdb"], files["trr"])
+    at = ut.select_atoms("resname ECA")
+    for label, plain, shard, kwargs in (
+            ("VACF", out_of_core.vacf_out_of_core,
+             out_of_core.vacf_out_of_core_sharded, {}),
+            ("Helfand", out_of_core.helfand_out_of_core,
+             out_of_core.helfand_out_of_core_sharded, {"temp_avg": TEMP})):
+        spool = os.path.join(tmp, f"spool_mesh_{label}")
+        want = plain(at, spool, atom_chunk=SPOOL_CHUNK, **kwargs)
+        got, _, _ = run_timed(
+            f"{label.lower()}_out_of_core_sharded (spools of {SPOOL_CHUNK} "
+            f"atoms, {MESH_SHARDS} frame shards)",
+            lambda: shard(at, spool, frames, atom_chunk=SPOOL_CHUNK,
+                          **kwargs), ["fft_level"])
+        if label == "Helfand":
+            got, want = got[0], want[0]
+        equal = np.array_equal(got, want)
+        within(f"{label.lower()}_out_of_core_sharded", rel_err(got, want),
+               MESH_TOL, f"{label.lower()}_out_of_core",
+               f" ({'bit-equal' if equal else 'not bit-equal'})")
+        shutil.rmtree(spool)
+
+    # -- a one-process NCCL group: the multi-process feed through it
+    init = os.path.join(tmp, "nccl_init")
+    dist.init_process_group("nccl", init_method="file://" + init,
+                            world_size=1, rank=0)
+    try:
+        gm = multihost.global_mesh(["cuda"] * MESH_SHARDS)
+        sl = multihost.atom_shard_for_process(n_atoms, gm)
+        feed = multihost.distribute_atom_block(vel[:, sl], n_atoms, gm)
+        if not feed.distributed or len(feed.shards) != MESH_SHARDS:
+            raise AssertionError("distribute_atom_block did not shard over "
+                                 "the group")
+        total = feed.psum(lambda s: s.double().square().sum(dim=(1, 2)))
+        local = torch.from_numpy(vel).to(dev).double().square().sum(
+            dim=(1, 2))
+        equal = torch.equal(feed.gather().cpu(), torch.from_numpy(vel))
+        within(f"NCCL ({dist.get_backend()}, world {dist.get_world_size()}): "
+               f"atoms {sl.start} .. {sl.stop - 1} in {MESH_SHARDS} shards, "
+               "all_reduce of Σ v²", rel_err(total.cpu(), local.cpu()),
+               MESH_TOL, "the local sum",
+               f"; all_gather of the shards equal to the feed: {equal}")
+        if not equal:
+            raise AssertionError("NCCL all_gather of the shards differs")
+    finally:
+        dist.destroy_process_group()
+    phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, results[name]
+
+
 def main() -> int:
     import torch
 
@@ -1980,6 +2368,7 @@ def main() -> int:
         "kneller_totals": cuda_kneller.kneller_totals,
         "kneller_windows": cuda_kneller.kneller_windows,
         "lag_sums": cuda_lag.lag_sums,
+        "lag_sums_pair": cuda_lag.lag_sums_pair,
     }
     counters.update({f"{key}_f32": F32Launches(fn)
                      for key, fn in list(counters.items())})
@@ -2000,24 +2389,36 @@ def main() -> int:
                 files = files_phase(torch, ta, acf_fft_numpy, counters, smi,
                                     system, walls, tmp)
                 torch.cuda.empty_cache()
+                model = {"system": system, "kept": kept}
             elif name == "deep":
                 kept["system"] = system
                 stream_phase(torch, ta, acf_fft_numpy, counters, smi, kept,
                              files, tmp)
                 torch.cuda.empty_cache()
-                del files
+                launches["mesh"], pair_results = mesh_phase(
+                    torch, ta, cuda_lag, counters, smi, model, system, files,
+                    tmp)
+                kernel_results.update(pair_results)
+                torch.cuda.empty_cache()
+                del files, model
             del system, kept
     if any(mod == "jax" or mod.startswith("jax.") for mod in sys.modules):
         raise AssertionError("jax was imported")
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
 
     # launches from the deep phase's timed runs, those of the float32
-    # instantiations from the f32 phase's at the deep shape
+    # instantiations from the f32 phase's at the deep shape, the two-block
+    # launch's from the mesh phase's ring runs
+    def main_launches(name):
+        if name.startswith("lag_sums_pair"):
+            return launches["mesh"]["ring_f32" if name.endswith("_f32")
+                                    else "ring"][name]
+        return launches["deep_f32" if name.endswith("_f32") else "deep"][
+            "windowed" if name.startswith("lag_sums") else "fft"][name]
+
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches["deep_f32" if name.endswith("_f32") else "deep"][
-             "windowed" if name.startswith("lag_sums") else "fft"][name],
-         **kernel_results[name]}
+         "launches": main_launches(name), **kernel_results[name]}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

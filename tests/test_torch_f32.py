@@ -418,7 +418,8 @@ def test_every_c_entry_has_an_f32_twin():
     base = [name for name in _build.SIGNATURES if not name.endswith("_f32")]
     assert sorted(base) == ["ta_fft_level", "ta_inverse_last_level",
                             "ta_kneller_totals", "ta_kneller_windows",
-                            "ta_lag_sums", "ta_unpack_power_inva"]
+                            "ta_lag_pair", "ta_lag_sums",
+                            "ta_unpack_power_inva"]
     for name in base:
         assert _build.SIGNATURES[name + "_f32"] == _build.SIGNATURES[name]
     src = "".join(path.read_text() for path in _build.sources())

@@ -826,3 +826,213 @@ def test_einstein_launch_all_lags_long(cuda_device, dtype, out_dtype):
     x = torch.from_numpy(np.random.RandomState(8192).normal(
         0.5, 2.0, (8192, 37, 3))).to(cuda_device, dtype)
     einstein_check(x, 8192, out_dtype)
+
+
+# --- K8's two-block launch (the exact ring's pair sums) ----------------------
+
+def pair_check(xa, xb, offset, lag_lo, n_lags):
+    """lag_sums_pair against its plain version, both modes and reduce
+    modes, sums of the blocks' type; the kernel's lags with no pair must
+    be 0."""
+    tol = TOL if xa.dtype == torch.float64 else F32_TOL
+    for mode in ("acf", "einstein"):
+        for reduce_mode in ("sum", "mean"):
+            got = cuda_lag.lag_sums_pair(xa, xb, offset, lag_lo, n_lags, mode,
+                                         reduce_mode)
+            ref = cuda_lag.lag_sums_pair_plain(xa, xb, offset, lag_lo, n_lags,
+                                               mode, reduce_mode)
+            assert got.shape == (n_lags, xa.shape[1])
+            assert got.dtype == xa.dtype
+            assert torch.all(got[ref == 0] == 0)
+            assert rel(got, ref) <= tol, (offset, lag_lo, n_lags, mode,
+                                          reduce_mode)
+
+
+@pytest.mark.parametrize("p", [33, 70])
+@pytest.mark.parametrize("d", [1, 2, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_launch_vs_plain(cuda_device, p, d, dtype):
+    """K8's two-block launch (``lag_sums_pair``) at P not a multiple of
+    the particle tile, d = 1, 2, 3 and 5 (two launches), blocks under one
+    frame tile (20), about a span (160) and of several acf chunks (1,100):
+    round 0 (xa = xb, offset 0), the ring's rounds 1 and 3 (offset k·L,
+    lags kL − L + 1 … kL + L − 1), and an offset off the block grid whose
+    lags run past the pairs at both ends; the first block one value into
+    its storage, so frame rows start off 16-byte chunks."""
+    rng = np.random.RandomState(p * d)
+    for n in (20, 160, 1100):
+        size = n * p * d
+        flat = torch.from_numpy(rng.normal(0.5, 2.0, 2 * size + 1)).to(
+            cuda_device, dtype)
+        xa = flat[1:size + 1].view(n, p, d)
+        xb = flat[size + 1:].view(n, p, d)
+        pair_check(xa, xa, 0, 0, n)
+        pair_check(xa, xb, n, 1, 2 * n - 1)
+        pair_check(xa, xb, 3 * n, 2 * n + 1, 2 * n - 1)
+        pair_check(xa, xb, n + 7, 0, 3 * n)
+
+
+def test_pair_launch_counts(cuda_device):
+    """Each two-block launch adds one to the wrapper's count (two at
+    d = 5), the float32 work mode's (float32 blocks) also to
+    ``launches_f32``."""
+    x = torch.ones((64, 3, 5), dtype=torch.float32, device=cuda_device)
+    before = (cuda_lag.lag_sums_pair.launches,
+              cuda_lag.lag_sums_pair.launches_f32)
+    cuda_lag.lag_sums_pair(x, x, 0, 0, 64, "acf")
+    x64 = x[:, :, :3].double()
+    cuda_lag.lag_sums_pair(x64, x64, 0, 0, 64, "einstein")
+    assert (cuda_lag.lag_sums_pair.launches - before[0],
+            cuda_lag.lag_sums_pair.launches_f32 - before[1]) == (3, 2)
+
+
+# --- several devices: the mesh, the ring, the sharded FFT ---------------------
+
+def _mesh_modules():
+    from transport_analysis_tpu_torch import parallel
+    from transport_analysis_tpu_torch.parallel import ring, sharded_fft
+    from transport_analysis_tpu_torch.parallel.mesh import Mesh
+    return parallel, ring, sharded_fft, Mesh
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode,sum_d", [("acf", True), ("einstein", True),
+                                        ("einstein", False)])
+def test_ring_in_four_blocks_of_one_card(cuda_device, dtype, mode, sum_d):
+    """The ring over ["cuda"] * 4 (ten two-block launches) against K8 on
+    the whole series, 1,000 frames of 37 particles."""
+    _, ring, _, Mesh = _mesh_modules()
+    x = torch.from_numpy(np.random.RandomState(4).normal(
+        0.5, 2.0, (1000, 37, 3))).to(cuda_device, dtype)
+    before = cuda_lag.lag_sums_pair.launches
+    got = ring.windowed_correlation_ring(x, Mesh(["cuda"] * 4, ("frames",)),
+                                         mode=mode, sum_d=sum_d)
+    assert cuda_lag.lag_sums_pair.launches - before == 10
+    want = cuda_lag.lag_sums(x, 1000, mode, "mean" if mode == "einstein"
+                             and not sum_d else "sum")
+    assert got.dtype == dtype and got.device.type == "cuda"
+    assert rel(got, want) <= (TOL if dtype == torch.float64 else F32_TOL)
+
+
+def test_sharded_fft_in_four_shards_of_one_card(cuda_device):
+    """``sharded_fft`` over ["cuda"] * 4 against torch.fft.fft in the
+    transposed order and back, and the sharded autocorrelations against
+    the one-device ops."""
+    from transport_analysis_tpu_torch import ops
+
+    _, _, sf, Mesh = _mesh_modules()
+    mesh = Mesh(["cuda"] * 4, ("frames",))
+    rng = np.random.RandomState(5)
+    m = 2 ** 14
+    re, im = (torch.from_numpy(rng.normal(size=(m, 9))).to(cuda_device)
+              for _ in range(2))
+    zr, zi = sf.sharded_fft(re, im, mesh)
+    n2 = m // sf._pick_n1(m, 4)
+    k = torch.arange(m, device=cuda_device)
+    want = torch.fft.fft(torch.complex(re, im), dim=0)[
+        (k % n2) * (m // n2) + k // n2]
+    assert rel(torch.complex(zr.gather(), zi.gather()), want) <= TOL
+    xr, xi = sf.sharded_fft(zr, zi, mesh, inverse=True)
+    assert rel(xr.gather(), re) <= TOL and rel(xi.gather(), im) <= TOL
+    x = rng.normal(size=(3000, 5, 3))
+    got = sf.sharded_acf_fft(x, mesh)
+    ref = ops.acf_fft(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+    a = np.cumsum(x, axis=0)
+    got = sf.sharded_msd_fft(a, mesh)
+    ref = ops.msd_fft(torch.from_numpy(a).to(cuda_device)).cpu().numpy()
+    assert np.abs(got - ref)[:1500].max() <= TOL * np.abs(ref).max()
+    xp = np.zeros((8192, 6), np.float32)
+    xp[:3000] = rng.normal(size=(3000, 6))
+    assert sf.sharded_raw_autocorr(xp, mesh).gather().dtype == torch.float32
+
+
+@pytest.mark.parametrize("name", ["vacf", "helfand", "msd"])
+@pytest.mark.parametrize("fft", [True, False])
+def test_models_in_four_shards_of_one_card(cuda_device, name, fft):
+    """The models under ``use_mesh(analysis_mesh(["cuda"] * 4))`` against
+    their unsharded runs on the card, with 4 x the kernel launches."""
+    parallel, *_ = _mesh_modules()
+    u, cls, key = _card_system(name)
+    counted = [cuda_fft.fft_level, cuda_lag.lag_sums]
+
+    def run():
+        before = [f.launches for f in counted]
+        out = cls(u.atoms, fft=fft).run()
+        return out, [f.launches - b for f, b in zip(counted, before)]
+
+    base, n_base = run()
+    with parallel.use_mesh(parallel.analysis_mesh(["cuda"] * 4)):
+        got, n_got = run()
+    assert n_got == [4 * n for n in n_base]
+    for field in (key, "timeseries"):
+        ref = base.results[field]
+        assert np.abs(got.results[field] - ref).max() <= \
+            1e-13 * np.abs(ref).max(), field
+
+
+def _card_system(name):
+    """A 45-atom, 600-frame system with masses and a box, and the model
+    class and per-particle key of ``name``."""
+    from transport_analysis_tpu_torch.models import (EinsteinMSD,
+                                                     ViscosityHelfand)
+
+    rng = np.random.RandomState(45)
+    n, p = 600, 45
+    vel = rng.normal(size=(n, p, 3))
+    pos = np.cumsum(vel, axis=0)
+    dims = np.tile([20.0, 20.0, 20.0, 90.0, 90.0, 90.0], (n, 1))
+    u = convert.universe_from_arrays(
+        p, {"masses": np.linspace(1.0, 16.0, p)}, pos, velocities=vel,
+        dimensions=dims, dt=1.0)
+    return u, {"vacf": VelocityAutocorr, "helfand": ViscosityHelfand,
+               "msd": EinsteinMSD}[name], {
+        "vacf": "vacf_by_particle", "helfand": "visc_by_particle",
+        "msd": "msds_by_particle"}[name]
+
+
+def test_two_card_mesh(cuda_device):
+    """A mesh of two cards: each shard launches on its own card (the
+    wrappers' ``torch.cuda.device``), and the results equal one card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    parallel, ring, sf, Mesh = _mesh_modules()
+    two = ["cuda:0", "cuda:1"]
+    u, cls, key = _card_system("vacf")
+    base = cls(u.atoms, fft=True).run()
+    with parallel.use_mesh(parallel.analysis_mesh(two)):
+        got = cls(u.atoms, fft=True).run()
+    assert np.abs(got.results[key] - base.results[key]).max() <= \
+        1e-13 * np.abs(base.results[key]).max()
+    x = torch.from_numpy(np.random.RandomState(2).normal(
+        size=(512, 33, 3))).to(cuda_device)
+    got = ring.windowed_correlation_ring(x, Mesh(two, ("frames",)))
+    assert rel(got, cuda_lag.lag_sums(x, 512, "acf")) <= TOL
+    xa = np.random.RandomState(3).normal(size=(1000, 4, 3))
+    got = sf.sharded_acf_fft(xa, Mesh(two, ("frames",)))
+    ref = sf.sharded_acf_fft(xa, Mesh(["cuda:0"] * 2, ("frames",)))
+    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+
+
+def test_nccl_feed_one_process(cuda_device, tmp_path):
+    """The multi-process feed through a one-process NCCL group: its sum
+    and gather go through NCCL and equal the local ones; the group is
+    destroyed after."""
+    import torch.distributed as dist
+
+    from transport_analysis_tpu_torch.parallel import multihost
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = multihost.global_mesh(["cuda"] * 4)
+        full = np.random.RandomState(6).normal(size=(64, 40, 3))
+        block = multihost.distribute_atom_block(
+            full[:, multihost.atom_shard_for_process(40, mesh)], 40, mesh)
+        assert block.distributed and len(block.shards) == 4
+        total = block.psum(lambda s: (s * s).sum(dim=(1, 2)))
+        assert np.allclose(total.cpu().numpy(),
+                           (full * full).sum(axis=(1, 2)), rtol=1e-13)
+        assert np.array_equal(block.gather().cpu().numpy(), full)
+    finally:
+        dist.destroy_process_group()

@@ -206,14 +206,6 @@ def test_use_before_run(pu, fn):
         getattr(ta.VelocityAutocorr(pu.atoms, device="cpu"), fn)()
 
 
-@pytest.mark.parametrize("call", [
-    lambda ag: ta.parallel.use_mesh(),
-])
-def test_not_ported_parts_raise(pu, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        call(pu.atoms)
-
-
 GOLDEN_TRR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "golden", "golden.trr")
 

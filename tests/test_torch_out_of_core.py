@@ -261,10 +261,3 @@ def test_device_copies():
     f32, f64 = ooc.device_f32(block, "cpu"), ooc.device_f64(block, "cpu")
     assert f32.dtype == torch.float32 and f64.dtype == torch.float64
     assert np.array_equal(f64.numpy(), block.astype(np.float64))
-
-
-@pytest.mark.parametrize("fn", ["vacf_out_of_core_sharded",
-                                "helfand_out_of_core_sharded"])
-def test_sharded_out_of_core_raises(trr, tmp_path, fn):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        getattr(ooc, fn)(trr[1], str(tmp_path / "s"), mesh=None)

@@ -412,11 +412,3 @@ def test_parallel_streaming_imports_while_mesh_raises():
     assert st.chunked_per_particle is streaming.chunked_per_particle
     assert callable(out_of_core.correlate_spools)
     assert ta.parallel.streaming is st
-
-
-@pytest.mark.parametrize("name", ["use_mesh", "analysis_mesh",
-                                  "current_mesh", "shard_particles",
-                                  "shard_frames_axis"])
-def test_parallel_multi_device_names_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        getattr(ta.parallel, name)

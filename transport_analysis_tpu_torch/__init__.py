@@ -3,7 +3,7 @@ transport_analysis_tpu_torch
 ============================
 
 The PyTorch/CUDA port of ``transport_analysis_tpu``: the same analyses and
-public names, computed in float64 on one NVIDIA Hopper card (H100) through
+public names, computed in float64 on NVIDIA Hopper cards (H100) through
 kernels written by hand in CUDA C++, or on the CPU through their plain
 PyTorch versions.
 
@@ -26,9 +26,11 @@ PyTorch versions.
 * ``data``   — the ethylene-carbonate regression files, generated on
                first access.
 * ``convert`` — builds a Universe from plain numpy arrays.
-* ``parallel`` — not ported yet: each name raises
-  ``NotImplementedError`` naming its ROADMAP.md item (so does
-  ``io.prefetch``).
+* ``parallel`` — meshes of devices over which the analyses shard their
+               particle axis (``use_mesh``, ``analysis_mesh``), the exact
+               ring over frame blocks, the frame-sharded FFT, the
+               multi-process feed (``torch.distributed``), atom-chunked
+               streaming and the out-of-core spools.
 
 The kernels (``csrc/*.cu``) are compiled by nvcc for sm_90a at first use
 (``_build.py``). A CUDA tensor always goes to its kernel, or raises; a CPU

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-The sources ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one
+The sources ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process a source, all started together, and linked into one
 shared library with a plain C interface, at first use, into
 ``build/torch_kernels/`` of the repository checkout that holds the package
 (an installed copy builds under the user's cache directory instead, see
@@ -50,6 +51,9 @@ SIGNATURES = {
     # x, out, n, p, d, n_lags, f64, einstein, dfac, lag_block, cols,
     # grid x, y, stream
     "ta_lag_sums": [_P, _P, *[_L] * 6, _D, *[_L] * 4, _P],
+    # xa, xb, out, n, p, d, n_lags, shift, f64, einstein, dfac, lag_block,
+    # cols, grid x, y, stream
+    "ta_lag_pair": [_P, _P, _P, *[_L] * 7, _D, *[_L] * 4, _P],
 }
 # the float32 work mode's instantiations (complex64 / float32 operands
 # and results), each entry's ``_f32`` twin: the same arguments
@@ -105,23 +109,40 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    nvcc's report (``-Xptxas=-v``: registers, shared memory, spills) is
-    kept beside the library as ``.log``."""
+    """Compile the kernels unless the library for these sources exists:
+    each source to an object by its own ``nvcc`` process, all at once,
+    then one link. nvcc's report (``-Xptxas=-v``: registers, shared
+    memory, spills) is kept beside the library as ``.log``."""
     path = library_path()
     if path.exists():
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    stem = path.with_name(f"{path.stem}.{os.getpid()}.tmp")
+    nvcc = find_nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objects = [Path(f"{stem}.{src.stem}.o") for src in sources()]
+    steps = [[nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+             for src, obj in zip(sources(), objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    results = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in zip(steps, procs)]
+    tmp = Path(f"{stem}.so")
+    if all(code == 0 for _, _, code in results):
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        results.append((cmd, res.stdout, res.returncode))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    log = "".join(out for _, out, _ in results)
+    path.with_suffix(".log").write_text(log)
+    failed = [(cmd, out, code) for cmd, out, code in results if code != 0]
+    if failed:
+        cmd, out, code = failed[0]
         raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
+            f"nvcc failed with code {code}:\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, path)  # atomic: a concurrent builder sees all or none
     return path
 

@@ -26,6 +26,28 @@
 //     partial of at most 64 frames summed in float32 and added to a
 //     float64 running sum, so no float32 register sums more terms.
 //
+// K8  ta_lag_pair (ta_lag_pair_f32), the two-block launch
+//     For two (n, p, d) blocks xa and xb of one series and each relative
+//     lag j < n_lags, the raw sums (no 1 / (n - lag))
+//       acf:      out[j, p] = sum_a sum_c xa[a,p,c] xb[a+j+shift,p,c] / dfac
+//       einstein: out[j, p] = sum_a sum_c (xa[a,p,c] - xb[a+j+shift,p,c])^2 / dfac
+//     over the base frames a < n whose partner a + j + shift lies in [0, n):
+//     the pair sums of the exact ring (parallel/ring.py), where block i
+//     meets block i + k at lags kL + delta, shift = lag_lo - kL. The JAX
+//     package forms them in plain jnp (transport_analysis_tpu/parallel/
+//     ring.py:35-76, a loop over 2L - 1 shifts); here they are K8's two
+//     kernels under the compile-time flag kPair: the acf Gram product reads
+//     its partner rows from xb (zero outside the block) and runs its frame
+//     loop only over the frames that pair with some lag of its span; the
+//     einstein kernels stage base rows from xa and partner rows from xb for
+//     the frames at which every lag of the span has its partner, and sum the
+//     frames before and after them (a warp's partial lags) from global
+//     memory, each pair masked (pair_end). The one-operand launches keep
+//     their code (kPair = false) and their times. At the ring's round 1 of
+//     the EC model system (blocks of 2,048 frames) a CTA's frame loop is
+//     two acf chunks, so the fixed costs of a span weigh more than in the
+//     one-operand launch over 65,536 frames (PERF.md section 6).
+//
 // What bounds it: float64 arithmetic. Every (frame, lag, series) pair costs
 // one multiply-add (acf) or a subtract and a multiply-add (einstein). At
 // 3,680 atoms x 8,192 frames over all lags (3.7e11 pairs) the acf sums, a
@@ -279,16 +301,94 @@ __device__ __forceinline__ void einstein_tail(
   }
 }
 
+// The two-block launch's frames [i0, i1) of a warp whose lags l <
+// kLagBlock pair base frame xa[i] with partner xb[i + dw + l]: the terms of
+// the pairs with 0 <= i + dw + l < n are added to part. The register ring w
+// goes on from global memory and is primed here; i1 <= n.
+template <typename T, int D, typename W>
+__device__ __forceinline__ void pair_frames(
+    const T* __restrict__ xa, const T* __restrict__ xb, int64_t n, int64_t p,
+    int64_t q, int64_t dw, int64_t i0, int64_t i1, W (&w)[D][kLagBlock],
+    W (&part)[kLagBlock]) {
+  const int64_t s = p * D;  // row stride of the operands
+  const T* ca = xa + q * D;
+  const T* cb = xb + q * D;
+#pragma unroll
+  for (int j = 0; j < kLagBlock - 1; ++j) {
+    const int64_t f = i0 + dw + j;
+#pragma unroll
+    for (int c = 0; c < D; ++c)
+      w[c][j] = (f >= 0 && f < n) ? (W)cb[f * s + c] : (W)0;
+  }
+  for (; i0 < i1; i0 += kLagBlock) {
+#pragma unroll
+    for (int k = 0; k < kLagBlock; ++k) {
+      const int64_t i = i0 + k;
+      const int64_t f = i + dw + kLagBlock - 1;  // the new partner
+      // lags l in [lo, hi) have a partner in [0, n)
+      const int64_t lo = -(i + dw), hi = n - (i + dw);
+      W xi[D];
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        w[c][(k + kLagBlock - 1) % kLagBlock] =
+            (f >= 0 && f < n) ? (W)cb[f * s + c] : (W)0;
+        xi[c] = i < i1 ? (W)ca[i * s + c] : (W)0;
+      }
+      if (i < i1) {
+#pragma unroll
+        for (int l = 0; l < kLagBlock; ++l) {
+          if (l >= lo && l < hi) {
+#pragma unroll
+            for (int c = 0; c < D; ++c) {
+              const W diff = xi[c] - w[c][(k + l) % kLagBlock];
+              part[l] = fmar(diff, diff, part[l]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The two-block launch's end of a warp (kPair): the frames of its lags
+// outside the span's tiles, before them ([max(0, -(dw + kLagBlock - 1)),
+// i_lo)) and after them ([i_tail, min(n, n - dw))), then each lag's raw sum
+// (acc + the partials) / dfac, for relative lags lw + l < n_lags.
+template <typename T, int D, typename W>
+__device__ __forceinline__ void pair_end(
+    const T* __restrict__ xa, const T* __restrict__ xb, W* __restrict__ out,
+    int64_t n, int64_t p, int64_t n_lags, double dfac, int64_t q, int64_t lw,
+    int64_t dw, int64_t i_lo, int64_t i_tail, W (&w)[D][kLagBlock],
+    const double (&acc)[kLagBlock]) {
+  W head[kLagBlock], tail[kLagBlock];
+#pragma unroll
+  for (int l = 0; l < kLagBlock; ++l) head[l] = tail[l] = 0;
+  const int64_t h0 = -(dw + kLagBlock - 1);
+  pair_frames<T, D, W>(xa, xb, n, p, q, dw, h0 > 0 ? h0 : 0,
+                       i_lo < n ? i_lo : n, w, head);
+  pair_frames<T, D, W>(xa, xb, n, p, q, dw, i_tail, n - dw < n ? n - dw : n,
+                       w, tail);
+#pragma unroll
+  for (int l = 0; l < kLagBlock; ++l) {
+    if (lw + l < n_lags)
+      out[(lw + l) * p + q] =
+          (W)((acc[l] + (double)head[l] + (double)tail[l]) / dfac);
+  }
+}
+
 // block (x: tile of kTileP particles, y: spans b of kSpan lags, strided);
 // warp w sums lags [b kSpan + w kLagBlock, ... + kLagBlock) of the lane's
-// particle p0 + lane. W is the type of the differences, squares and tile
+// particle p0 + lane. kPair: the two-block launch (module header, K8
+// ta_lag_pair): base rows from x, partner rows from xb, relative lag j at
+// offset j + shift from its base frame, raw sums. W is the type of the differences, squares and tile
 // partials, and of the output: double, or float for the float32 work mode;
 // the running sums acc are double either way.
-template <typename T, int D, typename W>
+template <typename T, int D, typename W, bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
     einstein_tile_kernel(const T* __restrict__ x, W* __restrict__ out,
                          int64_t n, int64_t p, int64_t n_lags,
-                         int64_t nspans, double dfac) {
+                         int64_t nspans, double dfac,
+                         const T* __restrict__ xb, int64_t shift) {
   constexpr int kTileF = tile_frames<T>();
   constexpr int kRing = ring_rows<T>();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -306,15 +406,25 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
     // ring window: x[i + lw + j] of component c in w[c][j % kLagBlock]
     W w[D][kLagBlock];
-    // frames at which every lag of the span has its partner,
-    // i + l0 + kSpan - 1 < n, in whole tiles
-    const int64_t n_full = n - l0 - (kSpan - 1);
+    // partner row r of the span is frame d0 + i_lo + r of xp, base row r
+    // frame i_lo + r of x; frames [i_lo, i_hi) are those at which every
+    // lag of the span has its partner (i + d0 + kSpan - 1 < n), in whole
+    // tiles
+    const T* xp = x;
+    int64_t d0 = l0, i_lo = 0, i_hi = n - l0 - (kSpan - 1);
+    if constexpr (kPair) {
+      xp = xb;
+      d0 = l0 + shift;
+      i_lo = d0 < 0 ? -d0 : 0;
+      i_hi = n - d0 - (kSpan - 1) < n ? n - d0 - (kSpan - 1) : n;
+    }
+    const int64_t n_full = i_hi - i_lo;
     const int64_t n_tiles = n_full > 0 ? n_full / kTileF : 0;
     if (n_tiles > 0) {
       // partner rows r = 0 .. kTileF + kSpan - 2 and base tile 0
-      load_rows<T, D>(x, ring, l0, kTileF + kSpan - 1, p, p0, kRing, 1,
-                      kRing);
-      load_rows<T, D>(x, base, 0, kTileF, p, p0, kTileF, 0, kTileF);
+      load_rows<T, D>(xp, ring, d0 + i_lo, kTileF + kSpan - 1, p, p0, kRing,
+                      1, kRing);
+      load_rows<T, D>(x, base, i_lo, kTileF, p, p0, kTileF, 0, kTileF);
       cp_async_commit();
       for (int64_t t = 0; t < n_tiles; ++t) {
         cp_async_wait_all();  // tile t's copies
@@ -326,11 +436,12 @@ __global__ void __launch_bounds__(kThreads, 1)
           // base rows (t + 1) kTileF on, into the other base buffer;
           // they land while tile t is summed
           const int64_t r = (t + 1) * kTileF + kSpan - 1;
-          load_rows<T, D>(x, ring, l0 + r, kTileF, p, p0, kRing,
+          load_rows<T, D>(xp, ring, d0 + i_lo + r, kTileF, p, p0, kRing,
                           (int)((r + 1) % kRing), kRing);
           load_rows<T, D>(x, base + (size_t)((t + 1) & 1) * D * kTileF *
                                         kTileP,
-                          (t + 1) * kTileF, kTileF, p, p0, kTileF, 0, kTileF);
+                          i_lo + (t + 1) * kTileF, kTileF, p, p0, kTileF, 0,
+                          kTileF);
           cp_async_commit();
         }
         if (active) {
@@ -380,9 +491,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       __syncthreads();  // the next span's copies overwrite the last tile
     }
-    if (active && q < p)
-      einstein_tail<T, D, W>(x, out, n, p, n_lags, dfac, q, lw,
-                             n_tiles * kTileF, w, acc);
+    if constexpr (kPair) {
+      if (active && q < p)
+        pair_end<T, D, W>(x, xb, out, n, p, n_lags, dfac, q, lw,
+                          d0 + warp * kLagBlock, i_lo,
+                          i_lo + n_tiles * kTileF, w, acc);
+    } else {
+      if (active && q < p)
+        einstein_tail<T, D, W>(x, out, n, p, n_lags, dfac, q, lw,
+                               n_tiles * kTileF, w, acc);
+    }
   }
 }
 
@@ -443,11 +561,22 @@ __device__ __forceinline__ void copy_rows(const float* __restrict__ x,
   }
 }
 
+// lane offset delta + lane D of the values of frame row f of particles
+// [p0, p0 + kTileP) of a float operand at x
 template <int D>
+__device__ __forceinline__ int row_lane(const float* x, int64_t f, int64_t p,
+                                        int64_t p0, int lane) {
+  return (int)(((reinterpret_cast<uintptr_t>(x) >> 2) + (f * p + p0) * D) &
+               3) +
+         lane * D;
+}
+
+template <int D, bool kPair>
 __global__ void __launch_bounds__(kThreads, 2)
     einstein_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                          int64_t n, int64_t p, int64_t n_lags,
-                         int64_t nspans, double dfac) {
+                         int64_t nspans, double dfac,
+                         const float* __restrict__ xb, int64_t shift) {
   constexpr int kPitch = row_pitch<D>();
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);  // [kRowsRing][kPitch]
@@ -471,13 +600,34 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int l = 0; l < kLagBlock; ++l) acc[l] = 0.0;
     float w[D][kLagBlock];
-    const int64_t n_full = n - l0 - (kSpan - 1);
+    // partner row r is frame d0 + i_lo + r of xp, base row r frame i_lo + r
+    // of x, as in einstein_tile_kernel; la (base) and lb (partner) are the
+    // lane offsets of rows r = 0 .. 3 mod 4
+    const float* xp = x;
+    int64_t d0 = l0, i_lo = 0, i_hi = n - l0 - (kSpan - 1);
+    int la[4], lb[4];
+    if constexpr (kPair) {
+      xp = xb;
+      d0 = l0 + shift;
+      i_lo = d0 < 0 ? -d0 : 0;
+      i_hi = n - d0 - (kSpan - 1) < n ? n - d0 - (kSpan - 1) : n;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        la[r] = row_lane<D>(x, i_lo + r, p, p0, lane);
+        lb[r] = row_lane<D>(xb, d0 + i_lo + r, p, p0, lane);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) la[r] = lb[r] = lo[r];
+    }
+    const int64_t n_full = i_hi - i_lo;
     const int64_t n_tiles = n_full > 0 ? n_full / kRowsF : 0;
     if (n_tiles > 0) {
-      // partner rows r = 0 .. kRowsF + kSpan - 2 (frames l0 + r, slot
-      // r + 1) and base tile 0
-      copy_rows<D>(x, ring, l0, kRowsF + kSpan - 1, p, p0, 1, kRowsRing);
-      copy_rows<D>(x, base, 0, kRowsF, p, p0, 0, kRowsF);
+      // partner rows r = 0 .. kRowsF + kSpan - 2 (frames d0 + i_lo + r,
+      // slot r + 1) and base tile 0
+      copy_rows<D>(xp, ring, d0 + i_lo, kRowsF + kSpan - 1, p, p0, 1,
+                   kRowsRing);
+      copy_rows<D>(x, base, i_lo, kRowsF, p, p0, 0, kRowsF);
       cp_async_commit();
       float part[kLagBlock];
 #pragma unroll
@@ -489,10 +639,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         __syncthreads();
         if (t + 1 < n_tiles) {
           const int64_t r = (t + 1) * kRowsF + kSpan - 1;
-          copy_rows<D>(x, ring, l0 + r, kRowsF, p, p0,
+          copy_rows<D>(xp, ring, d0 + i_lo + r, kRowsF, p, p0,
                        (int)((r + 1) % kRowsRing), kRowsRing);
           copy_rows<D>(x, base + ((t + 1) & 1) * kRowsF * kPitch,
-                       (t + 1) * kRowsF, kRowsF, p, p0, 0, kRowsF);
+                       i_lo + (t + 1) * kRowsF, kRowsF, p, p0, 0, kRowsF);
           cp_async_commit();
         }
         if (active) {
@@ -502,12 +652,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
               for (int c = 0; c < D; ++c)
                 w[c][j] = ring[(warp * kLagBlock + j + 1) * kPitch +
-                               lo[j & 3] + c];
+                               lb[j & 3] + c];
             }
           }
 #pragma unroll 1
           for (int kk = 0; kk < kRowsF; kk += kLagBlock) {
-            const float* xb = base + ((t & 1) * kRowsF + kk) * kPitch;
+            const float* xt = base + ((t & 1) * kRowsF + kk) * kPitch;
             // slot of partner row t kRowsF + kk + k + warp kLagBlock +
             // kLagBlock - 1, frame k of the chunk; that row's frame is
             // k + 3 mod 4
@@ -521,8 +671,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
               for (int c = 0; c < D; ++c) {
                 w[c][(k + kLagBlock - 1) % kLagBlock] =
-                    xw[k * kPitch + lo[(k + 3) & 3] + c];
-                xi[c] = xb[k * kPitch + lo[k & 3] + c];
+                    xw[k * kPitch + lb[(k + 3) & 3] + c];
+                xi[c] = xt[k * kPitch + la[k & 3] + c];
               }
 #pragma unroll
               for (int l = 0; l < kLagBlock; ++l) {
@@ -546,9 +696,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       __syncthreads();  // the next span's copies overwrite the last tile
     }
-    if (active && q < p)
-      einstein_tail<float, D, float>(x, out, n, p, n_lags, dfac, q, lw,
-                                     n_tiles * kRowsF, w, acc);
+    if constexpr (kPair) {
+      if (active && q < p)
+        pair_end<float, D, float>(x, xb, out, n, p, n_lags, dfac, q, lw,
+                                  d0 + warp * kLagBlock, i_lo,
+                                  i_lo + n_tiles * kRowsF, w, acc);
+    } else {
+      if (active && q < p)
+        einstein_tail<float, D, float>(x, out, n, p, n_lags, dfac, q, lw,
+                                       n_tiles * kRowsF, w, acc);
+    }
   }
 }
 
@@ -607,10 +764,12 @@ __device__ __forceinline__ void mma_f64(double (&d)[4],
 
 // Copy chunk f0 of particle q into the landing buffer, component-major:
 // rows x[f0 + r] (r < kARows) to land[c kAStride + smem_row(r)], partner
-// rows x[f0 + l0 + r] (r < kBRows) to land[D kAStride + c kBStride +
-// smem_row(r)]; zeros past frame N.
-template <typename T, int D>
-__device__ __forceinline__ void stage_chunk(const T* __restrict__ x, T* land,
+// rows x[f0 + l0 + r] (r < kBRows; kPair: xb[f0 + l0 + r]) to land[D
+// kAStride + c kBStride + smem_row(r)]; zeros past frame N (kPair: and
+// before frame 0).
+template <typename T, int D, bool kPair>
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ x,
+                                            const T* __restrict__ xb, T* land,
                                             int64_t f0, int64_t l0,
                                             int64_t n, int64_t p, int64_t q) {
   for (int e = threadIdx.x; e < (kARows + kBRows) * D; e += kAcfThreads) {
@@ -618,8 +777,9 @@ __device__ __forceinline__ void stage_chunk(const T* __restrict__ x, T* land,
     const bool partner = row >= kARows;
     const int r = partner ? row - kARows : row;
     const int64_t frame = f0 + r + (partner ? l0 : 0);
-    const bool valid = frame < n;
-    const T* src = valid ? x + (frame * p + q) * D + c : x;
+    const bool valid = frame < n && (!kPair || frame >= 0);
+    const T* src = valid ? ((kPair && partner) ? xb : x) + (frame * p + q) * D + c
+                         : x;
     T* dst = land + (partner ? D * kAStride + c * kBStride : c * kAStride) +
              smem_row(r);
     cp_async(dst, src, valid);
@@ -702,12 +862,15 @@ __device__ __forceinline__ void gram_chunk(const double* buf,
 }
 
 // block (x: particle q, y: spans b, strided): lags [b span, (b + 1) span)
-// of particle q, span <= kAcfSpan; the float64 sums stored as O.
-template <typename T, int D, typename O>
+// of particle q, span <= kAcfSpan; the float64 sums stored as O. kPair: the
+// two-block launch (module header, K8 ta_lag_pair): rows x[f], partners
+// xb[f + j + shift] for relative lag j, raw sums.
+template <typename T, int D, typename O, bool kPair>
 __global__ void __launch_bounds__(kAcfThreads, 2)
     acf_gram_kernel(const T* __restrict__ x, O* __restrict__ out,
                     int64_t n, int64_t p, int64_t n_lags, int64_t nspans,
-                    int span, double dfac) {
+                    int span, double dfac, const T* __restrict__ xb,
+                    int64_t shift) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kStage = D * (kAStride + kBStride);
   T* land = reinterpret_cast<T*>(smem);              // [kStage] of T
@@ -719,8 +882,17 @@ __global__ void __launch_bounds__(kAcfThreads, 2)
   const int tiles = (span + kRows - 1 + 7) / 8;  // n8 tiles the span needs
   for (int64_t b = blockIdx.y; b < nspans; b += gridDim.y) {
     const int64_t l0 = b * span;
-    // frames t < N - l0 have a partner for some lag of the span
-    const int64_t chunks = (n - l0 + kChunk - 1) / kChunk;
+    // frames t in [f_lo, f_end) have a partner, frame t + d0 + j of the
+    // partner operand, for some lag j of the span: t < N - l0 for one
+    // operand; for two, t + d0 + span - 1 >= 0 and t < min(N, N - d0)
+    int64_t d0 = l0, f_lo = 0, f_end = n - l0;
+    if constexpr (kPair) {
+      d0 = l0 + shift;
+      f_lo = -(d0 + span - 1) > 0 ? -(d0 + span - 1) : 0;
+      f_end = n - d0 < n ? n - d0 : n;
+    }
+    const int64_t chunks =
+        f_end > f_lo ? (f_end - f_lo + kChunk - 1) / kChunk : 0;
     double acc[2][kRing][4];
 #pragma unroll
     for (int e = 0; e < 2; ++e)
@@ -728,8 +900,10 @@ __global__ void __launch_bounds__(kAcfThreads, 2)
       for (int i = 0; i < kRing; ++i)
 #pragma unroll
         for (int v = 0; v < 4; ++v) acc[e][i][v] = 0.0;
-    stage_chunk<T, D>(x, land, 0, l0, n, p, q);
-    cp_async_commit();
+    if (!kPair || chunks > 0) {
+      stage_chunk<T, D, kPair>(x, xb, land, f_lo, d0, n, p, q);
+      cp_async_commit();
+    }
     for (int64_t k = 0; k < chunks; ++k) {
       cp_async_wait_all();
       // chunk k has landed for every thread, and every warp is done with
@@ -739,7 +913,8 @@ __global__ void __launch_bounds__(kAcfThreads, 2)
         buf[i] = (double)land[i];
       __syncthreads();  // the doubles are in; the landing buffer is free
       if (k + 1 < chunks) {
-        stage_chunk<T, D>(x, land, (k + 1) * kChunk, l0, n, p, q);
+        stage_chunk<T, D, kPair>(x, xb, land, f_lo + (k + 1) * kChunk, d0,
+                                 n, p, q);
         cp_async_commit();
       }
       if (warp * kWarpTiles < tiles)
@@ -764,17 +939,20 @@ __global__ void __launch_bounds__(kAcfThreads, 2)
         double s = 0.0;
 #pragma unroll
         for (int r = 0; r < kRows; ++r) s += gram[r * kCStride + l + r];
-        out[lag * p + q] = (O)(s / ((double)(n - lag) * dfac));
+        if constexpr (kPair)
+          out[lag * p + q] = (O)(s / dfac);
+        else
+          out[lag * p + q] = (O)(s / ((double)(n - lag) * dfac));
       }
     }
     __syncthreads();  // the next span's copies overwrite C
   }
 }
 
-template <typename T, int D, typename O>
-int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
-           bool einstein, double dfac, int64_t lag_block, dim3 grid,
-           unsigned cols, cudaStream_t stream) {
+template <typename T, int D, typename O, bool kPair>
+int launch(const void* x, const void* xb, int64_t shift, void* out, int64_t n,
+           int64_t p, int64_t n_lags, bool einstein, double dfac,
+           int64_t lag_block, dim3 grid, unsigned cols, cudaStream_t stream) {
   if (einstein) {
     const int64_t nspans = (n_lags + kSpan - 1) / kSpan;
     if constexpr (sizeof(T) == 4 && sizeof(O) == 4) {
@@ -782,56 +960,62 @@ int launch(const void* x, void* out, int64_t n, int64_t p, int64_t n_lags,
       // memory, so that two CTAs fit
       constexpr size_t smem = rows_smem_bytes<D>();
       cudaError_t err = cudaFuncSetAttribute(
-          einstein_rows_kernel<D>,
+          einstein_rows_kernel<D, kPair>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(
-            einstein_rows_kernel<D>,
+            einstein_rows_kernel<D, kPair>,
             cudaFuncAttributePreferredSharedMemoryCarveout,
             (int)cudaSharedmemCarveoutMaxShared);
       if (err != cudaSuccess) return (int)err;
-      einstein_rows_kernel<D><<<grid, cols, smem, stream>>>(
-          (const float*)x, (float*)out, n, p, n_lags, nspans, dfac);
+      einstein_rows_kernel<D, kPair><<<grid, cols, smem, stream>>>(
+          (const float*)x, (float*)out, n, p, n_lags, nspans, dfac,
+          (const float*)xb, shift);
     } else {
       constexpr size_t smem = tile_smem_bytes<T, D>();
       const cudaError_t err = cudaFuncSetAttribute(
-          einstein_tile_kernel<T, D, O>,
+          einstein_tile_kernel<T, D, O, kPair>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
-      einstein_tile_kernel<T, D, O><<<grid, cols, smem, stream>>>(
-          (const T*)x, (O*)out, n, p, n_lags, nspans, dfac);
+      einstein_tile_kernel<T, D, O, kPair><<<grid, cols, smem, stream>>>(
+          (const T*)x, (O*)out, n, p, n_lags, nspans, dfac, (const T*)xb,
+          shift);
     }
   } else {
     constexpr size_t smem = acf_smem_bytes<T, D>();
     const cudaError_t err = cudaFuncSetAttribute(
-        acf_gram_kernel<T, D, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        acf_gram_kernel<T, D, O, kPair>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int64_t nspans = (n_lags + lag_block - 1) / lag_block;
-    acf_gram_kernel<T, D, O><<<grid, cols, smem, stream>>>(
-        (const T*)x, (O*)out, n, p, n_lags, nspans, (int)lag_block, dfac);
+    acf_gram_kernel<T, D, O, kPair><<<grid, cols, smem, stream>>>(
+        (const T*)x, (O*)out, n, p, n_lags, nspans, (int)lag_block, dfac,
+        (const T*)xb, shift);
   }
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool kPair = false>
 int launch_d(const void* x, void* out, int64_t n, int64_t p, int64_t d,
              int64_t n_lags, bool einstein, double dfac, int64_t lag_block,
-             dim3 grid, unsigned cols, cudaStream_t stream) {
-  if (d == 1) return launch<T, 1, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
-  if (d == 2) return launch<T, 2, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
-  return launch<T, 3, O>(x, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+             dim3 grid, unsigned cols, cudaStream_t stream,
+             const void* xb = nullptr, int64_t shift = 0) {
+  if (d == 1) return launch<T, 1, O, kPair>(x, xb, shift, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  if (d == 2) return launch<T, 2, O, kPair>(x, xb, shift, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
+  return launch<T, 3, O, kPair>(x, xb, shift, out, n, p, n_lags, einstein, dfac, lag_block, grid, cols, stream);
 }
 
 // The launch geometry cuda_lag.py hands a C entry: what the kernels take.
+// One operand takes n_lags <= n; the two-block launch any n_lags >= 1.
 bool lag_geometry(int64_t n, int64_t p, int64_t d, int64_t n_lags,
                   int64_t einstein, int64_t lag_block, int64_t cols,
-                  int64_t grid_x) {
+                  int64_t grid_x, bool pair = false) {
   const bool geometry =
       einstein ? lag_block == kSpan && cols == kThreads
                : lag_block >= 1 && lag_block <= kAcfSpan &&
                      cols == kAcfThreads && grid_x == p;
-  return geometry && d >= 1 && d <= 3 && n_lags >= 1 && n_lags <= n;
+  return geometry && d >= 1 && d <= 3 && n_lags >= 1 && n >= 1 &&
+         (pair || n_lags <= n);
 }
 
 }  // namespace
@@ -871,6 +1055,39 @@ int ta_lag_sums_f32(const void* x, void* out, int64_t n, int64_t p,
                                 lag_block, dim3((unsigned)grid_x,
                                                 (unsigned)grid_y),
                                 (unsigned)cols, (cudaStream_t)stream);
+}
+
+// The two-block launch: xa, xb (n, p, d) float64 (f64 must be 1) -> out
+// (n_lags, p) float64, out[j, q] the raw sums over frames a, b < n with
+// b - a = j + shift, by mode, / dfac; the other arguments are
+// ta_lag_sums'.
+int ta_lag_pair(const void* xa, const void* xb, void* out, int64_t n,
+                int64_t p, int64_t d, int64_t n_lags, int64_t shift,
+                int64_t f64, int64_t einstein, double dfac, int64_t lag_block,
+                int64_t cols, int64_t grid_x, int64_t grid_y, void* stream) {
+  if (!f64 ||
+      !lag_geometry(n, p, d, n_lags, einstein, lag_block, cols, grid_x, true))
+    return (int)cudaErrorInvalidValue;
+  return launch_d<double, double, true>(
+      xa, out, n, p, d, n_lags, einstein != 0, dfac, lag_block,
+      dim3((unsigned)grid_x, (unsigned)grid_y), (unsigned)cols,
+      (cudaStream_t)stream, xb, shift);
+}
+
+// The float32 work mode's two-block launch: xa, xb float32 (f64 must be 0)
+// -> out (n_lags, p) float32; the arguments are ta_lag_pair's.
+int ta_lag_pair_f32(const void* xa, const void* xb, void* out, int64_t n,
+                    int64_t p, int64_t d, int64_t n_lags, int64_t shift,
+                    int64_t f64, int64_t einstein, double dfac,
+                    int64_t lag_block, int64_t cols, int64_t grid_x,
+                    int64_t grid_y, void* stream) {
+  if (f64 ||
+      !lag_geometry(n, p, d, n_lags, einstein, lag_block, cols, grid_x, true))
+    return (int)cudaErrorInvalidValue;
+  return launch_d<float, float, true>(
+      xa, out, n, p, d, n_lags, einstein != 0, dfac, lag_block,
+      dim3((unsigned)grid_x, (unsigned)grid_y), (unsigned)cols,
+      (cudaStream_t)stream, xb, shift);
 }
 
 }  // extern "C"

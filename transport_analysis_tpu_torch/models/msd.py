@@ -12,7 +12,8 @@ algorithm (``fft=True``: K1, K2, K5, K6a, K6b on the card) or by the
 exact windowed sums (``fft=False``: K8), batched over every particle in
 one device call. Float32 positions cross to the device at 4 bytes a
 value and are upcast there, exactly. ``frame_block=``, ``atom_chunk=``
-and ``checkpoint=`` stream as in ``VelocityAutocorr``. ``dtype=
+and ``checkpoint=`` stream, and ``parallel.use_mesh`` shards the
+particle axis, as in ``VelocityAutocorr``. ``dtype=
 np.float32`` is the float32 work mode, as in the JAX package
 (``msd.py:58``, ``:105-153``): float32 positions and results.
 """
@@ -26,6 +27,8 @@ from ..utils.errors import NoDataError, check_work_dtype
 from ..ops import cuda_lag
 from ..ops.einstein import einstein_difference_fft_
 from .._device import as_tensor, work_types
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle, shares_memory
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -141,6 +144,10 @@ class EinsteinMSD(AnalysisBase):
             self.results.msds_by_particle = by_particle
             self.results.timeseries = by_particle.mean(axis=1)
         else:
-            by_particle = kernel(as_tensor(feed, self.device).contiguous())
+            if current_mesh() is None:
+                by_particle = kernel(as_tensor(feed, self.device).contiguous())
+            else:
+                # each particle shard on its mesh device (parallel.use_mesh)
+                by_particle = map_particles(kernel, feed)
             self.results.msds_by_particle = by_particle.cpu().numpy()
             self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()

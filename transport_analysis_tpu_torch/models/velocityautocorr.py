@@ -15,7 +15,8 @@ particle at once; ``fft=False`` runs the exact windowed sums (K8) on
 the same feed, O(N·n_lags) per atom. ``frame_block=`` feeds the card in
 frame blocks; ``atom_chunk=`` correlates that many atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume
-from. ``dtype=np.float32`` is the float32 work mode, as in the JAX
+from. Inside ``parallel.use_mesh`` the particle axis is sharded over the
+mesh's devices (``atom_chunk`` ignores the mesh, as in the JAX package). ``dtype=np.float32`` is the float32 work mode, as in the JAX
 package (``velocityautocorr.py:60-62``): float32 samples, float32 results
 at about 1e-6 grade, through the float32/complex64 instantiations of the
 same kernels (an atom-chunked run's results are float64 accumulators of
@@ -34,6 +35,8 @@ from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
 from .._device import as_tensor, work_types
 from ..ops import cuda_lag
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -164,8 +167,12 @@ class VelocityAutocorr(AnalysisBase):
             self.results.vacf_by_particle = by_particle
             self.results.timeseries = timeseries
         else:
-            by_particle = kernel(
-                as_tensor(self._velocities, self.device).contiguous())
+            if current_mesh() is None:
+                by_particle = kernel(
+                    as_tensor(self._velocities, self.device).contiguous())
+            else:
+                # each particle shard on its mesh device (parallel.use_mesh)
+                by_particle = map_particles(kernel, self._velocities)
             self.results.vacf_by_particle = by_particle.cpu().numpy()
             self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
         self._run_called = True

@@ -14,7 +14,8 @@ windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
 formed there in the work dtype from the float32 feed. ``frame_block=``
 feeds the card in frame blocks (the per-frame volumes stay on the host);
 ``atom_chunk=`` forms m·v·x and correlates it a chunk of atoms at a time
-(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from.
+(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from;
+``parallel.use_mesh`` shards the particle axis as in ``VelocityAutocorr``.
 ``dtype=np.float32`` is the float32 work mode, as in the JAX package
 (``viscosity.py:89-109``, ``:194-230``): masses, samples and m·v·x in
 float32, float32 results at about 1e-6 grade.
@@ -31,6 +32,8 @@ from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
 from .._device import as_tensor
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle
 from .base import AnalysisBase, select_series, source_cast
 from ._dims import parse_dim_type
@@ -238,7 +241,15 @@ class ViscosityHelfand(AnalysisBase):
             self.results.visc_by_particle = by_particle / denom
             self.results.timeseries = timeseries / denom
         else:
-            by_particle = kernel(series[:, :, :])
+            if current_mesh() is None:
+                by_particle = kernel(series[:, :, :])
+            else:
+                # each particle shard's m·v·x formed and correlated on its
+                # mesh device (parallel.use_mesh)
+                by_particle = map_particles(
+                    kernel, series, lambda lo, hi, device: HelfandSeries(
+                        self._masses, self._velocities, self._positions,
+                        device)[:, lo:hi, :])
             by_particle /= denom
             self.results.visc_by_particle = by_particle.cpu().numpy()
             self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()

@@ -316,15 +316,17 @@ def fft_level(x: torch.Tensor, m: int, sign: int = -1,
 fft_level.launches = fft_level.launches_f32 = 0
 
 
-def fft_forward(z: torch.Tensor) -> torch.Tensor:
+def fft_forward(z: torch.Tensor, sign: int = -1) -> torch.Tensor:
     """Forward DFT along axis 0 of a complex (M, B) tensor, natural
     frequency order: the levels of :func:`plan_levels`. Each level's
     input is dropped once the next exists, so a caller that hands over
-    a temporary holds at most two spectra at once."""
+    a temporary holds at most two spectra at once. ``sign`` +1 gives the
+    unscaled inverse, Σ_k z[k]·exp(+2πi·j·k/M) with no 1/M."""
     m, b = z.shape
     for a, n, c, order, tw in level_shapes(plan_levels(m), b):
-        z = fft_level(z.reshape(a, n, c), order, -1, twiddle_cols=tw)
+        z = fft_level(z.reshape(a, n, c), order, sign, twiddle_cols=tw)
     return z.reshape(m, b)
+
 
 
 # ---------------------------------------------------------------------

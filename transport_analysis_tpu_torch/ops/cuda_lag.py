@@ -38,7 +38,9 @@ mode's launch copies whole particle-major frame rows (:func:`row_copy`,
 :func:`row_delta`, :func:`row_pitch`). The TPU routing switches
 (``TRANSPORT_ANALYSIS_TPU_NO_PALLAS_LAG``, ``..._PALLAS_LAG_F64``, the
 cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
-kernel, a CPU tensor its plain version.
+kernel, a CPU tensor its plain version. :func:`lag_sums_pair` is K8's
+two-block launch, the raw sums of frame pairs across two blocks of one
+series: the exact ring's device work (``parallel.ring``).
 """
 
 from __future__ import annotations
@@ -373,6 +375,121 @@ def _launch(x: torch.Tensor, n_lags: int, mode: str, reduce_mode: str,
 
 
 lag_sums.launches = lag_sums.launches_f32 = 0
+
+
+# ---------------------------------------------------------------------
+# the two-block launch: the exact ring's device work (parallel/ring.py)
+# ---------------------------------------------------------------------
+
+def _check_pair(xa: torch.Tensor, xb: torch.Tensor, n_lags: int, mode: str,
+                reduce_mode: str) -> None:
+    if xb.shape != xa.shape or xb.dtype != xa.dtype or xb.device != xa.device:
+        raise ValueError(f"lag_sums_pair: the blocks differ: {xa.dtype} "
+                         f"{tuple(xa.shape)} on {xa.device} and {xb.dtype} "
+                         f"{tuple(xb.shape)} on {xb.device}")
+    _check(xa, 1, mode, reduce_mode, xa.dtype)
+    if n_lags < 1:
+        raise ValueError(f"lag_sums_pair: n_lags = {n_lags} must be >= 1")
+
+
+def lag_sums_pair_plain(xa: torch.Tensor, xb: torch.Tensor, offset: int,
+                        lag_lo: int, n_lags: int, mode: str = "acf",
+                        reduce_mode: str = "sum") -> torch.Tensor:
+    """Plain version of :func:`lag_sums_pair`: the JAX package's
+    ``ring._pair_accumulate`` arithmetic (``ring.py:35-76``) in blocks of
+    lags, as :func:`lag_sums_plain` takes them: for each lag, the partner
+    window of ``xb`` shifted by δ = lag − offset (zero outside the block),
+    the products or squared differences with ``xa`` reduced over the
+    components, the pairs whose partner lies outside the block masked,
+    then summed over the base frames in float64. Float32 einstein sums
+    take float32 terms, as :func:`lag_sums_plain` does."""
+    _check_pair(xa, xb, n_lags, mode, reduce_mode)
+    n, p, d = xa.shape
+    s = p * d
+    f32_terms = mode == "einstein" and xa.dtype == torch.float32
+    wt = torch.float32 if f32_terms else torch.float64
+    a = xa.to(wt).reshape(n, s)
+    zeros = a.new_zeros((n, s))
+    # window i of the padded partner block holds xb[i - n …]: δ ↔ n + δ
+    windows = torch.cat([zeros, xb.to(wt).reshape(n, s), zeros]).unfold(
+        0, n, 1)
+    dfac = d if reduce_mode == "mean" else 1
+    out = torch.zeros((n_lags, p), dtype=torch.float64, device=xa.device)
+    block = max(1, min(n_lags, PLAIN_BLOCK_VALUES // (n * s)))
+    frames = torch.arange(n, device=xa.device)
+    for j0 in range(0, n_lags, block):
+        j1 = min(j0 + block, n_lags)
+        delta = torch.arange(j0, j1, device=xa.device) + (lag_lo - offset)
+        win = windows[n + delta.clamp(-n, n)].transpose(1, 2)  # (B, n, S)
+        if mode == "acf":
+            terms = a * win
+        else:
+            terms = (a - win).square()
+        terms = terms.reshape(j1 - j0, n, p, d).sum(-1)
+        partner = frames[None, :] + delta[:, None]
+        valid = (partner >= 0) & (partner < n)
+        out[j0:j1] = torch.where(valid[:, :, None], terms, 0.0).sum(
+            1, dtype=torch.float64) / dfac
+    return out.to(xa.dtype)
+
+
+def lag_sums_pair(xa: torch.Tensor, xb: torch.Tensor, offset: int,
+                  lag_lo: int, n_lags: int, mode: str = "acf",
+                  reduce_mode: str = "sum") -> torch.Tensor:
+    """K8's two-block launch: for two (L, P, d) blocks of one series, xa
+    at frames [0, L) and xb at frames [offset, offset + L), the raw sums
+    (not divided by N − lag) over every frame pair a, b < L with lag =
+    offset + b − a in [lag_lo, lag_lo + n_lags) of
+
+        acf:      Σ_c xa[a, p, c]·xb[b, p, c]
+        einstein: Σ_c (xa[a, p, c] − xb[b, p, c])²
+
+    divided by d for ``reduce_mode='mean'`` → (n_lags, P) of the blocks'
+    type (float32 blocks run the float32 work mode's instantiation), row j
+    holding lag lag_lo + j; lags with no pair give 0. Round 0 of the ring
+    is xa = xb, offset 0, lag_lo 0: the pairs b ≥ a. A CUDA pair launches
+    the kernels' ``kPair`` instantiations (``csrc/lag.cu``
+    ``ta_lag_pair``) or raises, once per :func:`component_groups` range;
+    a CPU pair runs :func:`lag_sums_pair_plain`."""
+    _check_pair(xa, xb, n_lags, mode, reduce_mode)
+    if xa.device.type == "cpu":
+        return lag_sums_pair_plain(xa, xb, offset, lag_lo, n_lags, mode,
+                                   reduce_mode)
+    _build.kernel_operand(xa, "lag_sums_pair")
+    _build.kernel_operand(xb, "lag_sums_pair")
+    total = None
+    for c0, c1 in component_groups(xa.shape[2]):
+        part = _launch_pair(xa[:, :, c0:c1].contiguous(),
+                            xb[:, :, c0:c1].contiguous(), lag_lo - offset,
+                            n_lags, mode)
+        total = part if total is None else total.add_(part)
+    return total / xa.shape[2] if reduce_mode == "mean" else total
+
+
+def _launch_pair(xa: torch.Tensor, xb: torch.Tensor, shift: int, n_lags: int,
+                 mode: str) -> torch.Tensor:
+    """One two-block launch on contiguous CUDA blocks of d ≤ ``MAX_D``:
+    relative lag j pairs xa[a] with xb[a + j + shift]; raw sums."""
+    n, p, d = xa.shape
+    if mode == "einstein":
+        lags, cols = SPAN, TILE_THREADS
+        grid = _build.launch_grid(-(-p // TILE_P), -(-n_lags // SPAN))
+    else:
+        spans, lags = acf_spans(n_lags)
+        cols = ACF_THREADS
+        grid = _build.launch_grid(p, spans)
+    out = torch.empty((n_lags, p), dtype=xa.dtype, device=xa.device)
+    with torch.cuda.device(xa.device):
+        err = _build.entry("ta_lag_pair", xa.dtype)(
+            xa.data_ptr(), xb.data_ptr(), out.data_ptr(), n, p, d, n_lags,
+            shift, int(xa.dtype == torch.float64), int(mode == "einstein"),
+            1.0, lags, cols, *grid, _build.stream(xa))
+    _build.check(err, "lag_sums_pair")
+    _build.count_launch(lag_sums_pair, xa.dtype)
+    return out
+
+
+lag_sums_pair.launches = lag_sums_pair.launches_f32 = 0
 
 
 def windowed_lag(x, max_lag=None, mode: str = "acf",

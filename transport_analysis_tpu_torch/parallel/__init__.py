@@ -1,23 +1,34 @@
-"""Streaming and out-of-core runs on one card.
+"""Multi-device and streaming runs.
 
-``parallel.streaming`` (atom chunks with checkpoint/resume) and
-``parallel.out_of_core`` (the disk-spool pipeline) are ported. The
-multi-device names of ``transport_analysis_tpu.parallel`` (meshes and
-sharding) are not: they raise ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 5.
+Counterpart of ``transport_analysis_tpu/parallel``: a mesh of this
+process's devices (``mesh``) over which the analyses shard their particle
+axis (``sharding``), the exact ring of the windowed correlation over frame
+blocks (``ring``), the frame-sharded four-step FFT (``sharded_fft``), the
+multi-process feed (``multihost``, on ``torch.distributed``), atom-chunked
+streaming with checkpoint/resume (``streaming``) and the out-of-core
+spools (``out_of_core``).
 """
 
 import importlib
 
-from ..utils.errors import not_ported_module
+from .mesh import analysis_mesh, use_mesh, current_mesh
+from .sharding import shard_frames_axis, shard_particles
 
-_SUBMODULES = ("streaming", "out_of_core")
-_not_ported = not_ported_module("parallel", "multigpu")
+_SUBMODULES = ("streaming", "out_of_core", "ring", "sharded_fft",
+               "multihost")
+
+__all__ = [
+    "analysis_mesh",
+    "use_mesh",
+    "current_mesh",
+    "shard_particles",
+    "shard_frames_axis",
+]
 
 
 def __getattr__(name: str):
-    # ``from ...parallel import streaming`` looks the name up here before
-    # it imports the submodule, so the ported submodules load on lookup
+    # ``from ...parallel import ring`` looks the name up here before it
+    # imports the submodule, so the submodules load on lookup
     if name in _SUBMODULES:
         return importlib.import_module(f".{name}", __name__)
-    return _not_ported(name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -18,7 +18,8 @@ pass 2 — correlate: each spool is read whole (on a reader thread, one
 The spools and their names are the JAX package's (``{field}_chunk
 {c:05d}.f32``, the ``{field}.complete`` marker, ``{field}_aux.npz``), so
 either package reads the other's spools; pass 2 checkpoints after every
-spool. The Helfand spools hold m·v·x rounded to float32, as the JAX
+spool. The ``*_sharded`` functions correlate each spool with the frame
+axis sharded over a mesh (``parallel.sharded_fft``). The Helfand spools hold m·v·x rounded to float32, as the JAX
 package's do: ``helfand_out_of_core`` is float32 grade by design (about
 1e-5 relative to the in-memory ``ViscosityHelfand``).
 """
@@ -36,7 +37,7 @@ import torch
 
 from .._device import resolve_device
 from ..io.prefetch import prefetch_batches
-from ..utils.errors import NoDataError, not_ported
+from ..utils.errors import NoDataError
 from .streaming import to_host
 
 
@@ -419,15 +420,93 @@ def msd_out_of_core(
     )
 
 
-def vacf_out_of_core_sharded(*args, **kwargs):
-    """The frame-sharded out-of-core VACF of the JAX package: not ported
-    (it needs the multi-device ``parallel`` modules)."""
-    raise not_ported("parallel.out_of_core.vacf_out_of_core_sharded",
-                     "multigpu")
+def vacf_out_of_core_sharded(
+    universe_or_ag,
+    spool_dir: str,
+    mesh,
+    axis_name: str = "frames",
+    atom_chunk='auto',
+    dim: Sequence[int] = (0, 1, 2),
+    start=None,
+    stop=None,
+    step=None,
+    checkpoint: Optional[str] = None,
+    stats: Optional[dict] = None,
+) -> np.ndarray:
+    """Out-of-core VACF with the FFT frame axis sharded over a mesh: atoms
+    stream through disk spools (host memory bound), frames shard over the
+    mesh's devices (device memory bound), and each chunk's correlation
+    runs the four-step distributed FFT (``parallel/sharded_fft.py``).
+    ``atom_chunk='auto'`` sizes the chunk for the mesh's first device;
+    ``stats`` as in :func:`correlate_spools`.
+
+    Per-lag normalization matches :func:`vacf_out_of_core`; the two agree
+    at float64 rounding."""
+    from .sharded_fft import sharded_acf_fft
+
+    ag, reader, frames = _resolve(universe_or_ag, start, stop, step)
+    atom_chunk = _auto_chunk(atom_chunk, len(frames), len(dim),
+                             mesh.devices[0])
+    paths = build_spools(
+        reader, frames, ag.indices, list(dim), spool_dir, atom_chunk,
+        field="velocities",
+    )
+
+    def kernel(block):
+        # particle sum on the host of the (L, chunk) curves, as the JAX
+        # package's kernel does
+        return sharded_acf_fft(np.asarray(block, dtype=np.float64), mesh,
+                               axis_name).sum(axis=1)
+
+    return correlate_spools(
+        kernel, paths, len(ag), checkpoint=checkpoint, stats=stats
+    )
 
 
-def helfand_out_of_core_sharded(*args, **kwargs):
-    """The frame-sharded out-of-core Helfand function of the JAX package:
-    not ported (it needs the multi-device ``parallel`` modules)."""
-    raise not_ported("parallel.out_of_core.helfand_out_of_core_sharded",
-                     "multigpu")
+def helfand_out_of_core_sharded(
+    universe_or_ag,
+    spool_dir: str,
+    mesh,
+    axis_name: str = "frames",
+    atom_chunk='auto',
+    dim: Sequence[int] = (0, 1, 2),
+    temp_avg: float = 300.0,
+    start=None,
+    stop=None,
+    step=None,
+    checkpoint: Optional[str] = None,
+    linear_fit_window: Optional[tuple] = None,
+    stats: Optional[dict] = None,
+):
+    """Out-of-core Einstein–Helfand viscosity with the FFT frame axis
+    sharded over a mesh: the m·v·x spools of :func:`helfand_out_of_core`,
+    each chunk's Einstein lag-difference curve from the distributed
+    four-step FFT (``sharded_fft.sharded_msd_fft`` with the Helfand
+    component mean). Semantics match :func:`helfand_out_of_core`.
+
+    Returns ``(timeseries, viscosity_or_None)``."""
+    from .sharded_fft import sharded_msd_fft
+    from ..utils.units import constants
+
+    ag, reader, frames = _resolve(universe_or_ag, start, stop, step)
+    atom_chunk = _auto_chunk(atom_chunk, len(frames), len(dim),
+                             mesh.devices[0])
+    paths, vol_avg = _mvx_spools(ag, reader, frames, dim, spool_dir,
+                                 atom_chunk)
+
+    def kernel(block):
+        return sharded_msd_fft(np.asarray(block, dtype=np.float64), mesh,
+                               axis_name, reduce_mode="mean").sum(axis=1)
+
+    raw = correlate_spools(kernel, paths, len(ag), checkpoint=checkpoint,
+                           stats=stats)
+    k_B = constants["Boltzmann_constant"]
+    timeseries = raw / (2.0 * k_B * vol_avg * temp_avg)
+
+    viscosity = None
+    if linear_fit_window is not None:
+        lo, hi = linear_fit_window
+        lagtimes = np.arange(len(timeseries), dtype=np.float64)
+        slope, _ = np.polyfit(lagtimes[lo:hi], timeseries[lo:hi], 1)
+        viscosity = slope
+    return timeseries, viscosity

@@ -26,26 +26,6 @@ class SelectionError(TransportAnalysisError, ValueError):
     """Raised for invalid atom-selection strings."""
 
 
-# ROADMAP.md queue 1 items the port has not reached yet; every entry
-# point of those parts raises ``not_ported`` naming its item.
-ROADMAP_ITEMS = {
-    "multigpu": "ROADMAP.md queue 1 item 5 (multiple GPUs: parallel/)",
-}
-
-
-def not_ported_module(package: str, item: str):
-    """A module ``__getattr__`` for a package that is not ported yet:
-    every public name raises :func:`not_ported`; dunder lookups stay
-    ``AttributeError`` so ``hasattr`` and introspection keep working."""
-
-    def __getattr__(name: str):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise not_ported(f"{package}.{name}", item)
-
-    return __getattr__
-
-
 def check_work_dtype(dtype) -> None:
     """The analyses' work dtype, as the JAX package takes it: float64
     (the default, reference-grade numerics) or float32 (the float32 work
@@ -53,12 +33,3 @@ def check_work_dtype(dtype) -> None:
     if np.dtype(dtype) not in WORK_TYPES:
         raise ValueError(
             f"dtype must be float64 or float32, got dtype={np.dtype(dtype)}")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error a not-yet-ported feature raises: names the ROADMAP.md
-    item that will bring it."""
-    return NotImplementedError(
-        f"{what} is not ported to transport_analysis_tpu_torch yet; "
-        f"see {ROADMAP_ITEMS[item]}"
-    )

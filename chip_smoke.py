@@ -159,11 +159,13 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    whole series within 1e-12 (1e-5), its wall beside its bound (pairs x
    d x 2 flop at 67 TFLOP/s for acf, x 3 at 34, or 67 in float32, for
    einstein; bytes over 3.35 TB/s) and K8's, ten two-block launches a
-   ring; the two-block launch (``lag_sums_pair``, K8's ``kPair``
-   instantiations) on the ring's rounds 0 (xa = xb, offset 0), 1 and 3
+   ring; the two-block launch (``lag_sums_pair``, K8's two-block
+   kernels) on the ring's rounds 0 (xa = xb, offset 0), 1 and 3
    (lags up to N - 1), blocks of 2,048 frames over every atom, against
    its plain version on every 21st atom, both modes, float64 and float32
-   blocks (1e-12, 1e-5 in float32), round 1's acf launches beside the
+   blocks (1e-12, 1e-5 in float32), each launch's share of its bound and
+   the acf split's MMA work against the pair-components it sums
+   (``cuda_lag.acf_pair_work``), round 1's acf launches beside the
    library's pair sums, a grouped ``F.conv1d`` (TF32 off) of the
    zero-padded partner series with the base series. The sharded FFT at
    65,536 frames (M = 2^17, four frame shards) over every 10th atom of
@@ -362,17 +364,18 @@ def build_phase(build):
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            if "acf_gram_kernel" in name:
+            if "acf_gram_kernel" in name or "acf_pair_kernel" in name:
                 dmma[name] = 0
         elif name in dmma and "DMMA" in ln:
             dmma[name] += 1
     if len(dmma) != 15 or min(dmma.values()) == 0:
-        raise RuntimeError(f"build: acf_gram_kernel's SASS, DMMA instructions "
+        raise RuntimeError(f"build: K8 acf kernels' SASS, DMMA instructions "
                            f"by instantiation: {dmma}")
-    phase("build", f"acf_gram_kernel: DMMA instructions in the SASS of its "
-          f"15 instantiations (one operand: float -> double, double -> "
-          f"double, float -> float; two blocks: double -> double, float -> "
-          f"float; x d = 1, 2, 3): {sorted(dmma.values())}")
+    phase("build", f"K8 acf kernels: DMMA instructions in the SASS of their "
+          f"15 instantiations (acf_gram_kernel: float -> double, double -> "
+          f"double, float -> float; acf_pair_kernel, the two-block launch: "
+          f"double -> double, float -> float; x d = 1, 2, 3): "
+          f"{sorted(dmma.values())}")
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -1092,7 +1095,9 @@ PROFILE_CATEGORIES = [      # (substring of the device event name, label)
     ("kneller_scan", "K6b kneller_windows scan"),
     ("einstein_tile_kernel", "K8 lag_sums einstein"),
     ("einstein_rows_kernel", "K8 lag_sums einstein"),   # float32 sums
-    ("acf_gram_kernel", "K8 lag_sums acf"),     # one operand and two blocks
+    ("acf_gram_kernel", "K8 lag_sums acf"),
+    ("einstein_pair", "K8 lag_sums_pair einstein"),     # the two-block
+    ("acf_pair_kernel", "K8 lag_sums_pair acf"),        # launch
 ]
 
 
@@ -2209,7 +2214,7 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
                       f"series with xa's) agree with K8's two-block launch "
                       f"to {diff / scale:.3e}")
             key = "lag_sums_pair" + ("_f32" if f32 else "")
-            compare_kernel(
+            k_ms = compare_kernel(
                 torch, results if k == 1 else others, name, key,
                 lambda: cuda_lag.lag_sums_pair(xa, xb, offset, lo, count,
                                                mode),
@@ -2221,6 +2226,15 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
                 f"atom)", times, library=library,
                 pick=lambda out: out[:, ::PLAIN_STRIDE],
                 tol=F32_KERNEL_TOL if f32 else KERNEL_TOL)
+            b_ms = bound(*times)[0]
+            split = ""
+            if mode == "acf":
+                mma, one = cuda_lag.acf_pair_work(block, shift, count)
+                split = (f"; the acf split's MMAs do {mma / one:.3f}x its "
+                         f"pair-components")
+            phase("kernels", f"{name} K8 lag_sums_pair round {k} "
+                  f"{str(dtype)[6:]} {mode}: {100 * b_ms / k_ms:.1f} % of "
+                  f"its {b_ms:.3f} ms bound{split}")
             if k == 1:
                 r = results[name][key]
                 r["atoms"], r["plain_atoms"] = n_atoms, sa.shape[1]

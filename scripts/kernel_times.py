@@ -5,7 +5,7 @@ FFT path also on narrow, very long series, on one CUDA Hopper card, K2,
 K6a and K8 against their plain versions and beside their bounds; a quick
 loop for tuning these kernels without the whole of chip_smoke.py.
 
-    python3 scripts/kernel_times.py [--only k6a|k6b|k8|vacf|fft|k2|k1]
+    python3 scripts/kernel_times.py [--only k6a|k6b|k8|vacf|fft|k2|k1|pair]
                                     [--reps 5] [--package DIR]
 
 ``--only fft`` times each K1 level beside its bound and its ``torch.fft``
@@ -20,6 +20,12 @@ complex128 and complex64 at those shapes, then its narrow levels and K5
 launches with float64 sums (float64 and float32 operands) and with
 float32 sums (the float32 work mode, ``out_dtype=torch.float32``), and
 the acf launches.
+
+``--only pair`` times K8's two-block launch (``lag_sums_pair``, the
+exact ring's pair sums) at rounds 0, 1 and 3 of the EC model system's
+ring of four 2,048-frame blocks and round 1 of a ring of four
+16,384-frame blocks over 368 atoms, both modes and both types, beside
+its bound and, for the acf launch, its split's MMA work.
 
 ``--only k6b`` times K6b (kneller_windows, its scan's launches included)
 at the EC model, deep and depth shapes and the narrow top and past ones,
@@ -178,6 +184,69 @@ def k8(cuda_lag, g, reps, acf_only=False):
               f"err {err:.2e}; SM clock, power under load: {busy}",
               flush=True)
         del x, sub, got
+
+
+PAIR_SHAPES = [  # (label, N, blocks, P, round): the exact ring's rounds 0,
+    # 1 and 3 over the EC model system in four blocks, and round 1 of a
+    # long ring, 65,536 frames in four blocks over every 10th atom
+    ("model", 8192, 4, EC_ATOMS, 0), ("model", 8192, 4, EC_ATOMS, 1),
+    ("model", 8192, 4, EC_ATOMS, 3), ("long", 65536, 4, 368, 1)]
+
+
+def pair(cuda_lag, g, reps):
+    """K8's two-block launch (``lag_sums_pair``) at the ring's rounds of
+    PAIR_SHAPES, both modes, float64 and float32 blocks: kernel ms beside
+    the bound, the pair-components counted from the band of pairs as
+    chip_smoke.py counts them, the acf split's MMA work against them
+    (where the package lists it) and the error against the plain version
+    on every 21st atom."""
+    f64, f32 = torch.float64, torch.float32
+    for label, n, blocks, p, k in PAIR_SHAPES:
+        block, d = n // blocks, 3
+        lo = max(0, k * block - block + 1)
+        count = min(n - 1, k * block + block - 1) - lo + 1
+        offset = k * block
+        shift = lo - offset
+        pairs = d * p * sum(max(0, block - abs(delta))
+                            for delta in range(shift, shift + count))
+        for dtype in (f64, f32):
+            xa = torch.randn((block, p, d), dtype=dtype, device="cuda",
+                             generator=g)
+            xb = xa if k == 0 else torch.randn(
+                (block, p, d), dtype=dtype, device="cuda", generator=g)
+            sa, sb = xa[:, ::21].contiguous(), xb[:, ::21].contiguous()
+            size = xa.element_size()
+            nbytes = ((1 if k == 0 else 2) * size * block * p * d
+                      + size * count * p)
+            for mode in ("acf", "einstein"):
+                def call():
+                    return cuda_lag.lag_sums_pair(xa, xb, offset, lo, count,
+                                                  mode)
+
+                err = rel(call()[:, ::21], cuda_lag.lag_sums_pair_plain(
+                    sa, sb, offset, lo, count, mode))
+                ms = time_ms(call, reps)
+                if mode == "acf":
+                    bound = 1e3 * max(nbytes / PEAK_BYTES,
+                                      2 * pairs / PEAK_FP64_MMA)
+                    extra = ""
+                    if hasattr(cuda_lag, "acf_pair_work"):
+                        work, one = cuda_lag.acf_pair_work(block, shift,
+                                                           count)
+                        extra = f", MMA work {work / one:.3f}x the pairs"
+                else:
+                    peak = PEAK_FP32 if dtype == f32 else PEAK_FP64
+                    issue = ISSUE_FP32 if dtype == f32 else ISSUE_FP64
+                    bound = 1e3 * max(nbytes / PEAK_BYTES, 3 * pairs / peak)
+                    extra = (f", issue ceiling {1e3 * 2 * pairs / issue:.3f}"
+                             " ms")
+                print(f"pair {label} round {k} {str(dtype)[6:]} {mode} "
+                      f"(blocks of {block}, {p}, {d}; lags {lo} .. "
+                      f"{lo + count - 1}): kernel {ms:.3f} ms, bound "
+                      f"{bound:.3f} ms ({pairs:.4g} pair-components){extra}, "
+                      f"{100 * bound / ms:.1f} % of bound, err {err:.2e}",
+                      flush=True)
+            del xa, xb, sa, sb
 
 
 FFT_SHAPES = [  # (label, N, P, d): the EC model and deep widths, 80 atoms
@@ -490,11 +559,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only",
                     choices=["k6a", "k6b", "k8", "vacf", "fft", "k2",
-                             "k1"],
+                             "k1", "pair"],
                     help="time one group: vacf is K8's acf launches alone, "
                     "k2 K2 under each split of K2_SPLITS, k1 K1's narrow "
                     "levels and K5 under each LEVEL_SLAB of LEVEL_SLABS, "
-                    "k6b K6b at the EC and narrow shapes")
+                    "k6b K6b at the EC and narrow shapes, pair K8's two-block "
+                    "launch at the ring's rounds")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--package", default=ROOT,
                     help="checkout whose transport_analysis_tpu_torch to "
@@ -520,6 +590,8 @@ def main() -> int:
         k1_splits(cuda_fft, g, args.reps)
     if args.only == "k6b":
         k6b(cuda_kneller, g, args.reps)
+    if args.only == "pair":
+        pair(cuda_lag, g, args.reps)
     return 0
 
 

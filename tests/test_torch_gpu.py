@@ -844,8 +844,9 @@ def pair_check(xa, xb, offset, lag_lo, n_lags):
             assert got.shape == (n_lags, xa.shape[1])
             assert got.dtype == xa.dtype
             assert torch.all(got[ref == 0] == 0)
-            assert rel(got, ref) <= tol, (offset, lag_lo, n_lags, mode,
-                                          reduce_mode)
+            if torch.any(ref != 0):  # else all 0, as the line above holds
+                assert rel(got, ref) <= tol, (offset, lag_lo, n_lags, mode,
+                                              reduce_mode)
 
 
 @pytest.mark.parametrize("p", [33, 70])
@@ -853,14 +854,17 @@ def pair_check(xa, xb, offset, lag_lo, n_lags):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pair_launch_vs_plain(cuda_device, p, d, dtype):
     """K8's two-block launch (``lag_sums_pair``) at P not a multiple of
-    the particle tile, d = 1, 2, 3 and 5 (two launches), blocks under one
-    frame tile (20), about a span (160) and of several acf chunks (1,100):
-    round 0 (xa = xb, offset 0), the ring's rounds 1 and 3 (offset k·L,
-    lags kL − L + 1 … kL + L − 1), and an offset off the block grid whose
-    lags run past the pairs at both ends; the first block one value into
-    its storage, so frame rows start off 16-byte chunks."""
+    the particle tile, d = 1, 2, 3 and 5 (two launches), blocks of 1 and
+    31 frames (under one tile or acf chunk), 160 (about a span), 257, 1,000,
+    1,100 and 2,049 (several 256-frame acf chunks, the ring of partner
+    groups turning, none a multiple of a chunk or tile): round 0 (xa = xb,
+    offset 0), the ring's rounds 1 and 3 of four blocks (offset k·L, lags
+    kL − L + 1 … kL + L − 1), an offset off the block grid whose lags run
+    past the pairs at both ends, and windows that start and end inside the
+    band of pairs; the first block one value into its storage, so frame
+    rows start off 16-byte chunks."""
     rng = np.random.RandomState(p * d)
-    for n in (20, 160, 1100):
+    for n in (1, 31, 160, 257, 1000, 1100, 2049):
         size = n * p * d
         flat = torch.from_numpy(rng.normal(0.5, 2.0, 2 * size + 1)).to(
             cuda_device, dtype)
@@ -870,6 +874,33 @@ def test_pair_launch_vs_plain(cuda_device, p, d, dtype):
         pair_check(xa, xb, n, 1, 2 * n - 1)
         pair_check(xa, xb, 3 * n, 2 * n + 1, 2 * n - 1)
         pair_check(xa, xb, n + 7, 0, 3 * n)
+        pair_check(xa, xb, n, n // 2 + 1, max(1, n - n // 3))
+        pair_check(xa, xa, 0, n // 3, max(1, n // 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_launch_no_pair_lags_are_zero(cuda_device, dtype):
+    """Lags with no frame pair in the two blocks give exactly 0: a window
+    wholly past the pairs (every partner before the first frame or after
+    the last), and one that runs past them at both ends, whose rows with
+    |lag − offset| ≥ L must be 0 while the others meet the plain
+    version."""
+    n, p, d = 300, 37, 3
+    rng = np.random.RandomState(300)
+    xa = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(cuda_device,
+                                                               dtype)
+    xb = torch.from_numpy(rng.normal(0.5, 2.0, (n, p, d))).to(cuda_device,
+                                                               dtype)
+    for mode in ("acf", "einstein"):
+        for offset, lag_lo, n_lags in ((3 * n, 0, 2 * n), (0, n, 700)):
+            got = cuda_lag.lag_sums_pair(xa, xb, offset, lag_lo, n_lags,
+                                         mode)
+            assert torch.all(got == 0), (mode, offset, lag_lo)
+        got = cuda_lag.lag_sums_pair(xa, xb, n, 0, 3 * n, mode)
+        lag = torch.arange(3 * n, device=cuda_device)
+        none = (lag - n).abs() >= n
+        assert torch.all(got[none] == 0) and torch.all(got[~none] != 0)
+        pair_check(xa, xb, n, 0, 3 * n)
 
 
 def test_pair_launch_counts(cuda_device):

@@ -40,7 +40,19 @@ mode's launch copies whole particle-major frame rows (:func:`row_copy`,
 cap ≤ N/4 gate) have no counterpart: a CUDA tensor always takes the
 kernel, a CPU tensor its plain version. :func:`lag_sums_pair` is K8's
 two-block launch, the raw sums of frame pairs across two blocks of one
-series: the exact ring's device work (``parallel.ring``).
+series: the exact ring's device work (``parallel.ring``). Its kernels
+(``csrc/lag.cu`` ``acf_pair_kernel``, ``einstein_pair_kernel``,
+``einstein_pair_rows_kernel``) follow the band of frame pairs: the spans
+in :func:`pair_span_order`; the acf Gram product over spans of
+:func:`acf_pair_spans` and chunks of ``ACF_PAIR_CHUNK`` base frames
+(:func:`acf_pair_chunks`), a warp's tiles only where their partner rows
+meet the block (:func:`acf_pair_live`), partner rows in a ring of
+``ACF_PAIR_GROUPS`` groups (:func:`acf_pair_groups`,
+:func:`acf_pair_slot`), rows in the operand's type
+(:func:`acf_pair_row`, :func:`acf_pair_smem_bytes`); the einstein tiles over
+each span's whole frame range (:func:`einstein_pair_tiles`), a warp's
+tiles where it has a pair (:func:`einstein_pair_warp_tiles`), whole or
+masked (:func:`einstein_pair_whole_tiles`, :func:`einstein_pair_mask`).
 """
 
 from __future__ import annotations
@@ -74,6 +86,15 @@ TILE_WARPS = 8           # kWarps: warps of a CTA, LAG_BLOCK lags each
 TILE_THREADS = 32 * TILE_WARPS
 SPAN = TILE_WARPS * LAG_BLOCK    # kSpan: lags of a CTA
 MAX_D = 3                # components one launch takes (lag_sums groups more)
+# the two-block launch's acf layout, csrc/lag.cu's kPairSteps, kPairChunk,
+# kPairPadEvery, kPairGroups, kPairReach
+ACF_PAIR_STEPS = ACF_RING    # the fewest steps the Hankel ring allows
+ACF_PAIR_CHUNK = ACF_ROWS * ACF_MMA_K * ACF_PAIR_STEPS   # base frames: 256
+ACF_PAIR_PAD_EVERY = ACF_ROWS * ACF_PAIR_STEPS           # 64
+ACF_PAIR_GROUPS = 4          # partner groups of ACF_PAIR_CHUNK rows held
+# a tile's partner rows in a chunk past its first column: 16u + n, u < 16,
+# n < 8
+ACF_PAIR_REACH = ACF_PAIR_CHUNK - ACF_ROWS + 7
 # lags the plain version takes at once: at most this many frame-lag-series
 # values per block, so CPU tests and the card's checks stay small
 PLAIN_BLOCK_VALUES = 1 << 22
@@ -254,6 +275,209 @@ def row_delta(addr: int, f: int, p: int, p0: int, d: int) -> int:
     """The delta a lane reads frame row f at, from f mod 4 alone (tiles
     start at frames ≡ 0 mod 4): ((addr / 4) + p0·d + (f mod 4)·P·d) mod 4."""
     return ((addr >> 2) + p0 * d + (f % 4) * p * d) % 4
+
+
+def pair_lo(reach: int) -> int:
+    """The first frame of a block that pairs at some partner offset of
+    at most ``reach`` (frame i pairs at offset δ iff 0 ≤ i + δ < L)."""
+    return max(0, -reach)
+
+
+def pair_hi(n: int, d0: int) -> int:
+    """The end of the frames of an ``n``-frame block that pair at some
+    partner offset of at least ``d0``."""
+    return n - d0 if d0 > 0 else n
+
+
+def pair_span_order(n_lags: int, shift: int, span: int) -> list[int]:
+    """The spans of a two-block launch in launch order (``csrc/lag.cu``
+    pair_span: grid x of the acf launch, grid y of the einstein ones), in
+    order of their pairs, most first: relative lag j pairs
+    L − |j + shift| base frames, a tent about j0 = −shift, so a whole
+    span's pairs fall with the distance of its centre from j0. The order
+    starts at the whole span whose centre lies nearest j0 and takes the
+    whole spans outward, the nearer side first; a last span shorter than
+    the others comes last."""
+    spans, whole = -(-n_lags // span), n_lags // span
+    twice = span - 1 + 2 * shift    # twice span 0's centre less j0
+    first = min(max((span - twice) // (2 * span), 0), max(whole - 1, 0))
+    right = 2 * first * span + twice <= 0
+    m = min(first, whole - 1 - first)
+    order = []
+    for y in range(spans):
+        if y >= whole:
+            order.append(y)
+        elif y == 0:
+            order.append(first)
+        elif y <= 2 * m:
+            k = (y + 1) // 2
+            order.append(first + k if (y % 2 == 1) == right else first - k)
+        else:
+            order.append(first + (y - m) if whole - 1 - first > first
+                         else first - (y - m))
+    return order
+
+
+def acf_pair_spans(n_lags: int) -> tuple[int, int]:
+    """(spans, lags of a span) of the two-block acf launch: spans of
+    ACF_SPAN lags, the last one shorter, so that every span but the last
+    fills a CTA's ACF_COLS columns and the four sub-partitions (warps w
+    and w + 4) get the same tiles."""
+    span = min(n_lags, ACF_SPAN)
+    return -(-n_lags // span), span
+
+
+def acf_pair_chunks(n: int, d0: int, span: int) -> range:
+    """The first base frames of the chunks of a two-block acf span at
+    partner offset ``d0`` (relative lag j pairs frame t with partner frame
+    t + d0 + j − l0): the frames [f_lo, f_end) that pair with some lag of
+    the span, in chunks of ACF_PAIR_CHUNK."""
+    return range(pair_lo(d0 + span - 1), pair_hi(n, d0), ACF_PAIR_CHUNK)
+
+
+def acf_pair_live(n: int, f0: int, d0: int, warp: int, tiles: int
+                  ) -> list[tuple[int, int, int]]:
+    """The tiles (e, i, m) of ``warp`` (:func:`acf_tile_columns`) that
+    run in the chunk at base frame ``f0``: those whose partner frames in
+    the chunk, f0 + d0 + m + [0, ACF_PAIR_REACH], meet the block."""
+    return [(e, i, m) for e, i, m in acf_tile_columns(warp, tiles)
+            if f0 + d0 + m + ACF_PAIR_REACH >= 0 and f0 + d0 + m < n]
+
+
+def acf_pair_frame_rows(s: int) -> np.ndarray:
+    """(ACF_MMA_K, ACF_ROWS) base rows, from the chunk's first frame, of
+    the A fragment at step ``s``: k-slice j, phase p → 16(s +
+    j·ACF_PAIR_STEPS) + p."""
+    j = np.arange(ACF_MMA_K)[:, None]
+    return ACF_ROWS * (s + j * ACF_PAIR_STEPS) + np.arange(ACF_ROWS)[None, :]
+
+
+def acf_pair_partner_rows(v: int, warp: int, e: int) -> np.ndarray:
+    """(ACF_MMA_K, 8) partner rows, from the chunk's first (row
+    c·ACF_PAIR_CHUNK of the span for chunk c), of the B fragment of tile
+    ACF_WARP_COLS·warp + 8e at step v: 16(v + j·ACF_PAIR_STEPS) +
+    ACF_WARP_COLS·warp + 8e + n; tile m + 16i uses it at step v − i."""
+    j = np.arange(ACF_MMA_K)[:, None]
+    return (ACF_ROWS * (v + j * ACF_PAIR_STEPS) + ACF_WARP_COLS * warp
+            + 8 * e + np.arange(8)[None, :])
+
+
+def acf_pair_groups(c: int) -> range:
+    """The partner groups (rows [g·ACF_PAIR_CHUNK, (g + 1)·ACF_PAIR_CHUNK)
+    of the span) copied for chunk ``c``: 0, 1, 2 with chunk 0, then group
+    c + 2, issued while chunk c − 1 is summed; chunk c reads groups c,
+    c + 1, c + 2."""
+    return range(0, 3) if c == 0 else range(c + 2, c + 3)
+
+
+def acf_pair_pad(itemsize: int = 8) -> int:
+    """Values of padding every ACF_PAIR_PAD_EVERY rows of a two-block acf
+    buffer of ``itemsize``-byte values (``csrc/lag.cu`` pair_pad): rows
+    stay in the operand's type in shared memory, and the lanes of a
+    fragment read distinct banks, a half-warp's 16 8-byte words or a
+    warp's 32 4-byte ones."""
+    return 4 if itemsize == 8 else 8
+
+
+def acf_pair_row(r, itemsize: int = 8):
+    """The shared-memory slot of row ``r`` of a two-block acf buffer of
+    ``itemsize``-byte values (``csrc/lag.cu`` pair_row)."""
+    return r + acf_pair_pad(itemsize) * (r // ACF_PAIR_PAD_EVERY)
+
+
+def acf_pair_slot(r, itemsize: int = 8):
+    """The ring slot of partner row ``r`` of a span: group r //
+    ACF_PAIR_CHUNK in slot group (r // ACF_PAIR_CHUNK) mod
+    ACF_PAIR_GROUPS."""
+    group_slots = acf_pair_row(ACF_PAIR_CHUNK, itemsize)
+    return ((r // ACF_PAIR_CHUNK) % ACF_PAIR_GROUPS * group_slots
+            + acf_pair_row(r % ACF_PAIR_CHUNK, itemsize))
+
+
+def acf_pair_smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Dynamic shared memory of a two-block acf CTA (``csrc/lag.cu``
+    acf_pair_smem_bytes): the ring of partner rows and two buffers of base
+    rows, in the operand's type, copied straight in; the Gram rows take
+    the same memory after the frame loop."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    rows = (d * (ACF_PAIR_GROUPS + 2) * acf_pair_row(ACF_PAIR_CHUNK, itemsize)
+            * itemsize)
+    return max(rows, ACF_ROWS * (ACF_COLS + 8) * 8)
+
+
+def acf_pair_work(n: int, shift: int, n_lags: int) -> tuple[int, int]:
+    """(frame-columns of the MMAs, pair-components) of one particle and
+    component of a two-block acf launch: each live tile of a chunk costs
+    ACF_PAIR_CHUNK frames × 8 columns; the block's pairs in the window
+    number Σ_j max(0, L − |j + shift|)."""
+    spans, span = acf_pair_spans(n_lags)
+    work = 0
+    for b in range(spans):
+        d0 = b * span + shift
+        tiles = acf_tiles(min(span, n_lags - b * span))
+        for f0 in acf_pair_chunks(n, d0, span):
+            for warp in range(ACF_WARPS):
+                work += len(acf_pair_live(n, f0, d0, warp, tiles))
+    pairs = sum(max(0, n - abs(j + shift)) for j in range(n_lags))
+    return work * ACF_PAIR_CHUNK * 8, pairs
+
+
+def einstein_pair_tiles(n: int, d0: int, tile_f: int) -> tuple[int, int]:
+    """(i_lo, tiles) of a two-block einstein span at partner offset
+    ``d0``: tiles of ``tile_f`` frames from i_lo cover [i_lo, i_hi), every
+    frame that pairs with some lag of the span; partner row r of the span
+    is frame d0 + i_lo + r of the partner block, zero outside it."""
+    i_lo, i_hi = pair_lo(d0 + SPAN - 1), pair_hi(n, d0)
+    return i_lo, max(0, -(-(i_hi - i_lo) // tile_f))
+
+
+def einstein_pair_warp_tiles(n: int, d0: int, warp: int, tile_f: int
+                             ) -> range:
+    """The tiles in which the warp's lags (partner offsets dw + l, dw =
+    d0 + warp·LAG_BLOCK, l < LAG_BLOCK) have some pair."""
+    i_lo, _ = einstein_pair_tiles(n, d0, tile_f)
+    dw = d0 + warp * LAG_BLOCK
+    w_lo, w_hi = pair_lo(dw + LAG_BLOCK - 1), pair_hi(n, dw)
+    t_lo = (w_lo - i_lo) // tile_f
+    return range(t_lo, -(-(w_hi - i_lo) // tile_f) if w_hi > w_lo else t_lo)
+
+
+def einstein_pair_whole_tiles(n: int, d0: int, warp: int, tile_f: int
+                              ) -> range:
+    """The tiles of :func:`einstein_pair_warp_tiles` that are whole,
+    every lag of the warp (partner offsets dw + l) with its partner at
+    every frame of the tile, as the kernel reckons them once a span
+    (``csrc/lag.cu`` PairTiles w_lo, w_hi); the others run the masked
+    loop (:func:`einstein_pair_mask`)."""
+    i_lo, _ = einstein_pair_tiles(n, d0, tile_f)
+    mine = einstein_pair_warp_tiles(n, d0, warp, tile_f)
+    dw = d0 + warp * LAG_BLOCK
+    first = -((dw + i_lo) // tile_f)        # ceil((−dw − i_lo) / tile_f)
+    end = (n - dw - (LAG_BLOCK - 1) if dw + LAG_BLOCK - 1 > 0 else n) - i_lo
+    lo = max(first, mine.start)
+    hi = lo if end < tile_f else min(end // tile_f, mine.stop)
+    return range(lo, max(lo, hi))
+
+
+def einstein_pair_mask(n: int, i: int, dw: int) -> range:
+    """The lags l < LAG_BLOCK of a warp whose term the masked inner loop
+    keeps at base frame ``i``: i < L and 0 ≤ i + dw + l < L."""
+    f = i + dw
+    lo = min(max(-f, 0), LAG_BLOCK)
+    hi = 0 if i >= n else min(max(n - f, 0), LAG_BLOCK)
+    return range(lo, max(lo, hi))
+
+
+def pair_window_rows(t: int, t_lo: int, warp: int, tile_f: int
+                     ) -> tuple[range, range]:
+    """The partner rows r a warp reads from the ring in tile t of a
+    two-block einstein span: the rows it primes its window with (at its
+    first tile t_lo), and the new row of each frame k, r = t·tile_f + k +
+    warp·LAG_BLOCK + LAG_BLOCK − 1 (:func:`window_rows` from tile t_lo)."""
+    first = t * tile_f + warp * LAG_BLOCK
+    prime = range(first, first + LAG_BLOCK - 1) if t == t_lo else range(0)
+    start = first + LAG_BLOCK - 1
+    return prime, range(start, start + tile_f)
 
 
 def lag_sums_plain(x: torch.Tensor, n_lags: int, mode: str = "acf",
@@ -448,9 +672,11 @@ def lag_sums_pair(xa: torch.Tensor, xb: torch.Tensor, offset: int,
     type (float32 blocks run the float32 work mode's instantiation), row j
     holding lag lag_lo + j; lags with no pair give 0. Round 0 of the ring
     is xa = xb, offset 0, lag_lo 0: the pairs b ≥ a. A CUDA pair launches
-    the kernels' ``kPair`` instantiations (``csrc/lag.cu``
-    ``ta_lag_pair``) or raises, once per :func:`component_groups` range;
-    a CPU pair runs :func:`lag_sums_pair_plain`."""
+    the two-block kernels (``csrc/lag.cu`` ``ta_lag_pair``:
+    ``acf_pair_kernel``, ``einstein_pair_kernel``,
+    ``einstein_pair_rows_kernel``) or raises, once per
+    :func:`component_groups` range; a CPU pair runs
+    :func:`lag_sums_pair_plain`."""
     _check_pair(xa, xb, n_lags, mode, reduce_mode)
     if xa.device.type == "cpu":
         return lag_sums_pair_plain(xa, xb, offset, lag_lo, n_lags, mode,
@@ -469,15 +695,18 @@ def lag_sums_pair(xa: torch.Tensor, xb: torch.Tensor, offset: int,
 def _launch_pair(xa: torch.Tensor, xb: torch.Tensor, shift: int, n_lags: int,
                  mode: str) -> torch.Tensor:
     """One two-block launch on contiguous CUDA blocks of d ≤ ``MAX_D``:
-    relative lag j pairs xa[a] with xb[a + j + shift]; raw sums."""
+    relative lag j pairs xa[a] with xb[a + j + shift]; raw sums. The acf
+    launch takes the spans along grid x (:func:`pair_span_order`) and the
+    particles along y; the einstein launch tiles of TILE_P particles along
+    x and the spans along y."""
     n, p, d = xa.shape
     if mode == "einstein":
         lags, cols = SPAN, TILE_THREADS
         grid = _build.launch_grid(-(-p // TILE_P), -(-n_lags // SPAN))
     else:
-        spans, lags = acf_spans(n_lags)
+        spans, lags = acf_pair_spans(n_lags)
         cols = ACF_THREADS
-        grid = _build.launch_grid(p, spans)
+        grid = _build.launch_grid(spans, p)
     out = torch.empty((n_lags, p), dtype=xa.dtype, device=xa.device)
     with torch.cuda.device(xa.device):
         err = _build.entry("ta_lag_pair", xa.dtype)(

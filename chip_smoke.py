@@ -180,7 +180,26 @@ tagged with its phase; any failure raises, so the exit code is non-zero:
    multi-process feed in four shards, its all_reduce equal to the local
    sum and its all_gather to the feed; the group is destroyed. Each run's
    wall and peak device memory.
-9. depth   — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
+9. multiprocess — the sequence-parallel paths over meshes of several
+   processes, at the model shape (four blocks of 2,048 frames): (a) a
+   one-process NCCL group, the ring on ``multihost.global_mesh(["cuda"] *
+   4, "frames")`` in each of the mesh phase's cases and the sharded VACF
+   of its 65,536-frame, every-10th-atom series, each bit-equal to (or
+   within 1e-13 of) the mesh phase's one-process result and within
+   1e-12 (float32 1e-5) of K8's serial sums or ``ops.acf_fft``, no byte
+   sent; (b) the same runs in two child processes under gloo on the one
+   card (NCCL refuses two ranks on one GPU), two blocks each, started
+   after the build phase with a timeout: each child imports no jax, its
+   messages staged through host copies; each run's wall and bytes sent
+   per process, the children's launches (ten two-block launches a ring
+   between them), their results bit-equal to each other and held as in
+   (a); (c) ``entry.analysis_step`` on the card against its CPU run
+   (1e-10; K1, K2, K5, K6a and K6b launched) and
+   ``entry.dryrun_multichip(4)`` on the card; (d) a model VACF run's
+   ``analysis.timing``, its "compute" no shorter than the CUDA-event time
+   of its ``_conclude``, and ``utils.profiling.trace`` of that run, whose
+   Chrome trace must hold the FFT kernels by their ``csrc`` names.
+10. depth  — ``fft`` over 8 molecules (80 atoms) at 1,048,576 frames
    (M = 2^21, a six-level plan), oracles on every 8th atom, particle
    means checked as in the deep phase.
 
@@ -257,6 +276,13 @@ PLAIN_REPS = 2           # timed calls of a plain version (some take 4 s)
 # 10th atom of the deep system
 MESH_SHARDS = 4
 MESH_TOL = 1e-13         # sharded run vs unsharded; sharded out of core vs plain
+RING_CASES = [           # the ring's runs: (type, mode, sum_d)
+    ("float64", "acf", True), ("float64", "einstein", True),
+    ("float64", "einstein", False), ("float32", "acf", True),
+    ("float32", "einstein", True)]
+MP_RANKS = 2             # gloo processes on the one card, two blocks each
+MP_TIMEOUT = 300         # seconds a gloo child may take
+STEP_TOL = 1e-10         # the fused step on the card vs its CPU run
 RING_TOL = 1e-12         # the ring vs K8 on the whole series
 FFT_STRIDE = 10
 # the card's peaks for the bounds (H100 SXM data sheet)
@@ -2011,8 +2037,10 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
     blocks against K8 and its two-block launch against its plain version,
     the sharded FFT on every 10th atom of ``deep_system``, the sharded
     out-of-core runs from the files phase's TRR (spools in ``tmp``), and
-    a one-process NCCL group. Returns the launches of its runs and the
-    two-block launch's kernel numbers."""
+    a one-process NCCL group. Returns the launches of its runs, the
+    two-block launch's kernel numbers, and the one-process results of the
+    ring (with K8's serial sums, on the host) and of the sharded VACF
+    (with ``ops.acf_fft``'s) for the multiprocess phase."""
     import shutil
 
     import torch.distributed as dist
@@ -2121,12 +2149,10 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
     # -- the ring over four frame blocks of the model system, all lags
     block = n // MESH_SHARDS
     ring_counts = {torch.float64: [], torch.float32: []}
-    for dtype, mode, sum_d, series in (
-            (torch.float64, "acf", True, vel),
-            (torch.float64, "einstein", True, pos),
-            (torch.float64, "einstein", False, pos),
-            (torch.float32, "acf", True, vel),
-            (torch.float32, "einstein", True, pos)):
+    kept = {}
+    for type_name, mode, sum_d in RING_CASES:
+        dtype = getattr(torch, type_name)
+        series = vel if mode == "acf" else pos
         x = torch.from_numpy(series).to(dev, dtype)
         label = (f"ring {str(dtype)[6:]} {mode} sum_d={sum_d} ({n}, "
                  f"{n_atoms}, 3) over {MESH_SHARDS} blocks of {block}")
@@ -2157,6 +2183,7 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
                f"; ring wall {1e3 * wall:.3f} ms beside its bound "
                f"{b_ms:.3f} ms ({by}) and K8's {1e3 * k8_s:.3f} ms, "
                f"{count[key]} two-block launches")
+        kept[(type_name, mode, sum_d)] = (got.cpu(), want.cpu())
         del x, got, want
     launches["ring"] = {key: sum(c[key] for c in ring_counts[torch.float64])
                         for key in counters}
@@ -2260,6 +2287,7 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
            "ops.acf_fft on the card (lags < N/2)")
     within("sharded_acf_fft", rel_err(got, acf_fft_numpy(v10), head),
            HEAD_TOL, "host f64 (lags < N/2)")
+    kept["fft"] = (got, card_ref)
     del got, card_ref
     got, _, _ = run_timed(
         f"sharded_msd_fft ({nd}, {atoms10}, 3) over {MESH_SHARDS} frame "
@@ -2347,7 +2375,359 @@ def mesh_phase(torch, ta, cuda_lag, counters, card, model, deep_system,
     finally:
         dist.destroy_process_group()
     phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
-    return launches, results[name]
+    return launches, results[name], kept
+
+
+# A gloo child of the multiprocess phase: argv = rank, port, the data
+# directory (the model system's float32 velocities and positions and every
+# 10th atom of the deep system's velocities, as .npy), the repository.
+# It imports no jax, takes its two blocks of a four-block global mesh on
+# the card, runs the ring cases and the sharded VACF, and prints one
+# MP_REPORT line: each run's wall, bytes sent to the other process,
+# kernel launches and the SHA-256 of its result; rank 0 saves the
+# results as .npy beside the data.
+MP_CHILD = r"""
+import hashlib, json, os, sys, time
+rank, port, data, root = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import torch.distributed as dist
+from transport_analysis_tpu_torch.ops import cuda_fft, cuda_lag
+from transport_analysis_tpu_torch.parallel import multihost, ring, sharded_fft
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "transport_analysis_tpu")]
+if bad:
+    raise SystemExit(f"child imported {bad}")
+t_start = time.perf_counter()
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + port,
+                        world_size=2, rank=rank)
+mesh = multihost.global_mesh(["cuda"] * 2, "frames")
+arrays = {k: np.load(os.path.join(data, k + ".npy")) for k in
+          ("vel", "pos", "v10")}
+cases = json.loads(sys.argv[5])
+report = {"rank": rank, "backend": dist.get_backend(), "runs": {}}
+def timed(key, run, counter):
+    counter.launches = 0
+    sent = multihost.traffic.sent
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = out.cpu().numpy() if isinstance(out, torch.Tensor) else out
+    report["runs"][key] = {
+        "wall_s": wall, "sent_bytes": multihost.traffic.sent - sent,
+        "launches": counter.launches,
+        "sha256": hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest()}
+    if rank == 0:
+        np.save(os.path.join(data, f"mp_{key}.npy"), out)
+for type_name, mode, sum_d in cases:
+    x = torch.from_numpy(arrays["vel" if mode == "acf" else "pos"]).to(
+        "cuda", getattr(torch, type_name))
+    timed(f"{type_name}_{mode}_{sum_d}",
+          lambda: ring.windowed_correlation_ring(x, mesh, mode=mode,
+                                                 sum_d=sum_d),
+          cuda_lag.lag_sums_pair)
+    del x
+timed("fft", lambda: sharded_fft.sharded_acf_fft(
+    arrays["v10"].astype(np.float64), mesh), cuda_fft.fft_level)
+dist.destroy_process_group()
+report["process_wall_s"] = time.perf_counter() - t_start
+report["sent_bytes"] = multihost.traffic.sent
+print("MP_REPORT " + json.dumps(report), flush=True)
+"""
+
+
+# The traced model VACF run of the multiprocess phase's (d), in a process
+# of its own: argv root, trace directory, frames, atoms. It builds the EC
+# system as the model phase does, warms the run, traces it with
+# utils.profiling.trace and prints one TRACE_REPORT line of the port's
+# launches in the traced run.
+TRACE_CHILD = r"""
+import json, sys
+root, log_dir, n, n_atoms = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    int(sys.argv[4])
+sys.path.insert(0, root)
+import chip_smoke as cs
+import transport_analysis_tpu_torch as ta
+from transport_analysis_tpu_torch.ops import cuda_fft
+from transport_analysis_tpu_torch.utils.profiling import trace
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("jax", "jaxlib", "transport_analysis_tpu")]
+if bad:
+    raise SystemExit(f"child imported {bad}")
+pos, vel, attrs = cs.ec_system(n, n_atoms // len(cs.EC_ATOMS))
+ag = cs.ec_universe(ta, pos, vel, attrs).select_atoms("resname ECA")
+ta.VelocityAutocorr(ag).run()                           # warm
+counted = {k: getattr(cuda_fft, k) for k in
+           ("fft_level", "unpack_power_inva", "inverse_last_level")}
+for fn in counted.values():
+    fn.launches = 0
+with trace(log_dir):
+    ta.VelocityAutocorr(ag).run()
+print("TRACE_REPORT " + json.dumps({k: fn.launches
+                                    for k, fn in counted.items()}),
+      flush=True)
+"""
+
+def multiprocess_phase(torch, ta, counters, card, model, deep_system,
+                       mesh_kept, tmp):
+    """The sequence-parallel paths over meshes of several processes
+    (module docstring): (a) the ring and the sharded VACF on a global mesh
+    of a one-process NCCL group, (b) in two gloo child processes on the
+    card, two blocks each, both against the mesh phase's one-process
+    results (``mesh_kept``) and K8's serial sums; (c) the fused step and
+    its mesh dry run on the card; (d) a model VACF run's stage timing
+    against the card's own time of its ``_conclude``, and its trace.
+    Returns the launches of its counted runs."""
+    import glob
+    import hashlib
+    import re
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from transport_analysis_tpu_torch import entry
+    from transport_analysis_tpu_torch.parallel import (multihost, ring,
+                                                       sharded_fft)
+
+    name = "multiprocess"
+    t_phase = time.perf_counter()
+    pos, vel, attrs = model["system"]
+    n, n_atoms = vel.shape[:2]
+    v10 = deep_system[1][:, ::FFT_STRIDE]
+    launches = {}
+
+    def within(label, err, tol, against, extra=""):
+        phase(name, f"{label} vs {against}: {err:.3e}{extra}")
+        if not err <= tol:
+            raise AssertionError(f"{label}: {err:.3e} from {against}, past "
+                                 f"{tol}")
+
+    def held(label, got, case):
+        """``got`` (the ring case's or "fft"'s means) against the mesh
+        phase's one-process result and K8's serial sums (``ops.acf_fft``
+        for the FFT)."""
+        base, ref = mesh_kept[case]
+        got, base, ref = (torch.as_tensor(a).cpu() for a in (got, base, ref))
+        f32 = case != "fft" and case[0] == "float32"
+        equal = torch.equal(got, base)
+        head = n if case != "fft" else got.shape[0] // 2
+        diff, scale = max_abs_diff(got, base)
+        within(label, diff / scale, F32_KERNEL_TOL if f32 else MESH_TOL,
+               "the mesh phase's one-process run",
+               f" ({'bit-equal' if equal else 'not bit-equal'})")
+        diff, scale = max_abs_diff(got[:head], ref[:head])
+        within(label, diff / scale,
+               F32_KERNEL_TOL if f32 else
+               (RING_TOL if case != "fft" else KERNEL_TOL),
+               "K8's serial sums" if case != "fft"
+               else "ops.acf_fft on the card (lags < N/2)")
+
+    # -- (a) a one-process NCCL group: the global mesh takes the
+    # one-process path, and nothing crosses a process
+    init = os.path.join(tmp, "nccl_init_mp")
+    dist.init_process_group("nccl", init_method="file://" + init,
+                            world_size=1, rank=0)
+    try:
+        gm = multihost.global_mesh(["cuda"] * MESH_SHARDS, "frames")
+        sent = multihost.traffic.sent
+        for type_name, mode, sum_d in RING_CASES:
+            x = torch.from_numpy(vel if mode == "acf" else pos).to(
+                "cuda", getattr(torch, type_name))
+            label = (f"NCCL world 1 ring {type_name} {mode} sum_d={sum_d} "
+                     f"on global_mesh(['cuda'] * {MESH_SHARDS}, 'frames')")
+            got, count, wall = counted_run(
+                torch, counters, lambda: ring.windowed_correlation_ring(
+                    x, gm, mode=mode, sum_d=sum_d))
+            key = "lag_sums_pair" + ("_f32" if type_name == "float32"
+                                     else "")
+            if count[key] != MESH_SHARDS * (MESH_SHARDS + 1) // 2:
+                raise AssertionError(f"{label}: {count[key]} two-block "
+                                     "launches")
+            phase(name, f"{label}: wall {wall:.4f} s, {count[key]} "
+                  f"two-block launches, on {card}")
+            held(label, got, (type_name, mode, sum_d))
+            launches[f"nccl_ring_{type_name}_{mode}_{sum_d}"] = count
+            del x, got
+        got, count, wall = counted_run(
+            torch, counters,
+            lambda: sharded_fft.sharded_acf_fft(v10.astype(np.float64), gm))
+        label = (f"NCCL world 1 sharded_acf_fft ({v10.shape[0]}, "
+                 f"{v10.shape[1]}, 3)")
+        phase(name, f"{label}: wall {wall:.4f} s, fft_level launches "
+              f"{count['fft_level']}, on {card}")
+        if count["fft_level"] < 1:
+            raise AssertionError(f"{label}: K1 not launched")
+        held(label, got, "fft")
+        launches["nccl_fft"] = count
+        if multihost.traffic.sent != sent:
+            raise AssertionError("a one-process group sent bytes")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # -- (b) two gloo processes on the one card, two blocks each; the
+    # kernels' library is built (build phase), so no child runs nvcc
+    data = os.path.join(tmp, "mp_data")
+    os.makedirs(data)
+    for key, arr in (("vel", vel), ("pos", pos), ("v10", v10)):
+        np.save(os.path.join(data, key + ".npy"), np.ascontiguousarray(arr))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    child = os.path.join(tmp, "mp_child.py")
+    with open(child, "w") as fh:
+        fh.write(MP_CHILD)
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, child, str(rank), port, data, ROOT,
+         json.dumps(RING_CASES)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(MP_RANKS)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MP_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    reports = []
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MP_REPORT ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"gloo child {rank} failed "
+                                 f"({proc.returncode}):\n{out[-4000:]}")
+        reports.append(json.loads(lines[-1][len("MP_REPORT "):]))
+    phase(name, f"{MP_RANKS} gloo processes ({reports[0]['backend']}) on "
+          f"the one card: {wall:.1f} s from start to exit; each process's "
+          f"wall {[round(r['process_wall_s'], 3) for r in reports]} s, "
+          f"bytes sent to the other {[r['sent_bytes'] for r in reports]}, "
+          f"on {card}")
+    for key in reports[0]["runs"]:
+        runs_ = [r["runs"][key] for r in reports]
+        if len({r["sha256"] for r in runs_}) != 1:
+            raise AssertionError(f"gloo {key}: the ranks' results differ")
+        total = sum(r["launches"] for r in runs_)
+        if key == "fft":
+            case, launched = "fft", total >= 1
+        else:
+            type_name, mode, sum_d = key.split("_")
+            case = (type_name, mode, sum_d == "True")
+            launched = total == MESH_SHARDS * (MESH_SHARDS + 1) // 2
+        if not launched:
+            raise AssertionError(f"gloo {key}: {total} launches in the "
+                                 "children")
+        phase(name, f"gloo {key}: walls "
+              f"{[round(r['wall_s'], 4) for r in runs_]} s, bytes sent "
+              f"{[r['sent_bytes'] for r in runs_]}, launches "
+              f"{[r['launches'] for r in runs_]}, the ranks' results "
+              f"bit-equal")
+        got = np.load(os.path.join(data, f"mp_{key}.npy"))
+        if hashlib.sha256(got.tobytes()).hexdigest() != runs_[0]["sha256"]:
+            raise AssertionError(f"gloo {key}: saved result differs")
+        held(f"gloo {key}", got, case)
+        del got
+    shutil.rmtree(data)
+
+    # -- (c) the fused step on the card against its CPU run, and the mesh
+    # dry run on the card
+    args = entry.example_args("cuda")
+    out, count, wall = counted_run(torch, counters,
+                                   lambda: entry.analysis_step(*args))
+    missing = [key for key in ("fft_level", "unpack_power_inva",
+                               "inverse_last_level", "kneller_totals",
+                               "kneller_windows") if count[key] < 1]
+    if missing:
+        raise AssertionError(f"analysis_step: kernels not launched: "
+                             f"{missing}")
+    launches["analysis_step"] = count
+    want = entry.analysis_step(*entry.example_args("cpu"))
+    for label, g, w in zip(("vacf", "diffusivity", "helfand", "viscosity",
+                            "msd"), out, want):
+        g = g.cpu()
+        err = float((g - w).abs().max() / w.abs().max())
+        within(f"analysis_step {label} on the card", err, STEP_TOL,
+               "its CPU run")
+    phase(name, f"analysis_step: wall {wall:.4f} s, launches "
+          f"{ {k: c for k, c in count.items() if c} }")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(MESH_SHARDS)
+    phase(name, f"entry.dryrun_multichip({MESH_SHARDS}) on the card: "
+          f"passed in {time.perf_counter() - t0:.2f} s")
+
+    # -- (d) a model VACF run's stage timing against the card's own time
+    # of its _conclude, then the same run traced
+    u = ec_universe(ta, pos, vel, attrs)
+    ag = u.select_atoms("resname ECA")
+    ta.VelocityAutocorr(ag).run()                           # warm
+    vacf = ta.VelocityAutocorr(ag)
+    conclude = vacf._conclude
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed_conclude():
+        start.record()
+        conclude()
+        end.record()
+
+    vacf._conclude = timed_conclude
+    for fn in counters.values():
+        fn.launches = 0
+    vacf.run()
+    torch.cuda.synchronize()
+    launches["timed_vacf"] = {k: fn.launches for k, fn in counters.items()}
+    timing = vacf.timing.as_dict()
+    event_ms = start.elapsed_time(end)
+    phase(name, f"VelocityAutocorr timing {timing}; _conclude on the card "
+          f"{event_ms:.3f} ms (CUDA events), on {card}")
+    if not 1e3 * timing["compute"] >= event_ms > 0:
+        raise AssertionError(f"timing compute {1e3 * timing['compute']:.3f}"
+                             f" ms under the card's {event_ms:.3f} ms")
+    # the same run traced in a fresh process: late in a process that has
+    # held many profiler sessions, as this one has, the CUDA tracer can
+    # lose every kernel record of a session
+    log_dir = os.path.join(tmp, "trace")
+    child = os.path.join(tmp, "trace_child.py")
+    with open(child, "w") as fh:
+        fh.write(TRACE_CHILD)
+    proc = subprocess.run([sys.executable, child, ROOT, log_dir, str(n),
+                           str(n_atoms)], capture_output=True, text=True,
+                          timeout=MP_TIMEOUT)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("TRACE_REPORT ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"trace child failed ({proc.returncode}):\n"
+                             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    traced = json.loads(lines[-1][len("TRACE_REPORT "):])
+    (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    csrc = set()
+    for src in sorted(glob.glob(os.path.join(ROOT, CSRC, "*.cu"))):
+        with open(src) as fh:
+            csrc.update(re.findall(r"__global__.{0,80}?\b(\w+_kernel)\b",
+                                   fh.read(), re.S))
+    seen = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            for kname in csrc:
+                if re.search(rf"\b{kname}\b", ev.get("name", "")):
+                    seen[kname] = seen.get(kname, 0) + 1
+    phase(name, f"trace {os.path.getsize(path)} bytes: port kernels by "
+          f"their csrc names {dict(sorted(seen.items()))}; the wrappers "
+          f"counted {traced}")
+    for need in ("fft_level", "unpack_power_inva_kernel",
+                 "inverse_last_level"):
+        if not any(need in kname for kname in seen):
+            raise AssertionError(f"trace: no {need} kernel event")
+    phase(name, f"phase done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2409,12 +2789,15 @@ def main() -> int:
                 stream_phase(torch, ta, acf_fft_numpy, counters, smi, kept,
                              files, tmp)
                 torch.cuda.empty_cache()
-                launches["mesh"], pair_results = mesh_phase(
+                launches["mesh"], pair_results, mesh_kept = mesh_phase(
                     torch, ta, cuda_lag, counters, smi, model, system, files,
                     tmp)
                 kernel_results.update(pair_results)
                 torch.cuda.empty_cache()
-                del files, model
+                launches["multiprocess"] = multiprocess_phase(
+                    torch, ta, counters, smi, model, system, mesh_kept, tmp)
+                torch.cuda.empty_cache()
+                del files, model, mesh_kept
             del system, kept
     if any(mod == "jax" or mod.startswith("jax.") for mod in sys.modules):
         raise AssertionError("jax was imported")

@@ -1067,3 +1067,100 @@ def test_nccl_feed_one_process(cuda_device, tmp_path):
         assert np.array_equal(block.gather().cpu().numpy(), full)
     finally:
         dist.destroy_process_group()
+
+
+def test_nccl_ring_and_fft_world_one(cuda_device, tmp_path):
+    """The ring and the sharded FFT on ``global_mesh(["cuda"] * 4,
+    "frames")`` of a one-process NCCL group take the one-process path:
+    bit-equal to the same mesh without a group, nothing sent."""
+    import torch.distributed as dist
+
+    from transport_analysis_tpu_torch.parallel import multihost
+
+    _, ring, sf, Mesh = _mesh_modules()
+    local = Mesh(["cuda"] * 4, ("frames",))
+    x = torch.from_numpy(np.random.RandomState(8).normal(
+        size=(512, 21, 3))).to(cuda_device)
+    xa = np.random.RandomState(9).normal(size=(1000, 5, 3))
+    want = [ring.windowed_correlation_ring(x, local, mode=mode)
+            for mode in ("acf", "einstein")]
+    want_fft = sf.sharded_acf_fft(xa, local)
+    sent = multihost.traffic.sent
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            world_size=1, rank=0)
+    try:
+        mesh = multihost.global_mesh(["cuda"] * 4, "frames")
+        assert mesh.processes == 1 and mesh.shape["frames"] == 4
+        for mode, ref in zip(("acf", "einstein"), want):
+            got = ring.windowed_correlation_ring(x, mesh, mode=mode)
+            assert torch.equal(got, ref), mode
+        assert np.array_equal(sf.sharded_acf_fft(xa, mesh), want_fft)
+    finally:
+        dist.destroy_process_group()
+    assert multihost.traffic.sent == sent
+
+
+def test_timing_compute_covers_the_card(cuda_device):
+    """``analysis.timing``'s "compute" is no shorter than the card's own
+    time of ``_conclude`` (CUDA events around it): the stage synchronises
+    the card before it reads the clock."""
+    u, cls, _ = _card_system("helfand")
+    analysis = cls(u.atoms, fft=False)
+    conclude = analysis._conclude
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed():
+        start.record()
+        conclude()
+        end.record()
+
+    analysis._conclude = timed
+    analysis.run()
+    torch.cuda.synchronize()
+    timing = analysis.timing.as_dict()
+    assert set(timing) == {"io", "compute", "total", "frames_per_s",
+                           "atom_frame_lags_per_s"}
+    assert 1e3 * timing["compute"] >= start.elapsed_time(end) > 0
+
+
+def test_trace_holds_the_kernels(cuda_device, tmp_path):
+    """``utils.profiling.trace`` writes a Chrome trace whose CUDA kernel
+    events name the port's kernels."""
+    import glob
+    import json
+
+    from transport_analysis_tpu_torch.utils.profiling import trace
+
+    u, cls, _ = _card_system("helfand")
+    with trace(tmp_path):
+        cls(u.atoms, fft=True).run()
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = " ".join(e["name"] for e in events
+                       if e.get("cat") == "kernel")
+    for name in ("fft_level", "unpack_power_inva_kernel",
+                 "inverse_last_level", "kneller_totals_kernel",
+                 "kneller_windows_kernel"):
+        assert name in kernels, name
+
+
+def test_analysis_step_and_dryrun_on_card(cuda_device):
+    """The fused step on the card against its CPU run (K1, K2, K5, K6a
+    and K6b each launched), and the mesh dry run over four shards of the
+    card."""
+    from transport_analysis_tpu_torch import entry
+    from transport_analysis_tpu_torch.ops import cuda_kneller
+
+    counted = [cuda_fft.fft_level, cuda_fft.unpack_power_inva,
+               cuda_fft.inverse_last_level, cuda_kneller.kneller_totals,
+               cuda_kneller.kneller_windows]
+    before = [f.launches for f in counted]
+    got = entry.analysis_step(*entry.example_args(cuda_device))
+    assert all(f.launches > b for f, b in zip(counted, before))
+    want = entry.analysis_step(*entry.example_args("cpu"))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+    entry.dryrun_multichip(4)

@@ -215,3 +215,52 @@ def test_chip_smoke_alone_fails(tmp_path):
                          timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_version_is_the_projects():
+    """``__version__`` equals the JAX package's and pyproject.toml's;
+    ``__git_revision__`` is the checkout's commit, or None outside git."""
+    import tomllib
+
+    import transport_analysis_tpu as jta
+
+    with open(ROOT / "pyproject.toml", "rb") as fh:
+        project = tomllib.load(fh)["project"]["version"]
+    assert ta.__version__ == jta.__version__ == project
+    assert "__version__" in ta.__all__
+    assert ta._version.get_versions()["version"] == ta.__version__
+    rev = ta.__git_revision__
+    assert rev is None or (len(rev) == 40 and int(rev, 16) >= 0)
+
+
+def test_due_shim():
+    """The citation shim, at the reference's ``due`` import path too: a
+    no-op without duecredit."""
+    from transport_analysis_tpu_torch.due import Doi, due
+    from transport_analysis_tpu_torch.utils import due as udue
+
+    assert due is udue.due and Doi is udue.Doi
+    due.cite(Doi("10.21105/joss.00877"), description="x", path="y")
+
+    @due.dcite(Doi("10.21105/joss.00877"), description="x", path="y")
+    def fn():
+        return 1
+
+    assert fn() == 1
+
+
+def test_new_modules_import_no_jax():
+    res = _python(
+        "import sys\n"
+        "import transport_analysis_tpu_torch as ta\n"
+        "import transport_analysis_tpu_torch.due\n"
+        "import transport_analysis_tpu_torch.entry\n"
+        "import transport_analysis_tpu_torch.utils.profiling\n"
+        "import transport_analysis_tpu_torch.parallel.multihost\n"
+        "assert ta.__version__ == '0.9.0'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'transport_analysis_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean')")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"

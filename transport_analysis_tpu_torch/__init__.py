@@ -26,6 +26,11 @@ PyTorch versions.
 * ``data``   — the ethylene-carbonate regression files, generated on
                first access.
 * ``convert`` — builds a Universe from plain numpy arrays.
+* ``entry``  — the fused VACF + Green–Kubo + Helfand + MSD step and its
+               mesh dry run (the JAX package's ``__graft_entry__.py``).
+* ``utils``  — units, errors, progress bars, stage timing
+               (``analysis.timing``) and ``torch.profiler`` traces.
+* ``due``    — the duecredit citation shim (a no-op without it).
 * ``parallel`` — meshes of devices over which the analyses shard their
                particle axis (``use_mesh``, ``analysis_mesh``), the exact
                ring over frame blocks, the frame-sharded FFT, the
@@ -37,6 +42,7 @@ The kernels (``csrc/*.cu``) are compiled by nvcc for sm_90a at first use
 tensor runs the plain version. This package never imports jax.
 """
 
+from ._version import __version__, get_versions as _get_versions
 from ._device import resolve_device
 from .utils.errors import NoDataError
 from .core.universe import Universe
@@ -55,4 +61,13 @@ __all__ = [
     "ViscosityHelfand",
     "EinsteinMSD",
     "resolve_device",
+    "__version__",
 ]
+
+
+def __getattr__(name: str):
+    # ``__git_revision__`` asks git when it is read, so that importing the
+    # package starts no process
+    if name == "__git_revision__":
+        return _get_versions()["full-revisionid"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,6 +15,10 @@ With ``frame_block=`` the selection arrives in blocks of that many frames,
 decoded on a background thread (``io.prefetch``), and each block is
 copied into a :class:`DeviceSeriesBuffer` on the analysis's device, so the
 host holds one decoded block at a time.
+
+Every run records ``analysis.timing`` (``utils.profiling.StageTimer`` on
+the analysis's device): "io" around the feed, "compute" around
+``_conclude``, and the frame and particle counters of its throughputs.
 """
 
 from __future__ import annotations
@@ -226,6 +230,9 @@ class AnalysisBase:
         frames=None,
         verbose: Optional[bool] = None,
     ):
+        from ..utils.profiling import StageTimer
+
+        self.timing = StageTimer(self.device)
         self._setup_frames(
             self._trajectory, start=start, stop=stop, step=step, frames=frames
         )
@@ -237,48 +244,57 @@ class AnalysisBase:
         if (use_batch and self._frame_block is not None
                 and hasattr(self, "_process_block")):
             self._validate_trajectory()
-            from ..io.prefetch import prefetch_batches
-            from ..utils.progress import progress_bar
+            with self.timing.stage("io"):
+                from ..io.prefetch import prefetch_batches
+                from ..utils.progress import progress_bar
 
-            times = []
-            offset = 0
-            blocks = prefetch_batches(
-                self._trajectory, self.frames, block_size=self._frame_block,
-            )
-            bar = progress_bar(
-                total=len(self.frames),
-                desc=type(self).__name__,
-                disable=not show_progress,
-            )
-            for block in blocks:
-                times.append(np.asarray(block["times"]))
-                self._process_block(block, offset)
-                offset += len(block["times"])
-                bar.update(len(block["times"]))
-            bar.close()
-            self.times = np.concatenate(times).astype(np.float64)
+                times = []
+                offset = 0
+                blocks = prefetch_batches(
+                    self._trajectory, self.frames,
+                    block_size=self._frame_block,
+                )
+                bar = progress_bar(
+                    total=len(self.frames),
+                    desc=type(self).__name__,
+                    disable=not show_progress,
+                )
+                for block in blocks:
+                    times.append(np.asarray(block["times"]))
+                    self._process_block(block, offset)
+                    offset += len(block["times"])
+                    bar.update(len(block["times"]))
+                bar.close()
+                self.times = np.concatenate(times).astype(np.float64)
         elif use_batch:
             self._validate_trajectory()
-            batch = self._trajectory.read_frames_batch(self.frames)
-            self.times = np.asarray(batch["times"], dtype=np.float64)
-            self._process_batch(batch)
+            with self.timing.stage("io"):
+                batch = self._trajectory.read_frames_batch(self.frames)
+                self.times = np.asarray(batch["times"], dtype=np.float64)
+                self._process_batch(batch)
         else:
-            from ..utils.progress import progress_bar
+            with self.timing.stage("io"):
+                from ..utils.progress import progress_bar
 
-            bar = progress_bar(
-                total=self.n_frames,
-                desc=type(self).__name__,
-                disable=not show_progress,
-            )
-            for i, frame_index in enumerate(self.frames):
-                ts = self._trajectory[int(frame_index)]
-                self._frame_index = i
-                self._ts = ts
-                self.times[i] = ts.time
-                self._single_frame()
-                bar.update(1)
-            bar.close()
-        self._conclude()
+                bar = progress_bar(
+                    total=self.n_frames,
+                    desc=type(self).__name__,
+                    disable=not show_progress,
+                )
+                for i, frame_index in enumerate(self.frames):
+                    ts = self._trajectory[int(frame_index)]
+                    self._frame_index = i
+                    self._ts = ts
+                    self.times[i] = ts.time
+                    self._single_frame()
+                    bar.update(1)
+                bar.close()
+        with self.timing.stage("compute"):
+            self._conclude()
+        self.timing.counters(
+            n_frames=self.n_frames,
+            n_particles=getattr(self, "n_particles", 0),
+        )
         # a finished run keeps its results, not its feed on the device
         for key in getattr(self, "_buffers", {}):
             setattr(self, "_" + key, None)

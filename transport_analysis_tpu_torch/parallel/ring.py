@@ -20,6 +20,16 @@ the result equals the single-device windowed kernel's up to the order of
 the additions. The pair sums run on the card as K8's two-block launch
 (``ops.cuda_lag.lag_sums_pair``), O(L²) pairs a round for each device.
 
+The mesh may span several processes (``parallel.multihost.global_mesh``
+of the default ``torch.distributed`` group): block g = r·D + l then lives
+on local device l of rank r, each process takes its own blocks of the
+global array every process passes, a hop across a process boundary goes
+from rank r+1's first device to rank r's last one (``multihost.
+send_recv``), posted only while the visiting block is live (both ends
+test the same condition), and each process's sum over its devices is
+all-reduced across the processes (``multihost.all_reduce``). A group of
+one process runs no transfer or collective, as without a group.
+
 ``mode='acf'`` sums v·v lag products (VACF); ``mode='einstein'`` sums
 (A_i − A_j)² differences (Helfand/MSD).
 """
@@ -30,6 +40,7 @@ import torch
 
 from .._device import REAL_TYPES, as_tensor
 from ..ops.cuda_lag import lag_sums_pair
+from . import multihost
 from .mesh import Mesh
 
 
@@ -54,22 +65,26 @@ def windowed_correlation_ring(
     Parameters
     ----------
     x : (N, P, d) float64 or float32 array or tensor; N must divide evenly
-        by the mesh axis size. Arrays go to the mesh's first device.
-    mesh : ``parallel.mesh.Mesh`` with the axis ``axis_name``.
+        by the mesh axis size. Arrays go to the mesh's first device. On a
+        mesh of several processes every process passes the same global
+        array and takes its own blocks of it.
+    mesh : ``parallel.mesh.Mesh`` with the axis ``axis_name``, of this
+        process's devices or global (``multihost.global_mesh``).
     mode : 'acf' (lag products) or 'einstein' (squared lag differences).
     sum_d : einstein only: sum the components (MSD) or average them
         (Helfand); the acf mode sums them, as the JAX function does.
 
     Returns
     -------
-    (N, P) per-lag *means* on the mesh's first device, of ``x``'s type:
-    sums / (N − lag), matching ``ops.acf_windowed`` /
-    ``ops.einstein_difference_windowed``; einstein row 0 is 0.
+    (N, P) per-lag *means* on the mesh's first device of this process, of
+    ``x``'s type: sums / (N − lag), matching ``ops.acf_windowed`` /
+    ``ops.einstein_difference_windowed``; einstein row 0 is 0. Every
+    process gets the same means.
     """
     devices = mesh.devices
     n_blocks = mesh.shape[axis_name]
-    if mesh.processes > 1 or len(devices) != n_blocks:
-        raise ValueError("the ring runs on a mesh of this process's devices")
+    first = multihost.axis_position(mesh)
+    rank, world = multihost.process_index_count()
     x = as_tensor(x, None if isinstance(x, torch.Tensor) else devices[0])
     if x.dtype not in REAL_TYPES or x.ndim != 3:
         raise TypeError(f"the ring takes an (N, P, d) float64 or float32 "
@@ -83,24 +98,36 @@ def windowed_correlation_ring(
             f"{axis_name}={n_blocks}"
         )
     block = n // n_blocks
+    n_loc = len(devices)
     reduce_mode = "mean" if mode == "einstein" and not sum_d else "sum"
-    own = [x[i * block:(i + 1) * block].to(dev).contiguous()
-           for i, dev in enumerate(devices)]
+    own = [x[g * block:(g + 1) * block].to(dev).contiguous()
+           for g, dev in zip(range(first, first + n_loc), devices)]
     sums = [torch.zeros((n, p), dtype=torch.float64, device=dev)
             for dev in devices]
     visit = list(own)
     for k in range(n_blocks):
         lo, count = round_window(k, block, n)
-        for i in range(n_blocks - k):       # device i holds block i + k
+        # local device i (axis position first + i) holds block first + i + k
+        for i in range(len(visit)):
             part = lag_sums_pair(own[i], visit[i], k * block, lo, count,
                                  mode, reduce_mode)
             sums[i][lo:lo + count] += part
-        # the visiting blocks move one device down the ring
-        visit = [visit[i + 1].to(devices[i])
-                 for i in range(n_blocks - k - 1)]
+        # the visiting blocks move one device down the ring: device i
+        # holds one next round while first + i + k + 1 < B; rank r + 1's
+        # first device sends to rank r's last while its block is live
+        live = min(n_loc, max(0, n_blocks - k - 1 - first))
+        hop = [visit[i + 1].to(devices[i])
+               for i in range(min(live, n_loc - 1))]
+        sends = ([(visit[0], rank - 1)]
+                 if rank > 0 and first + k < n_blocks else [])
+        recvs = ([(own[-1], rank + 1)]
+                 if live == n_loc and rank + 1 < world else [])
+        visit = hop + multihost.send_recv(sends, recvs)
     total = sums[0]
     for part in sums[1:]:
         total += part.to(total.device)
+    if world > 1:
+        multihost.all_reduce(total)
     out = total / (n - torch.arange(n, dtype=torch.float64,
                                     device=total.device))[:, None]
     if mode == "einstein":

@@ -33,6 +33,15 @@ operand runs in complex64, a float64 one in complex128. Each real series
 is transformed as a full complex FFT, as in the JAX package: the
 Hermitian unpack would need an index reversal across the sharded k1 axis.
 On a mesh that repeats one device the exchanges are copies on it.
+
+The mesh may span several processes (``parallel.multihost.global_mesh``
+of the default ``torch.distributed`` group): the axis then holds every
+process's devices, rank r's at positions [r·D, (r+1)·D). Blocks between
+the devices of one process stay local copies; those for another process
+are packed into one buffer a peer and moved by one all-to-all with split
+sizes (``multihost.all_to_all``), and the results are
+:class:`ShardedBlock` s with ``distributed`` set, whose ``gather()``
+all-gathers across the processes.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from .._device import work_types
 from ..ops import cuda_fft
 from ..ops.acf import next_pow_2
+from . import multihost
 from .mesh import Mesh
 from .sharding import ShardedBlock
 
@@ -72,12 +82,16 @@ def _factor(m: int, n_dev: int) -> tuple[int, int]:
     return n1, m // n1
 
 
-def _devices(mesh: Mesh, axis_name: str) -> tuple:
-    n_dev = mesh.shape[axis_name]
-    if mesh.processes > 1 or len(mesh.devices) != n_dev:
-        raise ValueError("the sharded FFT runs on a mesh of this process's "
-                         "devices")
-    return mesh.devices
+class _Axis:
+    """The frames axis of a mesh as this process sees it: its
+    ``devices``, the position ``first`` of the first on the axis, the
+    axis' ``size`` and the mesh's ``processes``."""
+
+    def __init__(self, mesh: Mesh, axis_name: str):
+        self.devices = mesh.devices
+        self.first = multihost.axis_position(mesh)
+        self.size = mesh.shape[axis_name]
+        self.processes = mesh.processes
 
 
 def _dft(z: torch.Tensor, sign: int) -> torch.Tensor:
@@ -108,32 +122,48 @@ def _twiddle(z: torch.Tensor, j2_0: int, m: int, sign: int) -> torch.Tensor:
     return z * tw[:, :, None]
 
 
-def _exchange(parts, devices) -> list:
-    """All-to-all: ``parts[d][e]``, device d's block for device e, copied
-    to device e; returns, for each device e, its blocks in the order of
-    d."""
-    return [[parts[d][e].to(dev) for d in range(len(devices))]
-            for e, dev in enumerate(devices)]
+def _exchange(parts, ax: _Axis) -> list:
+    """All-to-all over the axis: ``parts[d][e]``, local device d's block
+    for axis position e (blocks of one shape), reaches e's device; returns,
+    for each local device, its blocks in axis order of their sources.
+    Blocks within the process are copies; the others travel by
+    ``multihost.all_to_all``, rank q's list holding, for each local
+    source d and each of q's devices e, block (d, e)."""
+    n_loc = len(ax.devices)
+    recv = [[None] * ax.size for _ in range(n_loc)]
+    for e, dev in enumerate(ax.devices):
+        for d in range(n_loc):
+            recv[e][ax.first + d] = parts[d][ax.first + e].to(dev)
+    if ax.processes > 1:
+        rank = ax.first // n_loc
+        outgoing = [[parts[d][q * n_loc + e] for d in range(n_loc)
+                     for e in range(n_loc)] if q != rank else []
+                    for q in range(ax.processes)]
+        for q, blocks in enumerate(multihost.all_to_all(outgoing)):
+            for i, blk in enumerate(blocks):
+                d, e = divmod(i, n_loc)
+                recv[e][q * n_loc + d] = blk.to(ax.devices[e])
+    return recv
 
 
-def _forward_shards(shards, n1: int, n2: int, devices) -> list:
+def _forward_shards(shards, n1: int, n2: int, ax: _Axis) -> list:
     """The forward four-step of natural-order complex shards (M/D, B) →
     transposed-order shards (rows k1_loc·N2 + k2)."""
-    n_dev = len(devices)
+    n_dev = ax.size
     n1_loc, n2_loc = n1 // n_dev, n2 // n_dev
     m = n1 * n2
     b = shards[0].shape[1]
     blocks = [s.view(n1_loc, n2, b) for s in shards]
     recv = _exchange([[x[:, e * n2_loc:(e + 1) * n2_loc] for e in range(n_dev)]
-                      for x in blocks], devices)
+                      for x in blocks], ax)
     cols = []
     for e, parts in enumerate(recv):
         y = torch.cat(parts, dim=0)                    # (N1, n2_loc, B): j1
         y = _dft(y.view(n1, n2_loc * b), -1).view(n1, n2_loc, b)   # k1
-        cols.append(_twiddle(y, e * n2_loc, m, -1))
+        cols.append(_twiddle(y, (ax.first + e) * n2_loc, m, -1))
     del recv
     recv = _exchange([[y[d * n1_loc:(d + 1) * n1_loc] for d in range(n_dev)]
-                      for y in cols], devices)
+                      for y in cols], ax)
     del cols
     out = []
     for parts in recv:
@@ -142,37 +172,39 @@ def _forward_shards(shards, n1: int, n2: int, devices) -> list:
     return out
 
 
-def _inverse_shards(shards, n1: int, n2: int, devices) -> list:
+def _inverse_shards(shards, n1: int, n2: int, ax: _Axis) -> list:
     """The inverse four-step of transposed-order shards → natural-order
     shards, the 1/M scale included."""
-    n_dev = len(devices)
+    n_dev = ax.size
     n1_loc, n2_loc = n1 // n_dev, n2 // n_dev
     m = n1 * n2
     b = shards[0].shape[1]
     blocks = [_dft_middle(s.view(n1_loc, n2, b), +1) for s in shards]  # j2
     recv = _exchange([[x[:, e * n2_loc:(e + 1) * n2_loc] for e in range(n_dev)]
-                      for x in blocks], devices)
+                      for x in blocks], ax)
     del blocks
     cols = []
     for e, parts in enumerate(recv):
-        c = _twiddle(torch.cat(parts, dim=0), e * n2_loc, m, +1)  # k1, j2
+        c = _twiddle(torch.cat(parts, dim=0), (ax.first + e) * n2_loc, m,
+                     +1)                                           # k1, j2
         cols.append(_dft(c.view(n1, n2_loc * b), +1).view(n1, n2_loc, b))
     del recv
     recv = _exchange([[c[d * n1_loc:(d + 1) * n1_loc] for d in range(n_dev)]
-                      for c in cols], devices)
+                      for c in cols], ax)
     del cols
     return [torch.cat(parts, dim=1).view(n1_loc * n2, b) * (1.0 / m)
             for parts in recv]
 
 
-def _row_shards(x, m: int, devices) -> list:
-    """The (M, S) zero-padded global operand of an (N, S) array or tensor,
-    N ≤ M, as D row blocks of M/D rows, each made on its device (no padded
-    copy on the host)."""
-    rows = m // len(devices)
+def _row_shards(x, m: int, ax: _Axis) -> list:
+    """This process's row blocks of the (M, S) zero-padded global operand
+    of an (N, S) array or tensor, N ≤ M: M/D rows an axis position, each
+    made on its device (no padded copy on the host)."""
+    rows = m // ax.size
     n = x.shape[0]
     shards = []
-    for i, dev in enumerate(devices):
+    for i, dev in zip(range(ax.first, ax.first + len(ax.devices)),
+                      ax.devices):
         lo, hi = i * rows, min((i + 1) * rows, n)
         part = torch.as_tensor(x[lo:max(lo, hi)]).to(dev)
         t = torch.zeros((rows,) + tuple(x.shape[1:]), dtype=part.dtype,
@@ -182,21 +214,23 @@ def _row_shards(x, m: int, devices) -> list:
     return shards
 
 
-def _complex_shards(re, im, m: int, devices) -> list:
+def _complex_shards(re, im, m: int, ax: _Axis) -> list:
     """Global (M, B) real and imaginary parts (arrays, tensors or
-    :class:`ShardedBlock` s of axis 0) → complex row shards."""
+    :class:`ShardedBlock` s of axis 0) → this process's complex row
+    shards."""
     if isinstance(re, ShardedBlock):
         re_s, im_s = re.shards, im.shards
     else:
-        re_s, im_s = _row_shards(re, m, devices), _row_shards(im, m, devices)
+        re_s, im_s = _row_shards(re, m, ax), _row_shards(im, m, ax)
     return [torch.complex(r.to(dev), i.to(dev))
-            for r, i, dev in zip(re_s, im_s, devices)]
+            for r, i, dev in zip(re_s, im_s, ax.devices)]
 
 
-def _block(shards, m: int) -> ShardedBlock:
+def _block(shards, m: int, ax: _Axis) -> ShardedBlock:
     rows = shards[0].shape[0]
     return ShardedBlock(shards, (m,) + tuple(shards[0].shape[1:]), 0,
-                        [i * rows for i in range(len(shards))])
+                        [(ax.first + i) * rows for i in range(len(shards))],
+                        distributed=ax.processes > 1)
 
 
 def sharded_fft(re, im, mesh: Mesh, axis_name: str = "frames",
@@ -215,31 +249,31 @@ def sharded_fft(re, im, mesh: Mesh, axis_name: str = "frames",
     :class:`ShardedBlock` s a previous call returned; float32 parts run in
     complex64, float64 ones in complex128. Returns the (real, imaginary)
     parts as :class:`ShardedBlock` s of row shards on the mesh's devices
-    (``.gather()`` joins them).
+    (``.gather()`` joins them, across the processes of a global mesh).
     """
     if not transposed_output:
         raise NotImplementedError(
             "natural-order spectral output needs a k1 all-to-all; "
             "autocorrelation never materializes it"
         )
-    devices = _devices(mesh, axis_name)
+    ax = _Axis(mesh, axis_name)
     m = re.shape[0]
-    n1, n2 = _factor(m, len(devices))
-    z = _complex_shards(re, im, m, devices)
-    out = (_inverse_shards if inverse else _forward_shards)(z, n1, n2,
-                                                           devices)
-    return _block([s.real for s in out], m), _block([s.imag for s in out], m)
+    n1, n2 = _factor(m, ax.size)
+    z = _complex_shards(re, im, m, ax)
+    out = (_inverse_shards if inverse else _forward_shards)(z, n1, n2, ax)
+    return (_block([s.real for s in out], m, ax),
+            _block([s.imag for s in out], m, ax))
 
 
-def _raw_autocorr_shards(shards, m: int, devices) -> list:
+def _raw_autocorr_shards(shards, m: int, ax: _Axis) -> list:
     """fwd FFT → power spectrum → inv FFT of real natural-order row
     shards; the real part, natural order."""
-    n1, n2 = _factor(m, len(devices))
+    n1, n2 = _factor(m, ax.size)
     cplx = work_types(shards[0].dtype)[1]
-    z = _forward_shards([s.to(cplx) for s in shards], n1, n2, devices)
+    z = _forward_shards([s.to(cplx) for s in shards], n1, n2, ax)
     power = [(s.real.square() + s.imag.square()).to(cplx) for s in z]
     del z
-    return [s.real for s in _inverse_shards(power, n1, n2, devices)]
+    return [s.real for s in _inverse_shards(power, n1, n2, ax)]
 
 
 def sharded_raw_autocorr(x, mesh: Mesh, axis_name: str = "frames"
@@ -249,11 +283,11 @@ def sharded_raw_autocorr(x, mesh: Mesh, axis_name: str = "frames"
     two), frame-sharded over ``axis_name``. Returns the full (M, S)
     circular result in natural order as a :class:`ShardedBlock` of row
     shards (callers slice [:n_out] of ``.gather()``)."""
-    devices = _devices(mesh, axis_name)
+    ax = _Axis(mesh, axis_name)
     m = x.shape[0]
     shards = (x.shards if isinstance(x, ShardedBlock)
-              else _row_shards(x, m, devices))
-    return _block(_raw_autocorr_shards(shards, m, devices), m)
+              else _row_shards(x, m, ax))
+    return _block(_raw_autocorr_shards(shards, m, ax), m, ax)
 
 
 def sharded_acf_fft(x, mesh: Mesh, axis_name: str = "frames") -> np.ndarray:
@@ -264,9 +298,9 @@ def sharded_acf_fft(x, mesh: Mesh, axis_name: str = "frames") -> np.ndarray:
     x = np.asarray(x)
     n, p, d = x.shape
     m = 2 * next_pow_2(n)
-    devices = _devices(mesh, axis_name)
-    shards = _row_shards(x.reshape(n, p * d), m, devices)
-    raw = _block(_raw_autocorr_shards(shards, m, devices), m).gather()[:n]
+    ax = _Axis(mesh, axis_name)
+    shards = _row_shards(x.reshape(n, p * d), m, ax)
+    raw = _block(_raw_autocorr_shards(shards, m, ax), m, ax).gather()[:n]
     raw = raw.reshape(n, p, d).sum(-1).to(torch.float64)
     lags = torch.arange(n, dtype=torch.float64, device=raw.device)
     return (raw / (n - lags)[:, None]).cpu().numpy()
@@ -281,13 +315,14 @@ def sharded_msd_fft(a, mesh: Mesh, axis_name: str = "frames",
     the distributed FFT and the centering and prefix sums on the mesh's
     first device (O(N·P), small beside the transform). float64, numpy in
     and out."""
-    dev = _devices(mesh, axis_name)[0]
+    ax = _Axis(mesh, axis_name)
+    dev = ax.devices[0]
     a = torch.as_tensor(np.asarray(a, np.float64), device=dev)
     n, p, d = a.shape
     a = a - a.mean(dim=0, keepdim=True)
     m = 2 * next_pow_2(n)
     corr = sharded_raw_autocorr(
-        _block(_row_shards(a.reshape(n, p * d), m, mesh.devices), m), mesh,
+        _block(_row_shards(a.reshape(n, p * d), m, ax), m, ax), mesh,
         axis_name).gather(dev)[:n]
     corr = corr.reshape(n, p, d).sum(-1)
 

@@ -50,12 +50,9 @@ class ShardedBlock:
         local = gather(self.shards, self.axis, device)
         if not self.distributed:
             return local
-        import torch.distributed as dist
+        from .multihost import all_gather
 
-        parts = [torch.empty_like(local)
-                 for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, local)
-        return torch.cat(parts, dim=self.axis)
+        return torch.cat(all_gather(local), dim=self.axis)
 
     def psum(self, fn: Callable, device=None) -> torch.Tensor:
         """Σ over every shard of ``fn(shard)`` on ``device`` (default:
@@ -67,9 +64,9 @@ class ShardedBlock:
             part = part.to(device)
             total = part if total is None else total + part
         if self.distributed:
-            import torch.distributed as dist
+            from .multihost import all_reduce
 
-            dist.all_reduce(total)
+            all_reduce(total)
         return total
 
 

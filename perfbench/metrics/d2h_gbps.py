@@ -1,0 +1,10 @@
+"""Device-to-host copy rate: bytes over the summed duration of the
+trace's Memcpy DtoH intervals, in GB/s."""
+
+
+def read(record):
+    copies = [d for d in record["device"] if d["kind"] == "DtoH"]
+    seconds = sum(d["dur"] for d in copies)
+    if not copies or seconds <= 0:
+        return None
+    return sum(d["bytes"] for d in copies) / seconds / 1e9

@@ -6,12 +6,19 @@ the CPU. The kernels are built for ``sm_90a`` only, so a CUDA device must
 have compute capability (9, 0). On the CPU every kernel wrapper runs its
 plain PyTorch version; that choice follows the tensor's device and
 nothing else.
+
+Host data crosses to the card through :func:`as_tensor` (or inside
+:func:`h2d`) and results come back through :func:`to_host`: each copy in
+a ``ta.h2d`` or ``ta.d2h`` span, its bytes counted on the current run
+(``utils.profiling``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .utils.profiling import NO_SPAN, count, span
 
 HOPPER = (9, 0)
 
@@ -59,9 +66,39 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def h2d(host, device: torch.device):
+    """The span of a copy of ``host`` (a numpy array or a CPU tensor) to
+    ``device``: on a card ``ta.h2d``, its bytes counted as the current
+    run's ``h2d_bytes``; on the CPU nothing."""
+    if device.type != "cuda":
+        return NO_SPAN
+    count("h2d_bytes", host.nbytes)
+    return span("ta.h2d")
+
+
 def as_tensor(x, device=None) -> torch.Tensor:
     """A tensor on ``device``: tensors keep their device when ``device``
     is None; numpy arrays and sequences go to :func:`resolve_device`."""
     if isinstance(x, torch.Tensor):
-        return x if device is None else x.to(resolve_device(device))
-    return torch.as_tensor(np.asarray(x), device=resolve_device(device))
+        if device is None:
+            return x
+        device = resolve_device(device)
+        if x.device.type != "cpu":
+            return x.to(device)
+    else:
+        x, device = np.asarray(x), resolve_device(device)
+    with h2d(x, device):
+        return torch.as_tensor(x, device=device)
+
+
+def to_host(result) -> np.ndarray:
+    """A result as a numpy array: a tensor is copied back, from a card
+    inside a ``ta.d2h`` span, its bytes counted as the current run's
+    ``d2h_bytes``."""
+    if not isinstance(result, torch.Tensor):
+        return np.asarray(result)
+    if result.device.type != "cuda":
+        return result.cpu().numpy()
+    count("d2h_bytes", result.nbytes)
+    with span("ta.d2h"):
+        return result.cpu().numpy()

@@ -18,7 +18,10 @@ host holds one decoded block at a time.
 
 Every run records ``analysis.timing`` (``utils.profiling.StageTimer`` on
 the analysis's device): "io" around the feed, "compute" around
-``_conclude``, and the frame and particle counters of its throughputs.
+``_conclude``, the frame, particle and lag counters of its throughputs,
+its ``run_id`` and the bytes its host copies moved (``counts()``). The
+run is a ``ta.run.<run_id>`` span; the feed's reads are ``ta.feed.read``
+and its selections ``ta.feed.select`` spans (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device, work_types
+from .._device import h2d, resolve_device, work_types
 from ..core.trajectory import take_axis
+from ..utils.profiling import StageTimer, count, span
 
 NO_F32_SOURCE_ENV = "TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE"
 
@@ -69,7 +73,8 @@ class DeviceSeriesBuffer:
 
     def write(self, block: np.ndarray, offset: int) -> None:
         nb = block.shape[0]
-        self._buf[offset:offset + nb].copy_(torch.from_numpy(block))
+        with h2d(block, self._buf.device):
+            self._buf[offset:offset + nb].copy_(torch.from_numpy(block))
 
     def array(self) -> torch.Tensor:
         return self._buf
@@ -153,14 +158,26 @@ class AnalysisBase:
         self._keep_f32 = not os.environ.get(NO_F32_SOURCE_ENV)
         self._buffers = {}
 
+    def _select(self, block, indices) -> np.ndarray:
+        """The feed of the atoms ``indices`` of an (N, n_atoms, 3) frame
+        block in the analysis's components (``self._dim``):
+        :func:`select_series`, then :func:`source_cast`, in a
+        ``ta.feed.select`` span; a new host array's bytes count as the
+        run's ``select_bytes``."""
+        with span("ta.feed.select"):
+            out = source_cast(select_series(block, indices, self._dim),
+                              self._work_dtype, self._keep_f32)
+            if not np.may_share_memory(out, block):
+                count("select_bytes", out.nbytes)
+        return out
+
     def _feed_block(self, key, batch, indices, offset) -> None:
         """Frame-blocked feed: the block ``batch[key]`` of the atoms
         ``indices`` in the analysis's components (``self._dim``), copied
         into the device buffer ``self._<key>`` at row ``offset``; the
         buffer is made at the first block, with that block's dtype, and
         released when the run has concluded."""
-        block = source_cast(select_series(batch[key], indices, self._dim),
-                            self._work_dtype, self._keep_f32)
+        block = self._select(batch[key], indices)
         if offset == 0:
             self._buffers[key] = DeviceSeriesBuffer(
                 (self.n_frames, len(indices), len(self._dim)), block.dtype,
@@ -230,9 +247,12 @@ class AnalysisBase:
         frames=None,
         verbose: Optional[bool] = None,
     ):
-        from ..utils.profiling import StageTimer
-
         self.timing = StageTimer(self.device)
+        with self.timing.running():
+            self._run(start, stop, step, frames, verbose)
+        return self
+
+    def _run(self, start, stop, step, frames, verbose) -> None:
         self._setup_frames(
             self._trajectory, start=start, stop=stop, step=step, frames=frames
         )
@@ -250,16 +270,20 @@ class AnalysisBase:
 
                 times = []
                 offset = 0
-                blocks = prefetch_batches(
+                blocks = iter(prefetch_batches(
                     self._trajectory, self.frames,
                     block_size=self._frame_block,
-                )
+                ))
                 bar = progress_bar(
                     total=len(self.frames),
                     desc=type(self).__name__,
                     disable=not show_progress,
                 )
-                for block in blocks:
+                while True:
+                    with span("ta.feed.read"):
+                        block = next(blocks, None)
+                    if block is None:
+                        break
                     times.append(np.asarray(block["times"]))
                     self._process_block(block, offset)
                     offset += len(block["times"])
@@ -269,7 +293,8 @@ class AnalysisBase:
         elif use_batch:
             self._validate_trajectory()
             with self.timing.stage("io"):
-                batch = self._trajectory.read_frames_batch(self.frames)
+                with span("ta.feed.read"):
+                    batch = self._trajectory.read_frames_batch(self.frames)
                 self.times = np.asarray(batch["times"], dtype=np.float64)
                 self._process_batch(batch)
         else:
@@ -294,9 +319,9 @@ class AnalysisBase:
         self.timing.counters(
             n_frames=self.n_frames,
             n_particles=getattr(self, "n_particles", 0),
+            n_lags=getattr(self, "n_lags", None),
         )
         # a finished run keeps its results, not its feed on the device
         for key in getattr(self, "_buffers", {}):
             setattr(self, "_" + key, None)
         self._buffers = {}
-        return self

@@ -26,11 +26,11 @@ from ..core.groups import AtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from ..ops import cuda_lag
 from ..ops.einstein import einstein_difference_fft_
-from .._device import as_tensor, work_types
+from .._device import as_tensor, to_host, work_types
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle, shares_memory
-from .base import AnalysisBase, select_series, source_cast
+from .base import AnalysisBase
 from ._dims import parse_dim_type
 
 
@@ -102,9 +102,7 @@ class EinsteinMSD(AnalysisBase):
             raise NoDataError(self._NO_DATA_MSG)
         # float32 samples stay float32 (half the transfer); under the
         # float64 work dtype the device upcasts them exactly
-        self._positions = source_cast(
-            select_series(batch["positions"], self.ag.indices, self._dim),
-            self._work_dtype, self._keep_f32)
+        self._positions = self._select(batch["positions"], self.ag.indices)
 
     def _process_block(self, batch, offset):
         """Frame-blocked feed (models/base.py ``DeviceSeriesBuffer``)."""
@@ -149,5 +147,5 @@ class EinsteinMSD(AnalysisBase):
             else:
                 # each particle shard on its mesh device (parallel.use_mesh)
                 by_particle = map_particles(kernel, feed)
-            self.results.msds_by_particle = by_particle.cpu().numpy()
-            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+            self.results.msds_by_particle = to_host(by_particle)
+            self.results.timeseries = to_host(by_particle.mean(dim=1))

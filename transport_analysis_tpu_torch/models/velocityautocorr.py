@@ -33,12 +33,13 @@ import torch
 from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
-from .._device import as_tensor, work_types
+from .._device import as_tensor, to_host, work_types
 from ..ops import cuda_lag
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle
-from .base import AnalysisBase, select_series, source_cast
+from ..utils.profiling import span
+from .base import AnalysisBase
 from ._dims import parse_dim_type
 
 
@@ -117,12 +118,11 @@ class VelocityAutocorr(AnalysisBase):
             raise NoDataError(
                 "VACF computation requires velocities in the trajectory"
             )
-        v = select_series(batch["velocities"], self.atomgroup.indices,
-                          self._dim)
         # float32 samples stay float32 (half the transfer); under the
         # float64 work dtype the device upcasts them exactly
         # (ops.acf_fft_from_f32)
-        self._velocities = source_cast(v, self._work_dtype, self._keep_f32)
+        self._velocities = self._select(batch["velocities"],
+                                        self.atomgroup.indices)
 
     def _process_block(self, batch, offset):
         """Frame-blocked feed (models/base.py ``DeviceSeriesBuffer``)."""
@@ -173,12 +173,12 @@ class VelocityAutocorr(AnalysisBase):
             else:
                 # each particle shard on its mesh device (parallel.use_mesh)
                 by_particle = map_particles(kernel, self._velocities)
-            self.results.vacf_by_particle = by_particle.cpu().numpy()
-            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+            self.results.vacf_by_particle = to_host(by_particle)
+            self.results.timeseries = to_host(by_particle.mean(dim=1))
         self._run_called = True
 
     def _on_device(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), device=self.device)
+        return as_tensor(arr, self.device)
 
     # --- derived quantities ---------------------------------------------------
     def _require_run(self, what="plotting"):
@@ -188,29 +188,33 @@ class VelocityAutocorr(AnalysisBase):
     def self_diffusivity_gk(self, start: int = 0, stop: int = 0,
                             step: int = 1):
         """Green–Kubo self-diffusivity D = ∫C(t)dt / d via the trapezoid
-        rule (reference velocityautocorr.py:287-322)."""
+        rule (reference velocityautocorr.py:287-322). Part of the run
+        (its ``ta.run.<run_id>`` span and counters), in a ``ta.fit``
+        span."""
         self._require_run("computing self-diffusivity")
-        stop = self.n_lags if stop == 0 else min(stop, self.n_lags)
-        return float(
-            ops.trapezoid(
-                self._on_device(self.results.timeseries[start:stop:step]),
-                self._on_device(self.times[: self.n_lags][start:stop:step]),
-            )
-        ) / self.dim_fac
+        return self._integral(ops.trapezoid, start, stop, step)
 
     def self_diffusivity_gk_odd(self, start: int = 0, stop: int = 0,
                                 step: int = 1):
         """Green–Kubo self-diffusivity via Simpson's rule; recommended
         for an odd number of evenly spaced points (reference
-        velocityautocorr.py:324-360)."""
+        velocityautocorr.py:324-360); spans and counters as
+        :meth:`self_diffusivity_gk`."""
         self._require_run("computing self-diffusivity")
-        stop = self.n_lags if stop == 0 else min(stop, self.n_lags)
-        return float(
-            ops.simpson(
-                self._on_device(self.results.timeseries[start:stop:step]),
-                self._on_device(self.times[: self.n_lags][start:stop:step]),
-            )
-        ) / self.dim_fac
+        return self._integral(ops.simpson, start, stop, step)
+
+    def _integral(self, rule, start, stop, step) -> float:
+        """∫C(t)dt / d over lags [start, stop) by ``rule``, as part of
+        the run."""
+        with self.timing.running(), span("ta.fit"):
+            stop = self.n_lags if stop == 0 else min(stop, self.n_lags)
+            return float(
+                rule(
+                    self._on_device(self.results.timeseries[start:stop:step]),
+                    self._on_device(
+                        self.times[: self.n_lags][start:stop:step]),
+                )
+            ) / self.dim_fac
 
     # --- plotting -------------------------------------------------------------
     def plot_vacf(

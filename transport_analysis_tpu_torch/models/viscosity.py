@@ -24,18 +24,18 @@ float32, float32 results at about 1e-6 grade.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
-from .._device import as_tensor
+from .._device import as_tensor, to_host
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle
-from .base import AnalysisBase, select_series, source_cast
+from ..utils.profiling import span
+from .base import AnalysisBase
 from ._dims import parse_dim_type
 
 
@@ -57,7 +57,7 @@ class HelfandSeries:
 
     def __getitem__(self, key):
         frames, atoms, comps = key
-        masses = torch.from_numpy(self._masses[atoms]).to(self._device)
+        masses = as_tensor(self._masses[atoms], self._device)
         accum = masses.reshape(1, -1, 1) * as_tensor(
             self._velocities[frames, atoms, comps], self._device)
         accum.mul_(as_tensor(self._positions[frames, atoms, comps],
@@ -172,12 +172,8 @@ class ViscosityHelfand(AnalysisBase):
         idx = self.atomgroup.indices
         # float32 samples stay float32 (half the transfer); m·v·x is
         # formed in the work dtype on the device (an upcast is exact)
-        self._velocities = source_cast(
-            select_series(batch["velocities"], idx, self._dim),
-            self._work_dtype, self._keep_f32)
-        self._positions = source_cast(
-            select_series(batch["positions"], idx, self._dim),
-            self._work_dtype, self._keep_f32)
+        self._velocities = self._select(batch["velocities"], idx)
+        self._positions = self._select(batch["positions"], idx)
 
     def _process_block(self, batch, offset):
         """Frame-blocked feed: velocity and position blocks go to device
@@ -251,8 +247,8 @@ class ViscosityHelfand(AnalysisBase):
                         self._masses, self._velocities, self._positions,
                         device)[:, lo:hi, :])
             by_particle /= denom
-            self.results.visc_by_particle = by_particle.cpu().numpy()
-            self.results.timeseries = by_particle.mean(dim=1).cpu().numpy()
+            self.results.visc_by_particle = to_host(by_particle)
+            self.results.timeseries = to_host(by_particle.mean(dim=1))
 
         if self.linear_fit_window is not None:
             fit_start, fit_end = (
@@ -264,12 +260,13 @@ class ViscosityHelfand(AnalysisBase):
             # lagtimes = arange(1, n_frames), i.e. offset by one relative
             # to the timeseries indices being fit.
             lagtimes = np.arange(1, self.n_frames)
-            slope, _ = ops.polyfit_linear(
-                torch.as_tensor(lagtimes[fit_start:fit_end], device=dev),
-                torch.as_tensor(
-                    self.results.timeseries[fit_start:fit_end], device=dev),
-            )
-            self.results.viscosity = float(slope)
+            with span("ta.fit"):
+                slope, _ = ops.polyfit_linear(
+                    as_tensor(lagtimes[fit_start:fit_end], dev),
+                    as_tensor(self.results.timeseries[fit_start:fit_end],
+                              dev),
+                )
+                self.results.viscosity = float(slope)
 
     # --- plotting -----------------------------------------------------------
     def plot_viscosity_function(self, show: bool = False):

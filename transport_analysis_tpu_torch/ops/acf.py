@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import REAL_TYPES, as_tensor, resolve_device
+from ..utils.profiling import span
 from . import cuda_fft
 from .cuda_lag import windowed_lag
 
@@ -188,13 +189,14 @@ def acf_fft(x, device=None) -> torch.Tensor:
     (N, P) tensor of the operand's type on its device: float64, or
     float32 at about 1e-6 grade for a float32 operand (the float32 work
     mode, as the JAX op returns it; :func:`acf_fft_from_f32` is the
-    float64-grade entry for float32 samples).
+    float64-grade entry for float32 samples). In a ``ta.fft`` span.
     """
-    x = as_tensor(x, device)
-    if x.dtype not in REAL_TYPES:
-        raise TypeError(f"acf_fft expects float64 or float32, got "
-                        f"{x.dtype}")
-    return _normalized(x, x.dtype)
+    with span("ta.fft"):
+        x = as_tensor(x, device)
+        if x.dtype not in REAL_TYPES:
+            raise TypeError(f"acf_fft expects float64 or float32, got "
+                            f"{x.dtype}")
+        return _normalized(x, x.dtype)
 
 
 def acf_fft_from_f32(x32, device=None) -> torch.Tensor:
@@ -203,14 +205,16 @@ def acf_fft_from_f32(x32, device=None) -> torch.Tensor:
     Trajectory formats store float32, which float64 holds exactly, so the
     operand crosses to the device at 4 bytes a value and is upcast there,
     while it is packed for the first transform level. Output as
-    :func:`acf_fft` of the upcast operand, (N, P) float64.
+    :func:`acf_fft` of the upcast operand, (N, P) float64. In a
+    ``ta.fft`` span.
     """
-    x32 = as_tensor(x32, device)
-    if x32.dtype != torch.float32:
-        raise TypeError(
-            f"acf_fft_from_f32 expects float32 samples, got {x32.dtype} "
-            "(use acf_fft for float64 operands)")
-    return _normalized(x32)
+    with span("ta.fft"):
+        x32 = as_tensor(x32, device)
+        if x32.dtype != torch.float32:
+            raise TypeError(
+                f"acf_fft_from_f32 expects float32 samples, got "
+                f"{x32.dtype} (use acf_fft for float64 operands)")
+        return _normalized(x32)
 
 
 def acf_windowed(x, max_lag=None, device=None) -> torch.Tensor:

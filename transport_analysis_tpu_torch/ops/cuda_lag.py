@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import span
 
 # acf mode, csrc/lag.cu's constants: kRows, kMmaK, kSteps, kChunk,
 # kAcfWarps, kWarpTiles, kRing, kWarpCols, kAcfCols, kAcfSpan, kPadEvery,
@@ -563,16 +564,17 @@ def lag_sums(x: torch.Tensor, n_lags: int, mode: str = "acf",
     upcast (the float64 work mode's float32 samples). A CUDA tensor
     launches the kernel or raises: once for d ≤ ``MAX_D``, past it once
     per :func:`component_groups` range (:func:`sum_component_groups`).
-    A CPU tensor runs :func:`lag_sums_plain`."""
+    A CPU tensor runs :func:`lag_sums_plain`. In a ``ta.lag`` span."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _check(x, n_lags, mode, reduce_mode, out_dtype)
-    if x.device.type == "cpu":
-        return lag_sums_plain(x, n_lags, mode, reduce_mode, out_dtype)
-    _build.kernel_operand(x, "lag_sums")
-    if x.shape[2] > MAX_D:
-        return sum_component_groups(_launch, x, n_lags, mode, reduce_mode,
-                                    out_dtype)
-    return _launch(x, n_lags, mode, reduce_mode, out_dtype)
+    with span("ta.lag"):
+        if x.device.type == "cpu":
+            return lag_sums_plain(x, n_lags, mode, reduce_mode, out_dtype)
+        _build.kernel_operand(x, "lag_sums")
+        if x.shape[2] > MAX_D:
+            return sum_component_groups(_launch, x, n_lags, mode,
+                                        reduce_mode, out_dtype)
+        return _launch(x, n_lags, mode, reduce_mode, out_dtype)
 
 
 def _launch(x: torch.Tensor, n_lags: int, mode: str, reduce_mode: str,

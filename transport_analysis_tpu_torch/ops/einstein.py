@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .._device import REAL_TYPES, as_tensor
+from ..utils.profiling import span
 from .acf import raw_autocorr_sumlast_flat
 from .cuda_kneller import einstein_assembly
 from .cuda_lag import windowed_lag
@@ -68,19 +69,20 @@ def einstein_difference_fft_(a: torch.Tensor,
     """:func:`einstein_difference_fft` of a contiguous (N, P, d) float64
     or float32 tensor that the caller hands over: ``a`` is centered in
     place (its values are lost), and no other full-size copy of it is
-    made. The work type is ``a``'s."""
+    made. The work type is ``a``'s. In a ``ta.fft`` span."""
     if a.dtype not in REAL_TYPES or a.ndim != 3 or not a.is_contiguous():
         raise TypeError(f"einstein_difference_fft_ takes a contiguous "
                         f"(N, P, d) float64 or float32 tensor, got "
                         f"{a.dtype} of shape {tuple(a.shape)}")
     n, P, d = a.shape
-    # per-series centering in the flat (N, P·d) layout the
-    # autocorrelation takes, and the component-summed squares (N, P)
-    flat = a.view(n, P * d)
-    flat.sub_(flat.mean(dim=0, keepdim=True))
-    sq = (flat * flat).view(n, P, d).sum(-1)
-    corr = raw_autocorr_sumlast_flat(flat, P, d, a.dtype)
-    return einstein_assembly(sq, corr, reduce_mode, d)
+    with span("ta.fft"):
+        # per-series centering in the flat (N, P·d) layout the
+        # autocorrelation takes, and the component-summed squares (N, P)
+        flat = a.view(n, P * d)
+        flat.sub_(flat.mean(dim=0, keepdim=True))
+        sq = (flat * flat).view(n, P, d).sum(-1)
+        corr = raw_autocorr_sumlast_flat(flat, P, d, a.dtype)
+        return einstein_assembly(sq, corr, reduce_mode, d)
 
 
 def einstein_difference_fft_from_f32(a32, reduce_mode: str = "mean",
@@ -117,6 +119,7 @@ def einstein_difference_windowed(a, reduce_mode: str = "mean",
 
     ``reduce_mode='mean'`` averages over the components (Helfand),
     ``'sum'`` sums them (MSD). The raw series is differenced as it is,
-    with no centering, as the reference does."""
-    return windowed_lag(as_tensor(a, device), max_lag, mode="einstein",
-                        reduce_mode=reduce_mode)
+    with no centering, as the reference does. In a ``ta.lag`` span."""
+    with span("ta.lag"):
+        return windowed_lag(as_tensor(a, device), max_lag,
+                            mode="einstein", reduce_mode=reduce_mode)

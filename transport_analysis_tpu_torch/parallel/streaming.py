@@ -23,14 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._device import as_tensor
-
-
-def to_host(result) -> np.ndarray:
-    """A kernel's result as a numpy array (tensors are copied back)."""
-    if isinstance(result, torch.Tensor):
-        return result.cpu().numpy()
-    return np.asarray(result)
+from .._device import as_tensor, to_host
 
 
 def shares_memory(t: torch.Tensor, series) -> bool:

@@ -187,9 +187,9 @@ def test_counts_go_to_the_current_run_of_the_thread():
         assert not worker.is_alive()
     profiling.count("h2d_bytes", 13)
     assert outer.counts() == {"select_bytes": 2, "h2d_bytes": 3,
-                              "d2h_bytes": 0}
+                              "d2h_bytes": 0, "d2h_pool_hit_bytes": 0}
     assert inner.counts() == {"select_bytes": 0, "h2d_bytes": 0,
-                              "d2h_bytes": 7}
+                              "d2h_bytes": 7, "d2h_pool_hit_bytes": 0}
     with pytest.raises(KeyError):
         outer.count("bytes", 1)
 
@@ -248,13 +248,13 @@ def test_copy_counters_on_the_card(universe, cuda_device, fft, engine):
                    max_lag=None if fft else lags, **ENGINES[engine])
     assert vacf.timing.counts() == {
         "select_bytes": feed, "h2d_bytes": feed + 2 * lags * 8,
-        "d2h_bytes": results}
+        "d2h_bytes": results, "d2h_pool_hit_bytes": 0}
     helfand = analyse("helfand", some, fft=fft, device=cuda_device,
                       max_lag=None if fft else lags, **ENGINES[engine])
     assert helfand.timing.counts() == {
         "select_bytes": 2 * feed,
         "h2d_bytes": 2 * feed + p * 8 + 2 * (FIT[1] - FIT[0]) * 8,
-        "d2h_bytes": results}
+        "d2h_bytes": results, "d2h_pool_hit_bytes": 0}
 
 
 @pytest.mark.gpu

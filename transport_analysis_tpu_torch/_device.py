@@ -11,6 +11,17 @@ Host data crosses to the card through :func:`as_tensor` (or inside
 :func:`h2d`) and results come back through :func:`to_host`: each copy in
 a ``ta.h2d`` or ``ta.d2h`` span, its bytes counted on the current run
 (``utils.profiling``).
+
+A result of ``_host_pool.POOL_MIN_BYTES`` or more comes back in a
+recycled page-locked host block (``_host_pool``), one DMA at the bus's
+rate, where a fresh pageable array would be copied at the pace of the
+host's first touch of its pages. The array is an ordinary writable
+numpy array, valid for as long as the caller holds it or any view of
+it; its block is recycled only after that. Blocks are kept by exact
+size, and the pool holds no more bytes than the most bytes of results
+that were live at once and the last block made. A new block is made
+inside a ``ta.d2h.alloc`` span, and the bytes of results that landed in
+a recycled one are counted as the run's ``d2h_pool_hit_bytes``.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _host_pool
 from .utils.profiling import NO_SPAN, count, span
 
 HOPPER = (9, 0)
@@ -94,11 +106,14 @@ def as_tensor(x, device=None) -> torch.Tensor:
 def to_host(result) -> np.ndarray:
     """A result as a numpy array: a tensor is copied back, from a card
     inside a ``ta.d2h`` span, its bytes counted as the current run's
-    ``d2h_bytes``."""
+    ``d2h_bytes``; one of ``_host_pool.POOL_MIN_BYTES`` or more into a
+    page-locked block of the pool, with the layout ``.cpu()`` gives."""
     if not isinstance(result, torch.Tensor):
         return np.asarray(result)
     if result.device.type != "cuda":
         return result.cpu().numpy()
     count("d2h_bytes", result.nbytes)
     with span("ta.d2h"):
-        return result.cpu().numpy()
+        if result.nbytes < _host_pool.POOL_MIN_BYTES:
+            return result.cpu().numpy()
+        return _host_pool.POOL.copy_back(result)

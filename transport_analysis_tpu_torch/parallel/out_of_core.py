@@ -224,6 +224,7 @@ def correlate_spools(
         if acc is None:
             acc = np.zeros(result.shape[0], np.float64)
         acc += result if result.ndim == 1 else result.sum(axis=1)
+        del result
         if checkpoint:
             tmp = checkpoint + ".tmp"
             with open(tmp, "wb") as fh:

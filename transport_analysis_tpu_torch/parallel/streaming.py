@@ -90,6 +90,8 @@ def chunked_per_particle(
         acc += result.sum(axis=1)
         if by_particle is not None:
             by_particle[:, lo:hi] = result
+        # the chunk's host block goes back before the next chunk's copy
+        del result
         if checkpoint:
             payload = {
                 "n_frames": n_frames,

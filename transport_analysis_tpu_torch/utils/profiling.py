@@ -10,11 +10,13 @@ Inside a run the program marks its layers with :func:`span`, profiler
 ranges named ``ta.*`` that a session records beside the card's kernels
 and copies, on its clock: ``ta.run.<run_id>`` around a run (and around
 the Green–Kubo integral of its results), ``ta.feed.read``,
-``ta.feed.select``, ``ta.h2d``, ``ta.fft``, ``ta.lag``, ``ta.d2h`` and
-``ta.fit``. With no session recording, a span enters nothing. The run's
-host copies are counted in bytes (:func:`count`; ``select_bytes``,
-``h2d_bytes``, ``d2h_bytes``) on the run that is current on the thread,
-and ``analysis.timing.counts()`` returns them.
+``ta.feed.select``, ``ta.h2d``, ``ta.fft``, ``ta.lag``, ``ta.d2h`` (with
+``ta.d2h.alloc`` around a new page-locked block) and ``ta.fit``. With no
+session recording, a span enters nothing. The run's host copies are
+counted in bytes (:func:`count`; ``select_bytes``, ``h2d_bytes``,
+``d2h_bytes``, and ``d2h_pool_hit_bytes``, the result bytes that
+landed in a recycled page-locked block) on the run that is current on
+the thread, and ``analysis.timing.counts()`` returns them.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Optional
 import torch
 
 # the byte counters of a run (StageTimer.counts)
-COUNTS = ("select_bytes", "h2d_bytes", "d2h_bytes")
+COUNTS = ("select_bytes", "h2d_bytes", "d2h_bytes", "d2h_pool_hit_bytes")
 # runs whose timing run_timing still finds by id
 RECENT_RUNS = 4096
 NO_SPAN = contextlib.nullcontext()
@@ -87,7 +89,7 @@ class StageTimer:
         t.as_dict()  # {'io': ..., 'compute': ..., 'total': ...,
                      #  'frames_per_s': ..., 'atom_frame_lags_per_s': ...}
         t.counts()   # {'select_bytes': ..., 'h2d_bytes': ...,
-                     #  'd2h_bytes': ...}
+                     #  'd2h_bytes': ..., 'd2h_pool_hit_bytes': ...}
     """
 
     def __init__(self, device=None):

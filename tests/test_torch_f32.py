@@ -451,14 +451,15 @@ def test_chunked_f32_resumes_from_checkpoint(system, tmp_path):
             return kernel(x)
         return real(once, *args, **kwargs)
 
-    import transport_analysis_tpu_torch.models.velocityautocorr as vmod
-    vmod.chunked_per_particle = stop_after_one
+    # the analyses reach the chunks through models.base
+    import transport_analysis_tpu_torch.models.base as bmod
+    bmod.chunked_per_particle = stop_after_one
     try:
         with pytest.raises(KeyboardInterrupt):
             ta.VelocityAutocorr(pu.atoms, dtype=np.float32, atom_chunk=3,
                                 checkpoint=path, device="cpu").run()
     finally:
-        vmod.chunked_per_particle = real
+        bmod.chunked_per_particle = real
     resumed = ta.VelocityAutocorr(pu.atoms, dtype=np.float32, atom_chunk=3,
                                   checkpoint=path, device="cpu").run()
     assert np.array_equal(resumed.results.vacf_by_particle,

@@ -559,6 +559,37 @@ def test_chunked_peak_under_its_budget(cuda_device, name):
     assert peak <= acf.chunk_peak_bytes(n, chunk, 3) <= budget * 1e9
 
 
+@pytest.mark.parametrize("name", ["vacf", "helfand", "msd"])
+def test_default_run_past_a_lowered_budget_chunks(cuda_device, name,
+                                                  monkeypatch):
+    """A default run whose budget (``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB``,
+    0.3 GB at 16,384 frames) is below its whole FFT run streams
+    ``auto_atom_chunk`` chunks by itself, within 1e-12 of the whole run
+    and inside the budget; without the variable the card's budget takes
+    the same system whole."""
+    n, budget = 16384, 0.3
+    chunk = acf.auto_atom_chunk(n, d=3, hbm_budget_gb=budget)
+    u = streamed_system(n, 2 * chunk + 5, 5)
+    analysis, key = streamed_model(name, u, device=cuda_device)
+    whole = analysis.run()
+    assert whole.timing.counts()["chunks"] == 0
+    monkeypatch.setenv(acf.HBM_BUDGET_ENV, str(budget))
+    cuda_fft.roots_tensor.cache_clear()
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    analysis, _ = streamed_model(name, u, device=cuda_device)
+    chunked = analysis.run()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert chunked.timing.counts()["chunks"] == 3
+    assert peak <= budget * 1e9
+    assert rel(torch.from_numpy(chunked.results[key]),
+               torch.from_numpy(whole.results[key])) <= TOL
+    assert rel(torch.from_numpy(chunked.results.timeseries),
+               torch.from_numpy(whole.results.timeseries)) <= TOL
+
+
 @pytest.mark.parametrize("fn", ["vacf_out_of_core", "helfand_out_of_core",
                                 "msd_out_of_core"])
 def test_spools_on_card_equal_the_cpu(cuda_device, tmp_path, fn):

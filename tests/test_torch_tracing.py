@@ -116,6 +116,45 @@ def test_spans_of_a_run_nest_in_it(universe, tmp_path, model, fft, engine):
         assert fit[0][1] >= max(s[2] for s in work)
 
 
+@pytest.mark.parametrize("model", ["vacf", "helfand"])
+def test_chunk_spans_and_counters(universe, tmp_path, model, monkeypatch):
+    """A default run past the budget (the environment's
+    ``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB`` at a chunk of 3 atoms): one
+    ``ta.chunk`` a chunk inside the run, a ``ta.chunk.gather`` before
+    each chunk's correlation, a ``ta.chunk.merge`` after it (Helfand's
+    division one more, after the last chunk), and the counters of the
+    chunks, the gathered feed and the merged results."""
+    from transport_analysis_tpu_torch.ops import acf
+
+    monkeypatch.setenv(acf.HBM_BUDGET_ENV,
+                       repr(acf.chunk_peak_bytes(N_FRAMES, 3, 3) / 1e9))
+    spans, a = traced(tmp_path, lambda: analyse(model, universe.atoms))
+    run = [s for s in spans if s[0] == f"ta.run.{a.timing.run_id}"][0]
+    chunks = [s for s in spans if s[0] == "ta.chunk"]
+    assert len(chunks) == 3 and all(inside(c, run) for c in chunks)
+    gathers = [s for s in spans if s[0] == "ta.chunk.gather"]
+    merges = [s for s in spans if s[0] == "ta.chunk.merge"]
+    feeds = 1 if model == "vacf" else 2
+    assert len(gathers) == feeds * 3
+    assert len(merges) == 3 + (model == "helfand")
+    for chunk in chunks:
+        held = [s for s in spans if inside(s, chunk) and s != chunk]
+        work = [s for s in held if s[0] == "ta.fft"]
+        assert len(work) == 1
+        assert [s[0] for s in held if s[2] <= work[0][1]] == \
+            ["ta.chunk.gather"] * feeds
+        assert [s[0] for s in held if s[1] >= work[0][2]] == \
+            ["ta.chunk.merge"]
+    assert all(inside(s, run) for s in merges)
+    counts = a.timing.counts()
+    result = N_FRAMES * N_ATOMS * 8
+    assert counts["chunks"] == 3
+    assert counts["chunk_gather_bytes"] == feeds * N_FRAMES * N_ATOMS * 12
+    # each chunk's results once, and Helfand's whole result divided
+    assert counts["chunk_merge_bytes"] == result * (
+        2 if model == "helfand" else 1)
+
+
 def test_runs_take_distinct_ids(universe, tmp_path):
     spans, done = traced(tmp_path, lambda: [
         analyse(model, universe.atoms, fft=fft)
@@ -186,10 +225,9 @@ def test_counts_go_to_the_current_run_of_the_thread():
         worker.join(timeout=30)
         assert not worker.is_alive()
     profiling.count("h2d_bytes", 13)
-    assert outer.counts() == {"select_bytes": 2, "h2d_bytes": 3,
-                              "d2h_bytes": 0, "d2h_pool_hit_bytes": 0}
-    assert inner.counts() == {"select_bytes": 0, "h2d_bytes": 0,
-                              "d2h_bytes": 7, "d2h_pool_hit_bytes": 0}
+    none = dict.fromkeys(profiling.COUNTS, 0)
+    assert outer.counts() == dict(none, select_bytes=2, h2d_bytes=3)
+    assert inner.counts() == dict(none, d2h_bytes=7)
     with pytest.raises(KeyError):
         outer.count("bytes", 1)
 
@@ -246,15 +284,16 @@ def test_copy_counters_on_the_card(universe, cuda_device, fft, engine):
     results = lags * p * 8 + lags * 8
     vacf = analyse("vacf", some, fft=fft, device=cuda_device,
                    max_lag=None if fft else lags, **ENGINES[engine])
-    assert vacf.timing.counts() == {
-        "select_bytes": feed, "h2d_bytes": feed + 2 * lags * 8,
-        "d2h_bytes": results, "d2h_pool_hit_bytes": 0}
+    none = dict.fromkeys(profiling.COUNTS, 0)
+    assert vacf.timing.counts() == dict(
+        none, select_bytes=feed, h2d_bytes=feed + 2 * lags * 8,
+        d2h_bytes=results)
     helfand = analyse("helfand", some, fft=fft, device=cuda_device,
                       max_lag=None if fft else lags, **ENGINES[engine])
-    assert helfand.timing.counts() == {
-        "select_bytes": 2 * feed,
-        "h2d_bytes": 2 * feed + p * 8 + 2 * (FIT[1] - FIT[0]) * 8,
-        "d2h_bytes": results, "d2h_pool_hit_bytes": 0}
+    assert helfand.timing.counts() == dict(
+        none, select_bytes=2 * feed,
+        h2d_bytes=2 * feed + p * 8 + 2 * (FIT[1] - FIT[0]) * 8,
+        d2h_bytes=results)
 
 
 @pytest.mark.gpu

@@ -22,6 +22,12 @@ the analysis's device): "io" around the feed, "compute" around
 its ``run_id`` and the bytes its host copies moved (``counts()``). The
 run is a ``ta.run.<run_id>`` span; the feed's reads are ``ta.feed.read``
 and its selections ``ta.feed.select`` spans (``utils.profiling.span``).
+
+The analyses with per-particle results (VACF, Helfand, MSD) correlate
+through :meth:`AnalysisBase._per_particle`: the whole selection at once,
+its particle shards under a mesh, or atom chunks
+(``parallel.streaming``), given by ``atom_chunk`` or chosen by the run
+itself where the whole FFT run would not fit the device's budget.
 """
 
 from __future__ import annotations
@@ -32,8 +38,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .._device import h2d, resolve_device, work_types
+from .._device import h2d, resolve_device, to_host, work_types
 from ..core.trajectory import take_axis
+from ..ops import acf
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import map_particles
+from ..parallel.streaming import chunked_per_particle, particle_block
 from ..utils.profiling import StageTimer, count, span
 
 NO_F32_SOURCE_ENV = "TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE"
@@ -184,6 +194,50 @@ class AnalysisBase:
                 self.device)
         self._buffers[key].write(block, offset)
         setattr(self, "_" + key, self._buffers[key].array())
+
+    def _run_chunk(self) -> Optional[int]:
+        """The atom chunk this run correlates by: ``atom_chunk`` where
+        given; else, on the FFT path with no mesh current, where the
+        whole run's ``ops.acf.chunk_peak_bytes`` (frames N, particles P,
+        components d, the work dtype) is past ``ops.acf.device_budget_gb``
+        of the device, ``ops.acf.auto_atom_chunk``'s; else None, the
+        whole run at once. (The windowed path reckons far less.) For the
+        analyses that set ``fft``, ``atom_chunk``, ``dim_fac``,
+        ``n_particles`` and ``_work_dtype``."""
+        if self.atom_chunk:
+            return self.atom_chunk
+        if not self.fft or current_mesh() is not None:
+            return None
+        n, d, dtype = self.n_frames, self.dim_fac, self._work_dtype
+        budget = acf.device_budget_gb(self.device)
+        if acf.chunk_peak_bytes(n, self.n_particles, d, dtype) <= budget * 1e9:
+            return None
+        return acf.auto_atom_chunk(n, d, hbm_budget_gb=budget, dtype=dtype,
+                                   device=self.device)
+
+    def _per_particle(self, kernel, series, piece=None, divisor=None):
+        """(timeseries (L,), by_particle (L, P)) of ``kernel`` ((N, p, d)
+        tensor → (L, p)) over the particles of ``series`` (N, P, d), as
+        host arrays, both divided by ``divisor`` where given: in the
+        atom chunks of :meth:`_run_chunk` (``parallel.streaming``;
+        ``checkpoint`` with an explicit ``atom_chunk`` only; float64
+        accumulators), else on each particle shard of the current mesh
+        (``piece`` as ``parallel.sharding.map_particles`` takes it), else
+        the whole selection at once on the analysis's device."""
+        chunk = self._run_chunk()
+        if chunk:
+            return chunked_per_particle(
+                kernel, series, chunk, device=self.device, divisor=divisor,
+                checkpoint=self.checkpoint if self.atom_chunk else None)
+        if current_mesh() is None:
+            by_particle = kernel(particle_block(series, 0, series.shape[1],
+                                                self.device))
+        else:
+            by_particle = map_particles(kernel, series, piece)
+        if divisor is not None:
+            by_particle /= divisor
+        host = to_host(by_particle)
+        return to_host(by_particle.mean(dim=1)), host
 
     def _single_frame(self):  # pragma: no cover - overridden
         raise NotImplementedError(

@@ -12,7 +12,8 @@ algorithm (``fft=True``: K1, K2, K5, K6a, K6b on the card) or by the
 exact windowed sums (``fft=False``: K8), batched over every particle in
 one device call. Float32 positions cross to the device at 4 bytes a
 value and are upcast there, exactly. ``frame_block=``, ``atom_chunk=``
-and ``checkpoint=`` stream, and ``parallel.use_mesh`` shards the
+and ``checkpoint=`` stream (an FFT run too large for the device's budget
+streams atom chunks by itself), and ``parallel.use_mesh`` shards the
 particle axis, as in ``VelocityAutocorr``. ``dtype=
 np.float32`` is the float32 work mode, as in the JAX package
 (``msd.py:58``, ``:105-153``): float32 positions and results.
@@ -26,10 +27,8 @@ from ..core.groups import AtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from ..ops import cuda_lag
 from ..ops.einstein import einstein_difference_fft_
-from .._device import as_tensor, to_host, work_types
-from ..parallel.mesh import current_mesh
-from ..parallel.sharding import map_particles
-from ..parallel.streaming import chunked_per_particle, shares_memory
+from .._device import work_types
+from ..parallel.streaming import shares_memory
 from .base import AnalysisBase
 from ._dims import parse_dim_type
 
@@ -52,8 +51,8 @@ class EinsteinMSD(AnalysisBase):
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
     atom_chunk, checkpoint, frame_block :
-        Atom chunks, their resume file and the frame-blocked feed, as in
-        ``VelocityAutocorr``.
+        Atom chunks (chosen by the run where not given), their resume
+        file and the frame-blocked feed, as in ``VelocityAutocorr``.
     dtype : {np.float64, np.float32}
         The work dtype, as in ``VelocityAutocorr``.
     device : torch device, optional
@@ -135,17 +134,5 @@ class EinsteinMSD(AnalysisBase):
             owned = r.to(work, copy=shares_memory(r, feed))
             return einstein_difference_fft_(owned, "sum")[: self.n_lags]
 
-        if self.atom_chunk:
-            _, by_particle = chunked_per_particle(
-                kernel, feed, self.atom_chunk,
-                checkpoint=self.checkpoint, device=self.device)
-            self.results.msds_by_particle = by_particle
-            self.results.timeseries = by_particle.mean(axis=1)
-        else:
-            if current_mesh() is None:
-                by_particle = kernel(as_tensor(feed, self.device).contiguous())
-            else:
-                # each particle shard on its mesh device (parallel.use_mesh)
-                by_particle = map_particles(kernel, feed)
-            self.results.msds_by_particle = to_host(by_particle)
-            self.results.timeseries = to_host(by_particle.mean(dim=1))
+        (self.results.timeseries,
+         self.results.msds_by_particle) = self._per_particle(kernel, feed)

@@ -15,9 +15,12 @@ particle at once; ``fft=False`` runs the exact windowed sums (K8) on
 the same feed, O(N·n_lags) per atom. ``frame_block=`` feeds the card in
 frame blocks; ``atom_chunk=`` correlates that many atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume
-from. Inside ``parallel.use_mesh`` the particle axis is sharded over the
-mesh's devices (``atom_chunk`` ignores the mesh, as in the JAX package). ``dtype=np.float32`` is the float32 work mode, as in the JAX
-package (``velocityautocorr.py:60-62``): float32 samples, float32 results
+from; without it, an FFT run too large for the device's budget streams
+``ops.acf.auto_atom_chunk`` chunks by itself (``models.base``). Inside
+``parallel.use_mesh`` the particle axis is sharded over the mesh's
+devices (``atom_chunk`` ignores the mesh, as in the JAX package).
+``dtype=np.float32`` is the float32 work mode, as in the JAX package
+(``velocityautocorr.py:60-62``): float32 samples, float32 results
 at about 1e-6 grade, through the float32/complex64 instantiations of the
 same kernels (an atom-chunked run's results are float64 accumulators of
 them, as the JAX package's are).
@@ -33,11 +36,8 @@ import torch
 from ..core.groups import UpdatingAtomGroup
 from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
-from .._device import as_tensor, to_host, work_types
+from .._device import as_tensor, work_types
 from ..ops import cuda_lag
-from ..parallel.mesh import current_mesh
-from ..parallel.sharding import map_particles
-from ..parallel.streaming import chunked_per_particle
 from ..utils.profiling import span
 from .base import AnalysisBase
 from ._dims import parse_dim_type
@@ -61,7 +61,10 @@ class VelocityAutocorr(AnalysisBase):
         Lags [0, max_lag) only (default: all frames).
     atom_chunk : int, optional
         Correlate this many atoms at a time on the device (bounds device
-        memory; ``ops.acf.auto_atom_chunk`` picks one for a budget).
+        memory). Default: the whole selection at once, or, on the FFT
+        path with no mesh, where ``ops.acf.chunk_peak_bytes`` of the whole
+        run is past ``ops.acf.device_budget_gb``, the chunks of
+        ``ops.acf.auto_atom_chunk``.
     checkpoint : str, optional
         With ``atom_chunk``: an ``.npz`` written after every chunk, from
         which an interrupted run resumes (ignored without ``atom_chunk``).
@@ -160,21 +163,9 @@ class VelocityAutocorr(AnalysisBase):
                 return ops.acf_fft_from_f32(v)[: self.n_lags]
             return ops.acf_fft(v)[: self.n_lags]
 
-        if self.atom_chunk:
-            timeseries, by_particle = chunked_per_particle(
-                kernel, self._velocities, self.atom_chunk,
-                checkpoint=self.checkpoint, device=self.device)
-            self.results.vacf_by_particle = by_particle
-            self.results.timeseries = timeseries
-        else:
-            if current_mesh() is None:
-                by_particle = kernel(
-                    as_tensor(self._velocities, self.device).contiguous())
-            else:
-                # each particle shard on its mesh device (parallel.use_mesh)
-                by_particle = map_particles(kernel, self._velocities)
-            self.results.vacf_by_particle = to_host(by_particle)
-            self.results.timeseries = to_host(by_particle.mean(dim=1))
+        (self.results.timeseries,
+         self.results.vacf_by_particle) = self._per_particle(
+            kernel, self._velocities)
         self._run_called = True
 
     def _on_device(self, arr) -> torch.Tensor:

@@ -14,7 +14,9 @@ windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
 formed there in the work dtype from the float32 feed. ``frame_block=``
 feeds the card in frame blocks (the per-frame volumes stay on the host);
 ``atom_chunk=`` forms m·v·x and correlates it a chunk of atoms at a time
-(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from;
+(``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from
+(an FFT run too large for the device's budget streams chunks by itself,
+as in ``VelocityAutocorr``);
 ``parallel.use_mesh`` shards the particle axis as in ``VelocityAutocorr``.
 ``dtype=np.float32`` is the float32 work mode, as in the JAX package
 (``viscosity.py:89-109``, ``:194-230``): masses, samples and m·v·x in
@@ -30,10 +32,8 @@ from ..utils.errors import NoDataError, check_work_dtype
 from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
-from .._device import as_tensor, to_host
-from ..parallel.mesh import current_mesh
-from ..parallel.sharding import map_particles
-from ..parallel.streaming import chunked_per_particle
+from .._device import as_tensor
+from ..parallel.streaming import gather_columns
 from ..utils.profiling import span
 from .base import AnalysisBase
 from ._dims import parse_dim_type
@@ -45,7 +45,9 @@ class HelfandSeries:
     in the masses' type (the work dtype) for the atoms a slice asks for:
     ``series[:, lo:hi, :]`` is a new (N, hi − lo, d) tensor, (m·v)·x in
     the reference's multiply order (viscosity.py:197); under float64
-    masses float32 samples are upcast exactly inside the products. Only the sliced atoms' factors are copied to the device,
+    masses float32 samples are upcast exactly inside the products. Only
+    the sliced atoms' factors are copied to the device (a host factor's
+    columns made contiguous first, ``parallel.streaming.gather_columns``),
     so an atom-chunked run never holds the whole accumulator there."""
 
     def __init__(self, masses, velocities, positions, device):
@@ -58,10 +60,12 @@ class HelfandSeries:
     def __getitem__(self, key):
         frames, atoms, comps = key
         masses = as_tensor(self._masses[atoms], self._device)
-        accum = masses.reshape(1, -1, 1) * as_tensor(
-            self._velocities[frames, atoms, comps], self._device)
-        accum.mul_(as_tensor(self._positions[frames, atoms, comps],
-                             self._device))
+        accum = masses.reshape(1, -1, 1) * as_tensor(gather_columns(
+            self._velocities[frames, atoms, comps], self._device),
+            self._device)
+        accum.mul_(as_tensor(gather_columns(
+            self._positions[frames, atoms, comps], self._device),
+            self._device))
         return accum
 
 
@@ -87,9 +91,10 @@ class ViscosityHelfand(AnalysisBase):
     max_lag : int, optional
         Lags [0, max_lag) only (default: all frames).
     atom_chunk, checkpoint, frame_block :
-        Atom chunks, their resume file and the frame-blocked feed, as in
-        ``VelocityAutocorr``; the timeseries and per-particle values of a
-        chunked run are divided by 2·k_B·⟨V⟩·T after the chunks.
+        Atom chunks (chosen by the run where not given), their resume
+        file and the frame-blocked feed, as in ``VelocityAutocorr``; the
+        timeseries and per-particle values of a chunked run are divided
+        by 2·k_B·⟨V⟩·T after the chunks.
     dtype : {np.float64, np.float32}
         The work dtype, as in ``VelocityAutocorr``.
     device : torch device, optional
@@ -230,25 +235,13 @@ class ViscosityHelfand(AnalysisBase):
                 accum, "mean", max_lag=self.n_lags)
 
         denom = 2.0 * self.boltzmann * self._vol_avg * self.temp_avg
-        if self.atom_chunk:
-            timeseries, by_particle = chunked_per_particle(
-                kernel, series, self.atom_chunk,
-                checkpoint=self.checkpoint, device=dev)
-            self.results.visc_by_particle = by_particle / denom
-            self.results.timeseries = timeseries / denom
-        else:
-            if current_mesh() is None:
-                by_particle = kernel(series[:, :, :])
-            else:
-                # each particle shard's m·v·x formed and correlated on its
-                # mesh device (parallel.use_mesh)
-                by_particle = map_particles(
-                    kernel, series, lambda lo, hi, device: HelfandSeries(
-                        self._masses, self._velocities, self._positions,
-                        device)[:, lo:hi, :])
-            by_particle /= denom
-            self.results.visc_by_particle = to_host(by_particle)
-            self.results.timeseries = to_host(by_particle.mean(dim=1))
+        # each particle shard's m·v·x formed and correlated on its mesh
+        # device (parallel.use_mesh)
+        (self.results.timeseries,
+         self.results.visc_by_particle) = self._per_particle(
+            kernel, series, lambda lo, hi, device: HelfandSeries(
+                self._masses, self._velocities, self._positions,
+                device)[:, lo:hi, :], divisor=denom)
 
         if self.linear_fit_window is not None:
             fit_start, fit_end = (

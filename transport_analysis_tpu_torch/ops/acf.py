@@ -103,28 +103,31 @@ def chunk_peak_bytes(n_frames: int, chunk: int, d: int = 3,
     return operands + stages + 4 * size * m + ALLOCATOR_SLACK
 
 
+def device_budget_gb(device=None) -> float:
+    """The device-memory budget of an analysis's FFT work, in GB (1e9
+    bytes): the ``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB`` environment
+    variable, else :data:`CARD_HEADROOM` of the card's total memory
+    (``torch.cuda.mem_get_info``) on a CUDA ``device`` (the default), else
+    :data:`CPU_BUDGET_GB` on the CPU. The total and not the free memory,
+    so that the same shapes always take the same path."""
+    env = os.environ.get(HBM_BUDGET_ENV)
+    if env is not None:
+        return float(env)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[1] * CARD_HEADROOM / 1e9
+    return CPU_BUDGET_GB
+
+
 def auto_atom_chunk(n_frames: int, d: int = 3, hbm_budget_gb=None,
                     dtype=np.float64, device=None) -> int:
     """The largest atom chunk whose :func:`chunk_peak_bytes` under the
     work ``dtype`` (float64, or float32 for the float32 work mode; the
     JAX function's signature) fits the device-memory budget, in GB (1e9
-    bytes): ``hbm_budget_gb``, else the
-    ``TRANSPORT_ANALYSIS_TPU_HBM_BUDGET_GB`` environment variable, else
-    :data:`CARD_HEADROOM` of the card's total memory
-    (``torch.cuda.mem_get_info``) on a CUDA ``device`` (the default), else
-    :data:`CPU_BUDGET_GB` on the CPU. Raises ``ValueError`` when not even
-    one atom fits."""
+    bytes): ``hbm_budget_gb``, else :func:`device_budget_gb` of
+    ``device``. Raises ``ValueError`` when not even one atom fits."""
     if hbm_budget_gb is None:
-        env = os.environ.get(HBM_BUDGET_ENV)
-        if env is not None:
-            hbm_budget_gb = float(env)
-        else:
-            dev = resolve_device(device)
-            if dev.type == "cuda":
-                hbm_budget_gb = (torch.cuda.mem_get_info(dev)[1]
-                                 * CARD_HEADROOM / 1e9)
-            else:
-                hbm_budget_gb = CPU_BUDGET_GB
+        hbm_budget_gb = device_budget_gb(device)
     budget = float(hbm_budget_gb) * 1e9
     if chunk_peak_bytes(n_frames, 1, d, dtype) > budget:
         raise ValueError(

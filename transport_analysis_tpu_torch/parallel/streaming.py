@@ -13,6 +13,15 @@ accumulators land in an ``.npz`` after every chunk (written to
 ``path + ".tmp"``, then ``os.replace``d) and an interrupted run resumes
 after the last finished chunk. The file has the JAX package's keys, so a
 checkpoint written by either package resumes in the other.
+
+The analyses come here by themselves when a whole run would not fit the
+card (``models.base.AnalysisBase._per_particle``). Each chunk's turn is
+a ``ta.chunk`` span; in it, ``ta.chunk.gather`` around the host copy
+that makes the chunk's columns contiguous (before its ``ta.h2d``) and
+``ta.chunk.merge`` around the running sum and the scatter into the
+(L, P) result (and, after the last chunk, its division by ``divisor``).
+The run counts ``chunks``, ``chunk_gather_bytes`` and
+``chunk_merge_bytes`` (``utils.profiling.COUNTS``).
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .._device import as_tensor, to_host
+from .._device import as_tensor, resolve_device, to_host
+from ..utils.profiling import count, span
 
 
 def shares_memory(t: torch.Tensor, series) -> bool:
@@ -36,6 +46,37 @@ def shares_memory(t: torch.Tensor, series) -> bool:
     return t.device.type == "cpu" and np.may_share_memory(t.numpy(), series)
 
 
+def gather_columns(part, device=None):
+    """A host array's particle range ``part`` (a view of an (N, P, d)
+    array: a chunk's, or a Helfand factor's mesh shard) as a C-contiguous
+    array for its copy to ``device`` (default: the card). A
+    non-contiguous numpy view is copied, in a ``ta.chunk.gather`` span,
+    its bytes counted as the run's ``chunk_gather_bytes``: on PyTorch's
+    intra-op threads (numpy's copy runs on one core), into page-locked
+    memory where the copy goes to a card (a tensor of PyTorch's caching
+    host allocator, whose blocks are recycled, held by the array), so
+    that copy runs at the bus's rate. Anything else is returned as it
+    is."""
+    if not isinstance(part, np.ndarray) or part.flags.c_contiguous:
+        return part
+    src = torch.from_numpy(part)
+    with span("ta.chunk.gather"):
+        out = torch.empty(src.shape, dtype=src.dtype, pin_memory=(
+            resolve_device(device).type == "cuda"))
+        out.copy_(src)
+    count("chunk_gather_bytes", out.nbytes)
+    return out.numpy()
+
+
+def particle_block(series, lo: int, hi: int, device=None) -> torch.Tensor:
+    """Particles [lo, hi) of ``series`` (an (N, P, d) array, tensor, or
+    object whose ``[:, lo:hi, :]`` gives one) as a contiguous tensor on
+    ``device`` (default: a tensor's own device, the card for an
+    array)."""
+    return as_tensor(gather_columns(series[:, lo:hi, :], device),
+                     device).contiguous()
+
+
 def chunked_per_particle(
     kernel: Callable,
     series,
@@ -43,6 +84,7 @@ def chunked_per_particle(
     want_by_particle: bool = True,
     checkpoint: Optional[str] = None,
     device=None,
+    divisor: Optional[float] = None,
 ):
     """Run ``kernel((N, p, d) tensor) → (L, p)`` over particle chunks.
 
@@ -55,7 +97,9 @@ def chunked_per_particle(
 
     Returns (timeseries_mean (L,), by_particle (L, P) or None), numpy
     float64: the mean is the sum over chunks of each chunk's particle sum,
-    divided by P, as in the JAX package.
+    divided by P, as in the JAX package; both divided by ``divisor``,
+    where given, once every chunk has run (a checkpoint holds them
+    undivided).
     """
     n_frames, n_particles, _ = series.shape
     n_chunks = -(-n_particles // chunk_particles)
@@ -81,33 +125,45 @@ def chunked_per_particle(
     for c in range(start_chunk, n_chunks):
         lo = c * chunk_particles
         hi = min(lo + chunk_particles, n_particles)
-        result = to_host(kernel(
-            as_tensor(series[:, lo:hi, :], device).contiguous()))
-        if acc is None:
-            acc = np.zeros(result.shape[0], dtype=np.float64)
-        if by_particle is None and want_by_particle:
-            by_particle = np.zeros((result.shape[0], n_particles))
-        acc += result.sum(axis=1)
-        if by_particle is not None:
-            by_particle[:, lo:hi] = result
-        # the chunk's host block goes back before the next chunk's copy
-        del result
-        if checkpoint:
-            payload = {
-                "n_frames": n_frames,
-                "n_particles": n_particles,
-                "chunk_particles": chunk_particles,
-                "next_chunk": c + 1,
-                "acc": acc,
-            }
-            if by_particle is not None:
-                payload["by_particle"] = by_particle
-            tmp = checkpoint + ".tmp"
-            with open(tmp, "wb") as fh:
-                np.savez(fh, **payload)
-            os.replace(tmp, checkpoint)
+        with span("ta.chunk"):
+            count("chunks", 1)
+            result = to_host(kernel(particle_block(series, lo, hi, device)))
+            with span("ta.chunk.merge"):
+                if acc is None:
+                    acc = np.zeros(result.shape[0], dtype=np.float64)
+                if by_particle is None and want_by_particle:
+                    by_particle = np.zeros((result.shape[0], n_particles))
+                # on PyTorch's intra-op threads, as the gather
+                acc += torch.from_numpy(result).sum(dim=1).numpy()
+                if by_particle is not None:
+                    torch.from_numpy(by_particle[:, lo:hi]).copy_(
+                        torch.from_numpy(result))
+            count("chunk_merge_bytes", result.nbytes)
+            # the chunk's host block goes back before the next chunk's copy
+            del result
+            if checkpoint:
+                payload = {
+                    "n_frames": n_frames,
+                    "n_particles": n_particles,
+                    "chunk_particles": chunk_particles,
+                    "next_chunk": c + 1,
+                    "acc": acc,
+                }
+                if by_particle is not None:
+                    payload["by_particle"] = by_particle
+                tmp = checkpoint + ".tmp"
+                with open(tmp, "wb") as fh:
+                    np.savez(fh, **payload)
+                os.replace(tmp, checkpoint)
 
     if acc is None:  # zero particles / zero chunks
         acc = np.zeros(n_frames, dtype=np.float64)
     timeseries = acc / max(n_particles, 1)
+    if divisor is not None:
+        with span("ta.chunk.merge"):
+            timeseries /= divisor
+            if by_particle is not None:
+                torch.from_numpy(by_particle).div_(divisor)
+        if by_particle is not None:
+            count("chunk_merge_bytes", by_particle.nbytes)
     return timeseries, by_particle

@@ -11,12 +11,16 @@ ranges named ``ta.*`` that a session records beside the card's kernels
 and copies, on its clock: ``ta.run.<run_id>`` around a run (and around
 the Green–Kubo integral of its results), ``ta.feed.read``,
 ``ta.feed.select``, ``ta.h2d``, ``ta.fft``, ``ta.lag``, ``ta.d2h`` (with
-``ta.d2h.alloc`` around a new page-locked block) and ``ta.fit``. With no
-session recording, a span enters nothing. The run's host copies are
-counted in bytes (:func:`count`; ``select_bytes``, ``h2d_bytes``,
-``d2h_bytes``, and ``d2h_pool_hit_bytes``, the result bytes that
-landed in a recycled page-locked block) on the run that is current on
-the thread, and ``analysis.timing.counts()`` returns them.
+``ta.d2h.alloc`` around a new page-locked block) and ``ta.fit``; a run
+streamed in atom chunks adds ``ta.chunk`` around each chunk's turn, with
+``ta.chunk.gather`` and ``ta.chunk.merge`` in it (``parallel.streaming``).
+With no session recording, a span enters nothing. The run's host copies
+are counted in bytes (:func:`count`; ``select_bytes``, ``h2d_bytes``,
+``d2h_bytes``, ``d2h_pool_hit_bytes``, the result bytes that landed in
+a recycled page-locked block, ``chunk_gather_bytes`` and
+``chunk_merge_bytes``), and its atom chunks in ``chunks`` (0 for a run
+that was not chunked), on the run that is current on the thread;
+``analysis.timing.counts()`` returns them.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ from typing import Optional
 
 import torch
 
-# the byte counters of a run (StageTimer.counts)
-COUNTS = ("select_bytes", "h2d_bytes", "d2h_bytes", "d2h_pool_hit_bytes")
+# the counters of a run (StageTimer.counts): bytes, and atom chunks run
+COUNTS = ("select_bytes", "h2d_bytes", "d2h_bytes", "d2h_pool_hit_bytes",
+          "chunks", "chunk_gather_bytes", "chunk_merge_bytes")
 # runs whose timing run_timing still finds by id
 RECENT_RUNS = 4096
 NO_SPAN = contextlib.nullcontext()
@@ -75,7 +80,7 @@ class StageTimer:
     synchronises it before it reads the clock on exit, so that a stage
     times the work it queued on the card, not only the launches.
 
-    Each timer takes the process's next ``run_id``; its byte counters
+    Each timer takes the process's next ``run_id``; its counters
     (:data:`COUNTS`) grow by :meth:`count`, and by :func:`count` while
     it is the thread's current run (:meth:`running`).
 
@@ -89,7 +94,9 @@ class StageTimer:
         t.as_dict()  # {'io': ..., 'compute': ..., 'total': ...,
                      #  'frames_per_s': ..., 'atom_frame_lags_per_s': ...}
         t.counts()   # {'select_bytes': ..., 'h2d_bytes': ...,
-                     #  'd2h_bytes': ..., 'd2h_pool_hit_bytes': ...}
+                     #  'd2h_bytes': ..., 'd2h_pool_hit_bytes': ...,
+                     #  'chunks': ..., 'chunk_gather_bytes': ...,
+                     #  'chunk_merge_bytes': ...}
     """
 
     def __init__(self, device=None):

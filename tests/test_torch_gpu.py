@@ -1195,3 +1195,166 @@ def test_analysis_step_and_dryrun_on_card(cuda_device):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-10,
                                    atol=1e-12)
     entry.dryrun_multichip(4)
+
+
+# --- page-locked trajectory arrays (models.base, _host_pool.ReaderStores) --
+
+STORE_SHAPE = (4096, 1024, 3)       # 50 MB of float32 an array
+
+
+def store_arrays(seed=5):
+    rng = np.random.default_rng(seed)
+    vel = rng.normal(size=STORE_SHAPE).astype(np.float32)
+    pos = np.cumsum(vel, axis=0, dtype=np.float32)
+    return pos, vel
+
+
+def store_universe(pos, vel):
+    n_atoms = pos.shape[1]
+    return convert.universe_from_arrays(
+        n_atoms, {"masses": np.linspace(1.0, 16.0, n_atoms)}, pos,
+        velocities=vel, dimensions=[30.0, 30.0, 30.0, 90.0, 90.0, 90.0])
+
+
+def store_runs(u, fft, frame_block=None):
+    """A VACF and a Helfand run over ``u`` on the card, as a user makes
+    them: their timings and per-particle results."""
+    from transport_analysis_tpu_torch.models import ViscosityHelfand
+
+    kwargs = {"fft": fft, "max_lag": None if fft else 256,
+              "frame_block": frame_block}
+    vacf = VelocityAutocorr(u.atoms, **kwargs).run()
+    vacf.self_diffusivity_gk()
+    helfand = ViscosityHelfand(u.atoms, linear_fit_window=(10, 40),
+                               **kwargs).run()
+    return ([vacf.timing, helfand.timing],
+            [vacf.results.vacf_by_particle, vacf.results.timeseries,
+             helfand.results.visc_by_particle, helfand.results.timeseries])
+
+
+@pytest.mark.parametrize("fft", [True, False])
+@pytest.mark.parametrize("frame_block", [None, 1024])
+def test_runs_over_page_locked_stores_equal_the_pageable_runs(
+        cuda_device, monkeypatch, fft, frame_block):
+    """VACF and Helfand over a MemoryReader whose arrays are page-locked
+    in place are bit-equal to the same runs over a pageable copy, batch
+    and frame-blocked feeds."""
+    from transport_analysis_tpu_torch import _host_pool
+
+    pos, vel = store_arrays()
+    u = store_universe(pos, vel)
+    first, _ = store_runs(u, fft, frame_block)
+    timings, got = store_runs(u, fft, frame_block)
+    assert torch.from_numpy(vel).is_pinned()
+    assert torch.from_numpy(pos).is_pinned()
+    monkeypatch.setattr(_host_pool.ReaderStores, "pin",
+                        lambda self, array: None)
+    copies = pos.copy(), vel.copy()
+    pageable = store_universe(*copies)
+    store_runs(pageable, fft, frame_block)
+    plain, want = store_runs(pageable, fft, frame_block)
+    assert not any(torch.from_numpy(a).is_pinned() for a in copies)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    # the feed crossed pageable in the reader's first run only, page-locked
+    # from its second, the Helfand run that registered it, on; only the
+    # masses and the fit's tables cross pageable beside it
+    feed = vel.nbytes
+    assert first[0].counts()["h2d_pinned_bytes"] == 0
+    assert first[1].counts()["h2d_register_bytes"] == 2 * feed
+    assert first[1].counts()["h2d_pinned_bytes"] == 2 * feed
+    assert timings[0].counts()["h2d_pinned_bytes"] == feed
+    assert timings[1].counts()["h2d_pinned_bytes"] == 2 * feed
+    assert sum(t.counts()["h2d_register_bytes"] for t in timings) == 0
+    assert sum(t.counts()["h2d_pinned_bytes"] for t in plain) == 0
+
+
+def test_the_second_run_page_locks_the_store_once(cuda_device):
+    """A reader's first run leaves its arrays pageable; the second
+    registers the array it feeds (``h2d_register_bytes``), which reads
+    ``is_pinned()`` after it, and later runs register nothing."""
+    from transport_analysis_tpu_torch import _host_pool
+
+    pos, vel = store_arrays(6)
+    u = store_universe(pos, vel)
+    first = VelocityAutocorr(u.atoms).run()
+    assert not torch.from_numpy(vel).is_pinned()
+    assert first.timing.counts()["h2d_register_bytes"] == 0
+    second = VelocityAutocorr(u.atoms).run(0, 2048)
+    assert torch.from_numpy(vel).is_pinned()
+    assert not torch.from_numpy(pos).is_pinned()
+    assert second.timing.counts()["h2d_register_bytes"] == vel.nbytes
+    again = VelocityAutocorr(u.atoms[:512]).run(0, 2048)
+    assert again.timing.counts()["h2d_register_bytes"] == 0
+    stores = _host_pool.reader_stores(u.trajectory)
+    assert stores.pinned() == [vel.ctypes.data] and stores.runs == 3
+
+
+TRACE_HTOD = r'''
+import json, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from transport_analysis_tpu_torch import VelocityAutocorr, convert
+
+rng = np.random.default_rng(7)
+vel = rng.normal(size=(4096, 1024, 3)).astype(np.float32)
+u = convert.universe_from_arrays(
+    1024, {"masses": np.ones(1024)}, np.zeros_like(vel), velocities=vel)
+VelocityAutocorr(u.atoms).run()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    VelocityAutocorr(u.atoms).run()
+    VelocityAutocorr(u.atoms).run(1024, 3072)
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[1])
+'''
+
+
+def test_a_trace_names_the_feed_copies_pinned(cuda_device, tmp_path):
+    """In a profiler trace (a fresh process, whose tracer keeps every
+    record) the feed's copies from the reader's second run on are
+    ``Memcpy HtoD (Pinned -> Device)``; only small tables cross
+    pageable."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = tmp_path / "trace.json"
+    subprocess.run([sys.executable, "-c", TRACE_HTOD, str(path)], cwd=root,
+                   check=True, timeout=300)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    htod = [(e["name"], e.get("args", {}).get("bytes", 0)) for e in events
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    feeds = [name for name, nbytes in htod if nbytes >= 1 << 20]
+    assert len(feeds) == 2
+    assert all("Pinned" in name for name in feeds), htod
+    assert all(nbytes < 1 << 20 for name, nbytes in htod
+               if "Pageable" in name), htod
+
+
+def test_a_collected_reader_releases_its_range(cuda_device):
+    """Once the reader is collected its arrays are unregistered: the
+    same range can be registered again."""
+    import gc
+
+    from transport_analysis_tpu_torch import _host_pool
+
+    pos, vel = store_arrays(8)
+    u = store_universe(pos, vel)
+    for _ in range(2):
+        VelocityAutocorr(u.atoms).run()
+    assert torch.from_numpy(vel).is_pinned()
+    ptr = vel.ctypes.data
+    del u
+    gc.collect()
+    assert not torch.from_numpy(vel).is_pinned()
+    _host_pool.register(ptr, vel.nbytes)
+    try:
+        assert torch.from_numpy(vel).is_pinned()
+    finally:
+        _host_pool.unregister(ptr)
+    assert not torch.from_numpy(vel).is_pinned()

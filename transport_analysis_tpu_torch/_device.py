@@ -10,7 +10,9 @@ nothing else.
 Host data crosses to the card through :func:`as_tensor` (or inside
 :func:`h2d`) and results come back through :func:`to_host`: each copy in
 a ``ta.h2d`` or ``ta.d2h`` span, its bytes counted on the current run
-(``utils.profiling``).
+(``utils.profiling``). A copy crosses by DMA where its host side is
+page-locked: a pinned tensor, or a view of a trajectory's array that
+``models.base`` page-locked in place.
 
 A result of ``_host_pool.POOL_MIN_BYTES`` or more comes back in a
 recycled page-locked host block (``_host_pool``), one DMA at the bus's
@@ -81,10 +83,15 @@ def resolve_device(device=None) -> torch.device:
 def h2d(host, device: torch.device):
     """The span of a copy of ``host`` (a numpy array or a CPU tensor) to
     ``device``: on a card ``ta.h2d``, its bytes counted as the current
-    run's ``h2d_bytes``; on the CPU nothing."""
+    run's ``h2d_bytes`` and, where its host side is page-locked (a pinned
+    tensor, an array of a page-locked trajectory), ``h2d_pinned_bytes``;
+    on the CPU nothing."""
     if device.type != "cuda":
         return NO_SPAN
     count("h2d_bytes", host.nbytes)
+    if (host if isinstance(host, torch.Tensor)
+            else torch.from_numpy(host)).is_pinned():
+        count("h2d_pinned_bytes", host.nbytes)
     return span("ta.h2d")
 
 

@@ -1,4 +1,5 @@
-"""Recycled page-locked host blocks for results copied back from a card.
+"""Page-locked host memory: recycled blocks for results copied back
+from a card, and the arrays of in-memory trajectories locked in place.
 
 A copy from the card into a fresh pageable array runs at the pace of
 the host's first touch of each 4 KiB page (about 2 GB/s on the H100's
@@ -19,6 +20,13 @@ the last block made, whatever their sizes. The new block's own room
 keeps two sizes that take turns, as two analyses of one selection do,
 from freeing each other's blocks while the most live at once still
 grows.
+
+The arrays of an in-memory trajectory that a run copies to a card
+whole, from the trajectory's second run on a card (``models.base``),
+are page-locked in place, each whole and once (:class:`ReaderStores`),
+so that their copies cross by DMA where they would have crossed through
+CUDA's pageable staging buffers (about 6 GB/s on the H100's host); they
+are unregistered when the trajectory is collected.
 """
 
 from __future__ import annotations
@@ -65,15 +73,25 @@ def unmap_block(block: Block) -> None:
     block.memory.close()
 
 
+def register(ptr: int, nbytes: int) -> None:
+    """Page-lock ``nbytes`` of host memory at ``ptr`` for every card
+    (``cudaHostRegisterPortable``); raises where the runtime refuses.
+    One registration for a whole range: a copy that crosses from one
+    registered range into another fails."""
+    torch.cuda.check_error(
+        torch.cuda.cudart().cudaHostRegister(ptr, nbytes, 1))
+
+
+def unregister(ptr: int) -> None:
+    torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(ptr))
+
+
 def pinned_block(nbytes: int) -> Block:
     """A new mapping of ``nbytes`` page-locked for every card
-    (``cudaHostRegisterPortable``), so a result of any card lands there
-    by DMA. One registration for the whole block: a copy that crosses
-    from one registered range into another fails."""
+    (:func:`register`), so a result of any card lands there by DMA."""
     block = map_block(nbytes)
     try:
-        torch.cuda.check_error(
-            torch.cuda.cudart().cudaHostRegister(block.ptr, nbytes, 1))
+        register(block.ptr, nbytes)
     except BaseException:
         unmap_block(block)
         raise
@@ -81,7 +99,7 @@ def pinned_block(nbytes: int) -> Block:
 
 
 def unpin_block(block: Block) -> None:
-    torch.cuda.check_error(torch.cuda.cudart().cudaHostUnregister(block.ptr))
+    unregister(block.ptr)
     unmap_block(block)
 
 
@@ -217,6 +235,96 @@ class HostBlockPool:
             self.high_bytes = self._live_bytes
         for block in blocks:
             self._free_block(block)
+
+
+def file_backed(array: np.ndarray) -> bool:
+    """Whether ``array``'s memory is a mapping (``np.memmap``, ``mmap``),
+    as of a file that ``np.load(..., mmap_mode=...)`` opened."""
+    while isinstance(array, np.ndarray):
+        if isinstance(array, np.memmap):
+            return True
+        array = array.base
+    if isinstance(array, memoryview):   # np.frombuffer's base
+        array = array.obj
+    return isinstance(array, mmap.mmap)
+
+
+class ReaderStores:
+    """The arrays of one in-memory trajectory that are page-locked in
+    place, each whole and at most once; thread-safe. ``runs`` counts the
+    runs on a card that read the trajectory (:meth:`count_run`).
+    :func:`reader_stores` gives a trajectory's, and unregisters them
+    (:meth:`release`) when it is collected."""
+
+    __slots__ = ("runs", "_state", "_lock")
+
+    def __init__(self):
+        self.runs = 0
+        # the address of each array tried: True page-locked, False refused
+        self._state: dict[int, bool] = {}
+        self._lock = threading.Lock()
+
+    def count_run(self) -> int:
+        """Count one more run; the runs counted, this one included."""
+        with self._lock:
+            self.runs += 1
+            return self.runs
+
+    def pin(self, array: np.ndarray) -> None:
+        """Page-lock ``array`` whole (:func:`register`) in a
+        ``ta.h2d.register`` span, its bytes counted as the run's
+        ``h2d_register_bytes``, unless it was tried before, or is not
+        C-contiguous, is under ``POOL_MIN_BYTES`` or is a file's mapping
+        (whose pages registering would read and lock in full). A refused
+        registration leaves it pageable, raises nothing and is not tried
+        again."""
+        if (not array.flags.c_contiguous or array.nbytes < POOL_MIN_BYTES
+                or file_backed(array)):
+            return
+        ptr = array.ctypes.data
+        with self._lock:
+            if ptr in self._state:
+                return
+            with span("ta.h2d.register"):
+                try:
+                    register(ptr, array.nbytes)
+                except RuntimeError:
+                    self._state[ptr] = False
+                    return
+            self._state[ptr] = True
+        count("h2d_register_bytes", array.nbytes)
+
+    def pinned(self) -> list[int]:
+        """The addresses of the arrays page-locked, in the order they
+        were."""
+        with self._lock:
+            return [ptr for ptr, ok in self._state.items() if ok]
+
+    def release(self) -> None:
+        """Unregister every array page-locked. Run by the trajectory's
+        finalizer, when no run holds the trajectory, so no :meth:`pin`
+        runs beside it, and without the lock, which a collection may find
+        held by the thread it interrupts."""
+        for ptr, ok in self._state.items():
+            if ok:
+                unregister(ptr)
+        self._state.clear()
+
+
+_READERS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_READERS_LOCK = threading.Lock()
+
+
+def reader_stores(reader) -> ReaderStores:
+    """The :class:`ReaderStores` of ``reader``, made at the first call;
+    the reader's collection releases it (at exit, the process's teardown
+    does). The reader holds its arrays, so their memory outlives it."""
+    with _READERS_LOCK:
+        stores = _READERS.get(reader)
+        if stores is None:
+            stores = _READERS[reader] = ReaderStores()
+            weakref.finalize(reader, stores.release).atexit = False
+    return stores
 
 
 # the process's pool for results copied back by ``_device.to_host``

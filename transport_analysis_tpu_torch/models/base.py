@@ -28,6 +28,14 @@ through :meth:`AnalysisBase._per_particle`: the whole selection at once,
 its particle shards under a mesh, or atom chunks
 (``parallel.streaming``), given by ``atom_chunk`` or chosen by the run
 itself where the whole FFT run would not fit the device's budget.
+
+From the second run on a card over one ``MemoryReader`` on, each of its
+arrays that a run copies to the card whole, as views of it (the whole
+selection, or frame blocks), is page-locked in place, whole and once
+(``_host_pool.ReaderStores``), so its copies cross by DMA; the reader's
+collection unregisters them. The first run keeps the pageable copy: a
+registration costs about as much as one pageable copy of the array, so
+only a repeat pays it back.
 """
 
 from __future__ import annotations
@@ -38,8 +46,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _host_pool
 from .._device import h2d, resolve_device, to_host, work_types
-from ..core.trajectory import take_axis
+from ..core.trajectory import MemoryReader, take_axis
 from ..ops import acf
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import map_particles
@@ -164,22 +173,48 @@ class AnalysisBase:
         block of one analysis is fed the same way: float32 samples cross
         to the device as float32 and are upcast there, exactly, unless
         ``TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE`` is set, which upcasts
-        them on the host; the results are identical either way."""
+        them on the host; the results are identical either way. Counts
+        the run on its trajectory (:meth:`_repeat_stores`)."""
         self._keep_f32 = not os.environ.get(NO_F32_SOURCE_ENV)
         self._buffers = {}
+        self._stores = self._repeat_stores()
 
     def _select(self, block, indices) -> np.ndarray:
         """The feed of the atoms ``indices`` of an (N, n_atoms, 3) frame
         block in the analysis's components (``self._dim``):
         :func:`select_series`, then :func:`source_cast`, in a
         ``ta.feed.select`` span; a new host array's bytes count as the
-        run's ``select_bytes``."""
+        run's ``select_bytes``. A view that the run copies to the card
+        whole (no atom chunk and no mesh, or frame blocks) page-locks the
+        reader's array it lies in where :meth:`_repeat_stores` gave
+        them."""
         with span("ta.feed.select"):
             out = source_cast(select_series(block, indices, self._dim),
                               self._work_dtype, self._keep_f32)
             if not np.may_share_memory(out, block):
                 count("select_bytes", out.nbytes)
+                return out
+        if self._stores is not None and (
+                self._frame_block is not None
+                or (current_mesh() is None and not self._run_chunk())):
+            reader = self._trajectory
+            for attr in ("positions", "velocities", "forces"):
+                array = reader.get_array(attr)
+                if array is not None and np.may_share_memory(out, array):
+                    self._stores.pin(array)
         return out
+
+    def _repeat_stores(self):
+        """The page-locked arrays (``_host_pool.reader_stores``) of the
+        run's trajectory where the run is on a card and the trajectory a
+        ``MemoryReader`` that an earlier run on a card read; else None.
+        This run's count is taken here."""
+        reader = self._trajectory
+        if self.device.type != "cuda" or not isinstance(reader,
+                                                        MemoryReader):
+            return None
+        stores = _host_pool.reader_stores(reader)
+        return stores if stores.count_run() > 1 else None
 
     def _feed_block(self, key, batch, indices, offset) -> None:
         """Frame-blocked feed: the block ``batch[key]`` of the atoms

@@ -10,14 +10,17 @@ Inside a run the program marks its layers with :func:`span`, profiler
 ranges named ``ta.*`` that a session records beside the card's kernels
 and copies, on its clock: ``ta.run.<run_id>`` around a run (and around
 the Green–Kubo integral of its results), ``ta.feed.read``,
-``ta.feed.select``, ``ta.h2d``, ``ta.fft``, ``ta.lag``, ``ta.d2h`` (with
+``ta.feed.select``, ``ta.h2d``, ``ta.h2d.register`` (an array of the
+trajectory page-locked), ``ta.fft``, ``ta.lag``, ``ta.d2h`` (with
 ``ta.d2h.alloc`` around a new page-locked block) and ``ta.fit``; a run
 streamed in atom chunks adds ``ta.chunk`` around each chunk's turn, with
 ``ta.chunk.gather`` and ``ta.chunk.merge`` in it (``parallel.streaming``).
 With no session recording, a span enters nothing. The run's host copies
 are counted in bytes (:func:`count`; ``select_bytes``, ``h2d_bytes``,
-``d2h_bytes``, ``d2h_pool_hit_bytes``, the result bytes that landed in
-a recycled page-locked block, ``chunk_gather_bytes`` and
+``h2d_pinned_bytes``, those whose host side was page-locked,
+``h2d_register_bytes``, those of the trajectory's arrays the run
+page-locked, ``d2h_bytes``, ``d2h_pool_hit_bytes``, the result bytes
+that landed in a recycled page-locked block, ``chunk_gather_bytes`` and
 ``chunk_merge_bytes``), and its atom chunks in ``chunks`` (0 for a run
 that was not chunked), on the run that is current on the thread;
 ``analysis.timing.counts()`` returns them.
@@ -36,7 +39,8 @@ from typing import Optional
 import torch
 
 # the counters of a run (StageTimer.counts): bytes, and atom chunks run
-COUNTS = ("select_bytes", "h2d_bytes", "d2h_bytes", "d2h_pool_hit_bytes",
+COUNTS = ("select_bytes", "h2d_bytes", "h2d_pinned_bytes",
+          "h2d_register_bytes", "d2h_bytes", "d2h_pool_hit_bytes",
           "chunks", "chunk_gather_bytes", "chunk_merge_bytes")
 # runs whose timing run_timing still finds by id
 RECENT_RUNS = 4096

@@ -2,7 +2,8 @@
 ``atom_chunk`` streams ``ops.acf.auto_atom_chunk`` chunks through
 ``parallel.streaming`` when the whole FFT run's
 ``ops.acf.chunk_peak_bytes`` is past the device's budget
-(``models.base.AnalysisBase._run_chunk``), and runs whole otherwise.
+(``models.base.ParticleAnalysis._run_chunk``, reckoned once a run),
+and runs whole otherwise.
 
 A system of 24 frames × 13 atoms, loaded by both packages from the same
 float32 arrays, with the budget set through
@@ -148,6 +149,30 @@ def test_explicit_atom_chunk_keeps_its_chunks(system, model, tight,
     assert auto.timing.counts()["chunks"] == math.ceil(N_ATOMS / CHUNK)
     assert not os.path.exists(unused)
     assert rel(auto.results[key], given.results[key]) <= PARTICLE_TOL
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+@pytest.mark.parametrize("atom_chunk", [None, 5])
+def test_the_plan_is_decided_once_a_run(system, model, atom_chunk, tight):
+    """The run plan (``ParticleAnalysis._run_chunk``) is reckoned once a
+    run, in ``_prepare``, and the run keeps to it: the budget's chunks,
+    or the chunks given."""
+    make, _ = MODELS[model]
+    cls = type(make(ta, system[1], device="cpu"))
+    calls = []
+    real = cls._run_chunk
+
+    def counted(self):
+        calls.append(self)
+        return real(self)
+
+    tight.setattr(cls, "_run_chunk", counted)
+    for _ in range(2):
+        got = make(ta, system[1], device="cpu", atom_chunk=atom_chunk).run()
+        assert calls == [got]
+        assert got.timing.counts()["chunks"] == math.ceil(
+            N_ATOMS / (atom_chunk or CHUNK))
+        calls.clear()
 
 
 @pytest.mark.parametrize("model", list(MODELS))

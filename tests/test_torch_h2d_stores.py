@@ -165,6 +165,25 @@ def test_the_first_run_registers_nothing(runtime, kind, fft):
     assert _host_pool.reader_stores(u.trajectory).runs == 1
 
 
+@pytest.mark.parametrize("kind", ["vacf", "helfand"])
+def test_a_repeat_run_decides_its_plan_once(runtime, monkeypatch, kind):
+    """The page-locking of a repeat run reads the run's plan, decided
+    once in ``_prepare``, for every array it feeds."""
+    calls = []
+    real = base.ParticleAnalysis._run_chunk
+
+    def counted(self):
+        calls.append(self.n_frames)
+        return real(self)
+
+    monkeypatch.setattr(base.ParticleAnalysis, "_run_chunk", counted)
+    u = universe()
+    run(u, kind)
+    run(u, kind, start=8)
+    assert calls == [N_FRAMES, N_FRAMES - 8]
+    assert runtime.calls == (2 if kind == "helfand" else 1)
+
+
 def test_frame_blocks_pin_the_array_they_lie_in(runtime, monkeypatch):
     """A frame-blocked feed copies each block whole: the blocks' array is
     registered once, at the repeat run's first block."""

@@ -55,7 +55,8 @@ def needs(path):
 
 
 def assert_frames_equal(port, ref):
-    """Every frame of two readers, as Timesteps, bit for bit."""
+    """Every frame of two readers, as Timesteps, bit for bit; the port's
+    samples are float32 (the analyses feed them as they are)."""
     assert (port.n_frames, port.n_atoms) == (ref.n_frames, ref.n_atoms)
     assert port.ts.dt == ref.ts.dt
     for i in range(ref.n_frames):
@@ -68,14 +69,18 @@ def assert_frames_equal(port, ref):
             assert getattr(p, has) == getattr(r, has)
             if getattr(r, has):
                 assert same(getattr(p, field), getattr(r, field)), field
+                assert getattr(p, field).dtype == np.float32, field
         assert p.data.get("step") == r.data.get("step")
 
 
 def assert_batches_equal(port, ref):
     """Two ``read_frames_batch`` results: arrays bit-equal, volumes to
-    VOLUME_TOL relative."""
+    VOLUME_TOL relative; the first's samples float32 (the analyses feed
+    them as they are)."""
     assert sorted(port) == sorted(ref)
     for key in port:
+        if key in FRAME_FIELDS:
+            assert port[key].dtype == np.float32, key
         if key == "volumes":
             np.testing.assert_allclose(port[key], ref[key], rtol=VOLUME_TOL,
                                        atol=0)
@@ -525,15 +530,16 @@ def test_iter_frame_blocks_vs_jax(n, block):
                                     "golden.dcd"])
 def test_prefetch_batches_vs_jax(source):
     """Every block the prefetcher yields is bit-equal to the JAX
-    package's, on a MemoryReader and through the file readers (the TRR
-    batch through the native decoder)."""
+    package's, on a MemoryReader (of float32 positions and float64
+    velocities) and through the file readers (the TRR batch through the
+    native decoder), its samples float32."""
     from transport_analysis_tpu.io.prefetch import prefetch_batches as jpb
     from transport_analysis_tpu_torch.io.prefetch import prefetch_batches
 
     if source == "memory":
         rng = np.random.RandomState(0)
         pos = rng.rand(20, 5, 3).astype(np.float32)
-        vel = rng.rand(20, 5, 3).astype(np.float32)
+        vel = rng.rand(20, 5, 3)
         reader = MemoryReader(pos, velocities=vel)
         jreader = JMemoryReader(pos, velocities=vel)
         frames, block = np.arange(0, 20, 2), 3
@@ -549,6 +555,8 @@ def test_prefetch_batches_vs_jax(source):
         for key in FRAME_FIELDS + ("times", "frames"):
             if key in w:
                 assert same(g[key], w[key]), key
+        for key in set(FRAME_FIELDS) & set(g):
+            assert g[key].dtype == np.float32, key
         assert np.allclose(g["volumes"], w["volumes"], rtol=VOLUME_TOL,
                            atol=0)
 

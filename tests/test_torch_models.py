@@ -231,39 +231,35 @@ def test_not_ported_packages_keep_introspection():
         assert not hasattr(pkg, "__wrapped__")
 
 
-# --- the f32-source opt-out (ROADMAP R2) ----------------------------------
+# --- the float32 feed in every engine --------------------------------------
+
+ENGINE_MODELS = {
+    "vacf": (lambda u, **kw: ta.VelocityAutocorr(u.atoms, **kw),
+             "vacf_by_particle", ("_velocities",)),
+    "helfand": (lambda u, **kw: ta.ViscosityHelfand(
+        u.atoms, linear_fit_window=(2, 8), **kw),
+        "visc_by_particle", ("_velocities", "_positions")),
+    "msd": (lambda u, **kw: ta.EinsteinMSD(u, **kw), "msds_by_particle",
+            ("_positions",)),
+}
 
 
-@pytest.mark.parametrize("set_at_prepare", [False, True])
-def test_f32_opt_out_resolved_once_per_analysis(pu, monkeypatch,
-                                                set_at_prepare):
-    """TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE is read in _prepare, once:
-    changing it while the analysis feeds its blocks changes nothing."""
-    env = base.NO_F32_SOURCE_ENV
-    vh = ta.ViscosityHelfand(pu.atoms, device="cpu")
-    traj = pu.trajectory
-    vh._setup_frames(traj)
-    if set_at_prepare:
-        monkeypatch.setenv(env, "1")
-    else:
-        monkeypatch.delenv(env, raising=False)
-    vh._prepare()
-    if set_at_prepare:
-        monkeypatch.delenv(env)
-    else:
-        monkeypatch.setenv(env, "1")
-    vh._process_batch(traj.read_frames_batch(vh.frames))
-    want = np.float64 if set_at_prepare else np.float32
-    assert vh._velocities.dtype == want
-    assert vh._positions.dtype == want
-
-
-def test_f32_opt_out_gives_identical_results(pu, monkeypatch):
-    monkeypatch.delenv(base.NO_F32_SOURCE_ENV, raising=False)
-    f32 = ta.ViscosityHelfand(pu.atoms, device="cpu").run()
-    monkeypatch.setenv(base.NO_F32_SOURCE_ENV, "1")
-    f64 = ta.ViscosityHelfand(pu.atoms, device="cpu").run()
-    assert np.array_equal(f32.results.timeseries, f64.results.timeseries)
+@pytest.mark.parametrize("model", list(ENGINE_MODELS))
+def test_frame_engine_feeds_float32_bit_equal_to_batch(pu, model):
+    """The per-frame engine feeds the reader's float32 samples, as the
+    batch engine does, and its results are bit-equal to the batch
+    engine's."""
+    make, key, feeds = ENGINE_MODELS[model]
+    batch = make(pu, device="cpu").run()
+    frame = make(pu, engine="frame", device="cpu").run()
+    for feed in feeds:
+        assert getattr(frame, feed).dtype == np.float32
+        assert np.array_equal(getattr(frame, feed), getattr(batch, feed))
+    assert np.array_equal(frame.results[key], batch.results[key])
+    assert np.array_equal(frame.results.timeseries,
+                          batch.results.timeseries)
+    if model == "helfand":
+        assert frame.results.viscosity == batch.results.viscosity
 
 
 # --- state carried across --------------------------------------------------

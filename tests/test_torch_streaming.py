@@ -26,8 +26,7 @@ from transport_analysis_tpu.parallel import streaming as jstreaming  # noqa: E40
 import transport_analysis_tpu_torch as ta  # noqa: E402
 from transport_analysis_tpu_torch import convert, ops  # noqa: E402
 from transport_analysis_tpu_torch.models import base  # noqa: E402
-from transport_analysis_tpu_torch.models.base import (  # noqa: E402
-    NO_F32_SOURCE_ENV, DeviceSeriesBuffer)
+from transport_analysis_tpu_torch.models.base import DeviceSeriesBuffer  # noqa: E402
 from transport_analysis_tpu_torch.ops import acf  # noqa: E402
 from transport_analysis_tpu_torch.parallel import streaming  # noqa: E402
 from transport_analysis_tpu_torch.utils.errors import NoDataError  # noqa: E402
@@ -285,14 +284,13 @@ def test_checkpoint_without_atom_chunk_is_ignored(system, model, tmp_path):
 
 @pytest.mark.parametrize("model", list(MODELS))
 @pytest.mark.parametrize("fft", [True, False])
-@pytest.mark.parametrize("no_f32", [False, True])
-def test_frame_block_vs_jax(system, model, fft, no_f32, monkeypatch):
-    """Frame blocks of 5 (a short last block) against the JAX package's
-    frame-blocked run, with and without the float32-source opt-out; the
+@pytest.mark.parametrize("frame_block", [5, N_FRAMES + 6])
+def test_frame_block_vs_jax(system, model, fft, frame_block, monkeypatch):
+    """Frame blocks of 5 (a short last block) and one block longer than
+    the trajectory against the JAX package's frame-blocked run; the
     port's own batch run of the same bytes is bit-equal. The device
-    buffers take the blocks' dtype and are released after the run."""
-    if no_f32:
-        monkeypatch.setenv(NO_F32_SOURCE_ENV, "1")
+    buffers take the blocks' float32 samples and are released after the
+    run."""
     made = []
 
     class Recorded(DeviceSeriesBuffer):
@@ -301,12 +299,11 @@ def test_frame_block_vs_jax(system, model, fft, no_f32, monkeypatch):
             made.append(self.array().dtype)
 
     monkeypatch.setattr(base, "DeviceSeriesBuffer", Recorded)
-    kwargs = {"fft": fft, "frame_block": 5}
+    kwargs = {"fft": fft, "frame_block": frame_block}
     ref, got, key = run_both(system, model, kwargs, kwargs)
     agree(ref, got, key)
     assert np.array_equal(got.times, ref.times)
-    want = torch.float64 if no_f32 else torch.float32
-    assert made == [want] * len(FEEDS[model])
+    assert made == [torch.float32] * len(FEEDS[model])
     assert all(getattr(got, f) is None for f in FEEDS[model])
     assert not got._buffers
     _, pu = system

@@ -30,7 +30,6 @@ import transport_analysis_tpu as jta  # noqa: E402
 from transport_analysis_tpu import ops as jops  # noqa: E402
 from transport_analysis_tpu.ops.pallas_lag import windowed_lag_pallas  # noqa: E402
 import transport_analysis_tpu_torch as ta  # noqa: E402
-from transport_analysis_tpu_torch.models.base import NO_F32_SOURCE_ENV  # noqa: E402
 from transport_analysis_tpu_torch.ops import cuda_lag  # noqa: E402
 from transport_analysis_tpu_torch.utils.errors import NoDataError  # noqa: E402
 
@@ -630,27 +629,29 @@ def test_msd_select_and_engines_vs_jax(systems, engine, max_lag):
 
 
 @pytest.mark.parametrize("engine", [None, "frame"])
-@pytest.mark.parametrize("f32_feed", [True, False])
-def test_msd_fft_leaves_its_feed_alone(monkeypatch, engine, f32_feed):
-    """The FFT path centers its operand in place; on the CPU the model
-    hands it a float64 copy, never its feed (float32 samples as read, or
-    float64 when the float32 feed is switched off)."""
-    if not f32_feed:
-        monkeypatch.setenv(NO_F32_SOURCE_ENV, "1")
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_msd_fft_leaves_its_feed_alone(engine, dtype):
+    """The FFT path centers its operand in place; the model hands it a
+    copy of its own, never its feed (the float32 samples as read), in
+    either work dtype: under float32 on the CPU the operand's ``.to``
+    makes no copy by itself."""
     u = ta.Universe.empty(4)
     u.load_new(np.cumsum(np.random.RandomState(5).normal(size=(40, 4, 3)),
                          axis=0).astype(np.float32))
     pos = u.trajectory.get_array("positions").copy()
-    first = ta.EinsteinMSD(u, engine=engine, device="cpu").run()
+    first = ta.EinsteinMSD(u, engine=engine, dtype=dtype,
+                           device="cpu").run()
     np.testing.assert_array_equal(u.trajectory.get_array("positions"), pos)
     if engine is None:
-        assert (first._positions.dtype == np.float32) == f32_feed
+        assert first._positions.dtype == np.float32
         np.testing.assert_array_equal(first._positions, pos)
-    again = ta.EinsteinMSD(u, engine=engine, device="cpu").run()
+    again = ta.EinsteinMSD(u, engine=engine, dtype=dtype,
+                           device="cpu").run()
     np.testing.assert_array_equal(again.results.msds_by_particle,
                                   first.results.msds_by_particle)
     brute = brute_force_msd(pos.astype(np.float64), [0, 1, 2])
-    assert rel(first.results.msds_by_particle, brute) <= TOL
+    tol = F32_TOL if dtype == np.float32 else TOL
+    assert rel(first.results.msds_by_particle, brute) <= tol
 
 
 @pytest.mark.parametrize("engine", [None, "frame"])

@@ -12,7 +12,9 @@ Host data crosses to the card through :func:`as_tensor` (or inside
 a ``ta.h2d`` or ``ta.d2h`` span, its bytes counted on the current run
 (``utils.profiling``). A copy crosses by DMA where its host side is
 page-locked: a pinned tensor, or a view of a trajectory's array that
-``models.base`` page-locked in place.
+the analyses' feed (``models.base.ParticleAnalysis``) page-locked in
+place. The feed is the float32 samples every reader yields; the work
+types below are what the device computes in.
 
 A result of ``_host_pool.POOL_MIN_BYTES`` or more comes back in a
 recycled page-locked host block (``_host_pool``), one DMA at the bus's

@@ -12,9 +12,8 @@ frame selection as stacked arrays in one ``read_frames_batch`` call; the
 per-frame ``_single_frame`` hook remains, for subclasses written against
 the MDAnalysis API and as the explicit ``engine="frame"`` parity mode.
 With ``frame_block=`` the selection arrives in blocks of that many frames,
-decoded on a background thread (``io.prefetch``), and each block is
-copied into a :class:`DeviceSeriesBuffer` on the analysis's device, so the
-host holds one decoded block at a time.
+decoded on a background thread (``io.prefetch``), and each block goes to
+``_process_block``.
 
 Every run records ``analysis.timing`` (``utils.profiling.StageTimer`` on
 the analysis's device): "io" around the feed, "compute" around
@@ -23,11 +22,19 @@ its ``run_id`` and the bytes its host copies moved (``counts()``). The
 run is a ``ta.run.<run_id>`` span; the feed's reads are ``ta.feed.read``
 and its selections ``ta.feed.select`` spans (``utils.profiling.span``).
 
-The analyses with per-particle results (VACF, Helfand, MSD) correlate
-through :meth:`AnalysisBase._per_particle`: the whole selection at once,
-its particle shards under a mesh, or atom chunks
-(``parallel.streaming``), given by ``atom_chunk`` or chosen by the run
-itself where the whole FFT run would not fit the device's budget.
+The analyses with per-particle results (VACF, Helfand, MSD) are
+:class:`ParticleAnalysis` subclasses. It owns their shared arguments,
+their feed and their run plan. Each declares the trajectory arrays it
+reads (``FEEDS``) and its missing-data message; the feed is those
+arrays' float32 samples, as every reader yields them, in all three
+engines: views of the batch where :func:`select_series` gives one, a
+:class:`DeviceSeriesBuffer` on the analysis's device for frame blocks (the
+host holds one decoded block at a time), float32 host buffers filled from
+each ``Timestep`` per frame. The run plan, decided once a run in
+``_prepare``: atom chunks (``parallel.streaming``), given by
+``atom_chunk`` or chosen where the whole FFT run would not fit the
+device's budget; else the particle shards of the current mesh; else the
+whole selection at once.
 
 From the second run on a card over one ``MemoryReader`` on, each of its
 arrays that a run copies to the card whole, as views of it (the whole
@@ -40,34 +47,30 @@ only a repeat pays it back.
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import _host_pool
-from .._device import h2d, resolve_device, to_host, work_types
+from .._device import WORK_TYPES, h2d, resolve_device, to_host, work_types
 from ..core.trajectory import MemoryReader, take_axis
 from ..ops import acf
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import map_particles
 from ..parallel.streaming import chunked_per_particle, particle_block
+from ..utils.errors import NoDataError
 from ..utils.profiling import StageTimer, count, span
+from ._dims import parse_dim_type
 
-NO_F32_SOURCE_ENV = "TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE"
 
-
-def source_cast(arr, work_dtype, keep_f32: bool) -> np.ndarray:
-    """f32-exact source handling for model feed buffers: float32 samples
-    stay float32 under a float64 work dtype when ``keep_f32`` (the
-    analysis resolves it once, in ``_prepare``); otherwise cast to the
-    work dtype."""
-    arr = np.asarray(arr)
-    work_dtype = np.dtype(work_dtype)
-    if keep_f32 and work_dtype == np.float64 and arr.dtype == np.float32:
-        return arr
-    return arr if arr.dtype == work_dtype else arr.astype(work_dtype)
+def check_work_dtype(dtype) -> None:
+    """The analyses' work dtype, as the JAX package takes it: float64
+    (the default, reference-grade numerics) or float32 (the float32 work
+    mode, about 1e-6 grade); anything else raises ``ValueError``."""
+    if np.dtype(dtype) not in WORK_TYPES:
+        raise ValueError(
+            f"dtype must be float64 or float32, got dtype={np.dtype(dtype)}")
 
 
 def select_series(block, indices, dim) -> np.ndarray:
@@ -83,8 +86,8 @@ class DeviceSeriesBuffer:
     """Assembles an (n_frames, …) series on ``device`` from host frame
     blocks: the host holds one decoded block at a time while the whole
     selection accumulates on the device. One ``torch.empty`` of ``shape``
-    whose dtype is the first block's (float32 samples stay float32 under
-    the f32-source mode); each block is copied into its rows."""
+    in ``dtype`` (the blocks' own, float32 for a trajectory's samples);
+    each block is copied into its rows."""
 
     def __init__(self, shape, dtype, device):
         self._buf = torch.empty(shape, dtype=work_types(dtype)[0],
@@ -169,110 +172,7 @@ class AnalysisBase:
 
     # --- subclass hooks ---------------------------------------------------------
     def _prepare(self):
-        """Per-run set-up. Reads the f32-source opt-out once, so every
-        block of one analysis is fed the same way: float32 samples cross
-        to the device as float32 and are upcast there, exactly, unless
-        ``TRANSPORT_ANALYSIS_TPU_NO_F32_SOURCE`` is set, which upcasts
-        them on the host; the results are identical either way. Counts
-        the run on its trajectory (:meth:`_repeat_stores`)."""
-        self._keep_f32 = not os.environ.get(NO_F32_SOURCE_ENV)
-        self._buffers = {}
-        self._stores = self._repeat_stores()
-
-    def _select(self, block, indices) -> np.ndarray:
-        """The feed of the atoms ``indices`` of an (N, n_atoms, 3) frame
-        block in the analysis's components (``self._dim``):
-        :func:`select_series`, then :func:`source_cast`, in a
-        ``ta.feed.select`` span; a new host array's bytes count as the
-        run's ``select_bytes``. A view that the run copies to the card
-        whole (no atom chunk and no mesh, or frame blocks) page-locks the
-        reader's array it lies in where :meth:`_repeat_stores` gave
-        them."""
-        with span("ta.feed.select"):
-            out = source_cast(select_series(block, indices, self._dim),
-                              self._work_dtype, self._keep_f32)
-            if not np.may_share_memory(out, block):
-                count("select_bytes", out.nbytes)
-                return out
-        if self._stores is not None and (
-                self._frame_block is not None
-                or (current_mesh() is None and not self._run_chunk())):
-            reader = self._trajectory
-            for attr in ("positions", "velocities", "forces"):
-                array = reader.get_array(attr)
-                if array is not None and np.may_share_memory(out, array):
-                    self._stores.pin(array)
-        return out
-
-    def _repeat_stores(self):
-        """The page-locked arrays (``_host_pool.reader_stores``) of the
-        run's trajectory where the run is on a card and the trajectory a
-        ``MemoryReader`` that an earlier run on a card read; else None.
-        This run's count is taken here."""
-        reader = self._trajectory
-        if self.device.type != "cuda" or not isinstance(reader,
-                                                        MemoryReader):
-            return None
-        stores = _host_pool.reader_stores(reader)
-        return stores if stores.count_run() > 1 else None
-
-    def _feed_block(self, key, batch, indices, offset) -> None:
-        """Frame-blocked feed: the block ``batch[key]`` of the atoms
-        ``indices`` in the analysis's components (``self._dim``), copied
-        into the device buffer ``self._<key>`` at row ``offset``; the
-        buffer is made at the first block, with that block's dtype, and
-        released when the run has concluded."""
-        block = self._select(batch[key], indices)
-        if offset == 0:
-            self._buffers[key] = DeviceSeriesBuffer(
-                (self.n_frames, len(indices), len(self._dim)), block.dtype,
-                self.device)
-        self._buffers[key].write(block, offset)
-        setattr(self, "_" + key, self._buffers[key].array())
-
-    def _run_chunk(self) -> Optional[int]:
-        """The atom chunk this run correlates by: ``atom_chunk`` where
-        given; else, on the FFT path with no mesh current, where the
-        whole run's ``ops.acf.chunk_peak_bytes`` (frames N, particles P,
-        components d, the work dtype) is past ``ops.acf.device_budget_gb``
-        of the device, ``ops.acf.auto_atom_chunk``'s; else None, the
-        whole run at once. (The windowed path reckons far less.) For the
-        analyses that set ``fft``, ``atom_chunk``, ``dim_fac``,
-        ``n_particles`` and ``_work_dtype``."""
-        if self.atom_chunk:
-            return self.atom_chunk
-        if not self.fft or current_mesh() is not None:
-            return None
-        n, d, dtype = self.n_frames, self.dim_fac, self._work_dtype
-        budget = acf.device_budget_gb(self.device)
-        if acf.chunk_peak_bytes(n, self.n_particles, d, dtype) <= budget * 1e9:
-            return None
-        return acf.auto_atom_chunk(n, d, hbm_budget_gb=budget, dtype=dtype,
-                                   device=self.device)
-
-    def _per_particle(self, kernel, series, piece=None, divisor=None):
-        """(timeseries (L,), by_particle (L, P)) of ``kernel`` ((N, p, d)
-        tensor → (L, p)) over the particles of ``series`` (N, P, d), as
-        host arrays, both divided by ``divisor`` where given: in the
-        atom chunks of :meth:`_run_chunk` (``parallel.streaming``;
-        ``checkpoint`` with an explicit ``atom_chunk`` only; float64
-        accumulators), else on each particle shard of the current mesh
-        (``piece`` as ``parallel.sharding.map_particles`` takes it), else
-        the whole selection at once on the analysis's device."""
-        chunk = self._run_chunk()
-        if chunk:
-            return chunked_per_particle(
-                kernel, series, chunk, device=self.device, divisor=divisor,
-                checkpoint=self.checkpoint if self.atom_chunk else None)
-        if current_mesh() is None:
-            by_particle = kernel(particle_block(series, 0, series.shape[1],
-                                                self.device))
-        else:
-            by_particle = map_particles(kernel, series, piece)
-        if divisor is not None:
-            by_particle /= divisor
-        host = to_host(by_particle)
-        return to_host(by_particle.mean(dim=1)), host
+        pass
 
     def _single_frame(self):  # pragma: no cover - overridden
         raise NotImplementedError(
@@ -410,7 +310,183 @@ class AnalysisBase:
             n_particles=getattr(self, "n_particles", 0),
             n_lags=getattr(self, "n_lags", None),
         )
+
+
+class ParticleAnalysis(AnalysisBase):
+    """An analysis of per-particle series of one AtomGroup (VACF,
+    Helfand, MSD): their shared arguments, their feed and their run plan.
+
+    A subclass declares ``FEEDS``, the trajectory arrays it reads
+    ("velocities", "positions"), and ``NO_DATA_MSG``, the
+    ``NoDataError`` message when one is missing; every engine then gives
+    it ``self._<feed>``, the (N, P, d) float32 samples of its atoms and
+    components: the batch's :func:`select_series` (a view where it gives
+    one), a :class:`DeviceSeriesBuffer` of frame blocks, or float32 host
+    buffers filled frame by frame. ``_feed_frames`` takes any other
+    per-frame data; ``_conclude`` correlates through
+    :meth:`_per_particle`.
+    """
+
+    FEEDS: tuple = ()
+    NO_DATA_MSG = ""
+
+    def __init__(self, atomgroup, dim_type: str = "xyz", fft: bool = True,
+                 max_lag=None, atom_chunk=None, checkpoint=None,
+                 dtype=np.float64, **kwargs):
+        self._dim, self.dim_fac = parse_dim_type(dim_type)
+        check_work_dtype(dtype)
+        super().__init__(atomgroup.universe.trajectory, **kwargs)
+        self.atomgroup = atomgroup
+        self.n_particles = len(atomgroup)
+        self.fft = fft
+        self.max_lag = max_lag
+        self.atom_chunk = atom_chunk
+        self.checkpoint = checkpoint
+        self._work_dtype = np.dtype(dtype)
+
+    def _prepare(self):
+        """Per-run set-up: the lags, the run plan and the trajectory's
+        page-locked arrays (:meth:`_repeat_stores`, which counts the run
+        on its trajectory). The plan is decided here, once: atom chunks
+        of ``self._chunk`` particles (:meth:`_run_chunk`), else the
+        current mesh's particle shards, else the whole selection
+        (``self._whole``)."""
+        self.n_lags = (self.n_frames if self.max_lag is None
+                       else min(self.max_lag, self.n_frames))
+        self._chunk = self._run_chunk()
+        self._whole = not self._chunk and current_mesh() is None
+        self._buffers = {}
+        self._stores = self._repeat_stores()
+
+    def _run(self, *args) -> None:
+        super()._run(*args)
         # a finished run keeps its results, not its feed on the device
-        for key in getattr(self, "_buffers", {}):
+        for key in self._buffers:
             setattr(self, "_" + key, None)
         self._buffers = {}
+
+    # --- the feed ------------------------------------------------------------
+    def _validate_trajectory(self):
+        if not all(getattr(self._trajectory, "has_" + key)
+                   for key in self.FEEDS):
+            raise NoDataError(self.NO_DATA_MSG)
+
+    def _frames(self, frames, offset) -> list:
+        """The ``FEEDS`` arrays of ``frames`` (a batch, a frame block or
+        one frame, as ``read_frames_batch`` keys them) whose first frame
+        is the run's ``offset``, after :meth:`_feed_frames` has taken its
+        data; a missing one raises ``NoDataError``."""
+        if any(key not in frames for key in self.FEEDS):
+            raise NoDataError(self.NO_DATA_MSG)
+        self._feed_frames(frames, offset)
+        return [frames[key] for key in self.FEEDS]
+
+    def _feed_frames(self, frames, offset) -> None:
+        """Hook: the analysis's own per-frame data of ``frames``."""
+
+    def _process_batch(self, batch):
+        for key, block in zip(self.FEEDS, self._frames(batch, 0)):
+            setattr(self, "_" + key, self._select(block))
+
+    def _process_block(self, batch, offset):
+        """Frame-blocked feed: each block copied into a device buffer
+        at row ``offset``; the buffer is made at the first block, with
+        that block's dtype, and released when the run has concluded."""
+        for key, block in zip(self.FEEDS, self._frames(batch, offset)):
+            block = self._select(block)
+            if offset == 0:
+                self._buffers[key] = DeviceSeriesBuffer(
+                    (self.n_frames,) + block.shape[1:], block.dtype,
+                    self.device)
+            self._buffers[key].write(block, offset)
+            setattr(self, "_" + key, self._buffers[key].array())
+
+    def _single_frame(self):
+        """Per-frame engine: the Timestep's samples of the atoms, in the
+        analysis's components, into float32 host buffers at row
+        ``_frame_index``."""
+        ts, i = self._ts, self._frame_index
+        frame = {"volumes": [ts.volume]}
+        frame.update((key, getattr(self.atomgroup, key)[:, self._dim])
+                     for key in self.FEEDS if getattr(ts, "has_" + key))
+        for key, sample in zip(self.FEEDS, self._frames(frame, i)):
+            if i == 0:
+                setattr(self, "_" + key, np.empty(
+                    (self.n_frames,) + sample.shape, np.float32))
+            getattr(self, "_" + key)[i] = sample
+
+    def _select(self, block) -> np.ndarray:
+        """The feed of an (N, n_atoms, 3) frame block: its
+        :func:`select_series` of the analysis's atoms and components, in
+        a ``ta.feed.select`` span; a new host array's bytes count as the
+        run's ``select_bytes``. A view that the run copies to the card
+        whole (the whole plan, or frame blocks) page-locks the reader's
+        array it lies in where :meth:`_repeat_stores` gave them."""
+        with span("ta.feed.select"):
+            out = select_series(block, self.atomgroup.indices, self._dim)
+            if not np.may_share_memory(out, block):
+                count("select_bytes", out.nbytes)
+                return out
+        if self._stores is not None and (self._frame_block is not None
+                                         or self._whole):
+            reader = self._trajectory
+            for attr in ("positions", "velocities", "forces"):
+                array = reader.get_array(attr)
+                if array is not None and np.may_share_memory(out, array):
+                    self._stores.pin(array)
+        return out
+
+    def _repeat_stores(self):
+        """The page-locked arrays (``_host_pool.reader_stores``) of the
+        run's trajectory where the run is on a card and the trajectory a
+        ``MemoryReader`` that an earlier run on a card read; else None.
+        This run's count is taken here."""
+        reader = self._trajectory
+        if self.device.type != "cuda" or not isinstance(reader,
+                                                        MemoryReader):
+            return None
+        stores = _host_pool.reader_stores(reader)
+        return stores if stores.count_run() > 1 else None
+
+    # --- the run plan --------------------------------------------------------
+    def _run_chunk(self) -> Optional[int]:
+        """The atom chunk this run correlates by: ``atom_chunk`` where
+        given; else, on the FFT path with no mesh current, where the
+        whole run's ``ops.acf.chunk_peak_bytes`` (frames N, particles P,
+        components d, the work dtype) is past ``ops.acf.device_budget_gb``
+        of the device, ``ops.acf.auto_atom_chunk``'s; else None, the
+        whole run at once. (The windowed path reckons far less.)"""
+        if self.atom_chunk:
+            return self.atom_chunk
+        if not self.fft or current_mesh() is not None:
+            return None
+        n, d, dtype = self.n_frames, self.dim_fac, self._work_dtype
+        budget = acf.device_budget_gb(self.device)
+        if acf.chunk_peak_bytes(n, self.n_particles, d, dtype) <= budget * 1e9:
+            return None
+        return acf.auto_atom_chunk(n, d, hbm_budget_gb=budget, dtype=dtype,
+                                   device=self.device)
+
+    def _per_particle(self, kernel, series, piece=None, divisor=None):
+        """(timeseries (L,), by_particle (L, P)) of ``kernel`` ((N, p, d)
+        tensor → (L, p)) over the particles of ``series`` (N, P, d), as
+        host arrays, both divided by ``divisor`` where given, by the
+        run's plan: in its atom chunks (``parallel.streaming``;
+        ``checkpoint`` with an explicit ``atom_chunk`` only; float64
+        accumulators), the whole selection at once on the analysis's
+        device, or each particle shard of the current mesh (``piece`` as
+        ``parallel.sharding.map_particles`` takes it)."""
+        if self._chunk:
+            return chunked_per_particle(
+                kernel, series, self._chunk, device=self.device,
+                divisor=divisor,
+                checkpoint=self.checkpoint if self.atom_chunk else None)
+        if self._whole:
+            by_particle = kernel(particle_block(series, 0, series.shape[1],
+                                                self.device))
+        else:
+            by_particle = map_particles(kernel, series, piece)
+        if divisor is not None:
+            by_particle /= divisor
+        host = to_host(by_particle)
+        return to_host(by_particle.mean(dim=1)), host

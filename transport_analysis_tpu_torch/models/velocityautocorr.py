@@ -9,10 +9,12 @@ averaged over all atoms in the group. Same public surface — ctor
 ``(atomgroup, dim_type, fft)``, ``run(start, stop, step)``,
 ``results.timeseries`` / ``results.vacf_by_particle``,
 ``self_diffusivity_gk`` / ``_gk_odd``, ``plot_vacf`` /
-``plot_running_integral`` — plus ``device=``. The frame selection crosses
-to the device in one transfer and the FFT path runs batched over every
-particle at once; ``fft=False`` runs the exact windowed sums (K8) on
-the same feed, O(N·n_lags) per atom. ``frame_block=`` feeds the card in
+``plot_running_integral`` — plus ``device=``. The frame selection's
+float32 velocities (the feed of ``models.base.ParticleAnalysis``) cross
+to the device in one transfer, upcast there under the float64 work
+dtype, and the FFT path runs batched over every particle at once;
+``fft=False`` runs the exact windowed sums (K8) on the same feed,
+O(N·n_lags) per atom. ``frame_block=`` feeds the card in
 frame blocks; ``atom_chunk=`` correlates that many atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume
 from; without it, an FFT run too large for the device's budget streams
@@ -34,16 +36,14 @@ import numpy as np
 import torch
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, check_work_dtype
 from .. import ops
 from .._device import as_tensor, work_types
 from ..ops import cuda_lag
 from ..utils.profiling import span
-from .base import AnalysisBase
-from ._dims import parse_dim_type
+from .base import ParticleAnalysis
 
 
-class VelocityAutocorr(AnalysisBase):
+class VelocityAutocorr(ParticleAnalysis):
     """Velocity autocorrelation function over an AtomGroup.
 
     Parameters
@@ -79,6 +79,9 @@ class VelocityAutocorr(AnalysisBase):
         where there is none), the CPU only as ``"cpu"``.
     """
 
+    FEEDS = ("velocities",)
+    NO_DATA_MSG = "VACF computation requires velocities in the trajectory"
+
     def __init__(self, atomgroup, dim_type: str = "xyz", fft: bool = True,
                  max_lag=None, atom_chunk=None, checkpoint=None,
                  dtype=np.float64, **kwargs):
@@ -87,79 +90,20 @@ class VelocityAutocorr(AnalysisBase):
                 "UpdatingAtomGroups are not valid for VACF computation"
             )
         self.dim_type = dim_type.lower()
-        self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        check_work_dtype(dtype)
-        super().__init__(atomgroup.universe.trajectory, **kwargs)
-        self.fft = fft
-        self.max_lag = max_lag
-        self.atom_chunk = atom_chunk
-        self.checkpoint = checkpoint
-        self._work_dtype = np.dtype(dtype)
-        self.atomgroup = atomgroup
-        self.n_particles = len(atomgroup)
+        super().__init__(atomgroup, self.dim_type, fft, max_lag, atom_chunk,
+                         checkpoint, dtype, **kwargs)
         self._run_called = False
 
-    # --- engine hooks -------------------------------------------------------
-    def _prepare(self):
-        super()._prepare()
-        self.results.vacf_by_particle = np.zeros(
-            (self.n_frames, self.n_particles)
-        )
-        self._velocities = np.zeros(
-            (self.n_frames, self.n_particles, self.dim_fac),
-            dtype=self._work_dtype,
-        )
-
-    def _validate_trajectory(self):
-        if not self._trajectory.has_velocities:
-            raise NoDataError(
-                "VACF computation requires velocities in the trajectory"
-            )
-
-    def _process_batch(self, batch):
-        if "velocities" not in batch:
-            raise NoDataError(
-                "VACF computation requires velocities in the trajectory"
-            )
-        # float32 samples stay float32 (half the transfer); under the
-        # float64 work dtype the device upcasts them exactly
-        # (ops.acf_fft_from_f32)
-        self._velocities = self._select(batch["velocities"],
-                                        self.atomgroup.indices)
-
-    def _process_block(self, batch, offset):
-        """Frame-blocked feed (models/base.py ``DeviceSeriesBuffer``)."""
-        if "velocities" not in batch:
-            raise NoDataError(
-                "VACF computation requires velocities in the trajectory"
-            )
-        self._feed_block("velocities", batch, self.atomgroup.indices, offset)
-
-    def _single_frame(self):
-        if not self._ts.has_velocities:
-            raise NoDataError(
-                "VACF computation requires velocities in the trajectory"
-            )
-        self._velocities[self._frame_index] = self.atomgroup.velocities[
-            :, self._dim
-        ]
-
     def _conclude(self):
-        self.n_lags = (
-            self.n_frames
-            if self.max_lag is None
-            else min(self.max_lag, self.n_frames)
-        )
-
         work = work_types(self._work_dtype)[0]
 
         def kernel(v):
+            # the float32 feed is upcast inside the kernel, exactly,
+            # under the float64 work dtype
             if not self.fft:
-                # float32 samples under the float64 work dtype are upcast
-                # inside the kernel, exactly
                 return cuda_lag.lag_sums(v, self.n_lags, "acf", "sum",
                                          out_dtype=work)
-            if work == torch.float64 and v.dtype == torch.float32:
+            if work == torch.float64:
                 return ops.acf_fft_from_f32(v)[: self.n_lags]
             return ops.acf_fft(v)[: self.n_lags]
 

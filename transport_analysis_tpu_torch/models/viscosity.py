@@ -11,7 +11,8 @@ as ``results.viscosity``.
 The Einstein differences run through the Kneller/Calandrini FFT path
 (ops/einstein.py) on the device, or with ``fft=False`` through the exact
 windowed sums (K8), the reference's algorithm; the accumulator m·v·x is
-formed there in the work dtype from the float32 feed. ``frame_block=``
+formed there in the work dtype from the float32 feed of velocities and
+positions (``models.base.ParticleAnalysis``). ``frame_block=``
 feeds the card in frame blocks (the per-frame volumes stay on the host);
 ``atom_chunk=`` forms m·v·x and correlates it a chunk of atoms at a time
 (``parallel.streaming``), with ``checkpoint=`` an ``.npz`` to resume from
@@ -28,15 +29,14 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.groups import UpdatingAtomGroup
-from ..utils.errors import NoDataError, check_work_dtype
+from ..utils.errors import NoDataError
 from ..utils.units import constants
 from .. import ops
 from ..ops.einstein import einstein_difference_fft_
 from .._device import as_tensor
 from ..parallel.streaming import gather_columns
 from ..utils.profiling import span
-from .base import AnalysisBase
-from ._dims import parse_dim_type
+from .base import ParticleAnalysis
 
 
 class HelfandSeries:
@@ -69,7 +69,7 @@ class HelfandSeries:
         return accum
 
 
-class ViscosityHelfand(AnalysisBase):
+class ViscosityHelfand(ParticleAnalysis):
     """Einstein–Helfand viscosity function over an AtomGroup.
 
     Parameters
@@ -102,6 +102,12 @@ class ViscosityHelfand(AnalysisBase):
         where there is none), the CPU only as ``"cpu"``.
     """
 
+    FEEDS = ("velocities", "positions")
+    NO_DATA_MSG = (
+        "Helfand viscosity computation requires "
+        "velocities, positions, and box volume in the trajectory"
+    )
+
     def __init__(
         self,
         atomgroup,
@@ -122,34 +128,13 @@ class ViscosityHelfand(AnalysisBase):
         self.temp_avg = temp_avg
         self.dim_type = dim_type.lower()
         self.linear_fit_window = linear_fit_window
-        self._dim, self.dim_fac = parse_dim_type(self.dim_type)
-        check_work_dtype(dtype)
-        super().__init__(atomgroup.universe.trajectory, **kwargs)
-        self.fft = fft
-        self.max_lag = max_lag
-        self.atom_chunk = atom_chunk
-        self.checkpoint = checkpoint
-        self._work_dtype = np.dtype(dtype)
-        self.atomgroup = atomgroup
-        self.n_particles = len(atomgroup)
+        super().__init__(atomgroup, self.dim_type, fft, max_lag, atom_chunk,
+                         checkpoint, dtype, **kwargs)
 
-    # --- engine hooks ---------------------------------------------------------
     def _prepare(self):
         super()._prepare()
-        self.results.visc_by_particle = np.zeros(
-            (self.n_frames, self.n_particles)
-        )
-        self._volumes = np.zeros(self.n_frames)
         self._masses = np.asarray(
             self.atomgroup.masses, dtype=self._work_dtype
-        )
-        self._velocities = np.zeros(
-            (self.n_frames, self.n_particles, self.dim_fac),
-            dtype=self._work_dtype,
-        )
-        self._positions = np.zeros(
-            (self.n_frames, self.n_particles, self.dim_fac),
-            dtype=self._work_dtype,
         )
         # keep the historical-typo fallback contract (MDAnalysis #4213)
         try:
@@ -157,59 +142,15 @@ class ViscosityHelfand(AnalysisBase):
         except KeyError:  # pragma: no cover
             self.boltzmann = constants["Boltzman_constant"]
 
-    _NO_DATA_MSG = (
-        "Helfand viscosity computation requires "
-        "velocities, positions, and box volume in the trajectory"
-    )
-
-    def _validate_trajectory(self):
-        traj = self._trajectory
-        if not (traj.has_velocities and traj.has_positions):
-            raise NoDataError(self._NO_DATA_MSG)
-
-    def _process_batch(self, batch):
-        if "velocities" not in batch or "positions" not in batch:
-            raise NoDataError(self._NO_DATA_MSG)
-        volumes = np.asarray(batch["volumes"], dtype=np.float64)
+    def _feed_frames(self, frames, offset):
+        """The per-frame box volumes, (N,) scalars kept on the host, of
+        every engine's frames; a zero volume raises."""
+        volumes = np.asarray(frames["volumes"], dtype=np.float64)
         if np.any(volumes == 0.0):
-            raise NoDataError(self._NO_DATA_MSG)
-        self._volumes = volumes
-        idx = self.atomgroup.indices
-        # float32 samples stay float32 (half the transfer); m·v·x is
-        # formed in the work dtype on the device (an upcast is exact)
-        self._velocities = self._select(batch["velocities"], idx)
-        self._positions = self._select(batch["positions"], idx)
-
-    def _process_block(self, batch, offset):
-        """Frame-blocked feed: velocity and position blocks go to device
-        buffers (models/base.py ``DeviceSeriesBuffer``); the per-frame
-        volumes, (N,) scalars, stay on the host."""
-        if "velocities" not in batch or "positions" not in batch:
-            raise NoDataError(self._NO_DATA_MSG)
-        volumes = np.asarray(batch["volumes"], dtype=np.float64)
-        if np.any(volumes == 0.0):
-            raise NoDataError(self._NO_DATA_MSG)
+            raise NoDataError(self.NO_DATA_MSG)
         if offset == 0:
-            self._volumes = np.zeros(self.n_frames, np.float64)
+            self._volumes = np.zeros(self.n_frames)
         self._volumes[offset:offset + len(volumes)] = volumes
-        idx = self.atomgroup.indices
-        self._feed_block("velocities", batch, idx, offset)
-        self._feed_block("positions", batch, idx, offset)
-
-    def _single_frame(self):
-        if not (
-            self._ts.has_velocities
-            and self._ts.has_positions
-            and self._ts.volume != 0
-        ):
-            raise NoDataError(self._NO_DATA_MSG)
-        self._volumes[self._frame_index] = self._ts.volume
-        self._velocities[self._frame_index] = self.atomgroup.velocities[
-            :, self._dim
-        ]
-        self._positions[self._frame_index] = self.atomgroup.positions[
-            :, self._dim
-        ]
 
     def _conclude(self):
         self._vol_avg = float(np.average(self._volumes))
@@ -218,11 +159,6 @@ class ViscosityHelfand(AnalysisBase):
         # for the atoms asked for (all of them, or one chunk at a time)
         series = HelfandSeries(self._masses, self._velocities,
                                self._positions, dev)
-        self.n_lags = (
-            self.n_frames
-            if self.max_lag is None
-            else min(self.max_lag, self.n_frames)
-        )
 
         def kernel(accum):
             # ``accum`` is a new tensor of ``series``: the FFT path

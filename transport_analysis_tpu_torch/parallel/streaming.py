@@ -15,7 +15,7 @@ after the last finished chunk. The file has the JAX package's keys, so a
 checkpoint written by either package resumes in the other.
 
 The analyses come here by themselves when a whole run would not fit the
-card (``models.base.AnalysisBase._per_particle``). Each chunk's turn is
+card (``models.base.ParticleAnalysis._per_particle``). Each chunk's turn is
 a ``ta.chunk`` span; in it, ``ta.chunk.gather`` around the host copy
 that makes the chunk's columns contiguous (before its ``ta.h2d``) and
 ``ta.chunk.merge`` around the running sum and the scatter into the

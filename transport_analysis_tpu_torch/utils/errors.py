@@ -5,8 +5,6 @@ Mirrors the error contract the reference consumes from MDAnalysis:
 (reference velocityautocorr.py:186-189, viscosity.py:178-186).
 """
 
-import numpy as np
-
 
 class TransportAnalysisError(Exception):
     """Base class for all transport_analysis_tpu_torch errors."""
@@ -23,15 +21,3 @@ class NoDataError(TransportAnalysisError, ValueError, AttributeError):
 class SelectionError(TransportAnalysisError, ValueError):
     """Raised for invalid atom-selection strings."""
 
-
-def check_work_dtype(dtype) -> None:
-    """The analyses' work dtype, as the JAX package takes it: float64
-    (the default, reference-grade numerics) or float32 (the float32 work
-    mode, about 1e-6 grade); anything else raises ``ValueError``."""
-    # imported here: ``_device`` imports ``utils.profiling``, so this
-    # package, for its spans
-    from .._device import WORK_TYPES
-
-    if np.dtype(dtype) not in WORK_TYPES:
-        raise ValueError(
-            f"dtype must be float64 or float32, got dtype={np.dtype(dtype)}")
